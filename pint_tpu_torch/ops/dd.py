@@ -1,0 +1,187 @@
+"""Double-double ("dd") arithmetic on torch tensors: each value is an
+unevaluated sum ``hi + lo`` of two float64 tensors (~32 significant
+digits, eps ~ 2^-104).
+
+A port of ``pint_tpu/ops/dd.py``: the same error-free transforms in the
+same order, so on the CPU the results are bitwise those of the reference.
+
+- ``DD`` is a NamedTuple of two tensors; every op is a plain eager tensor
+  function. Each torch op is its own kernel, so nothing contracts a
+  multiply and an add into an FMA — the Dekker split product
+  (``_split``/``two_prod``) depends on that. Never route these functions
+  through ``torch.compile``: its generated kernels may contract.
+- IEEE f64 is correctly rounded on the CPU and on the GPU alike, so the
+  same chain is exact on both.
+- The photon path takes no derivatives; the reference's custom JVP rules
+  are not ported here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Union
+
+import torch
+
+Tensor = torch.Tensor
+FloatLike = Union[float, Tensor]
+
+# Veltkamp splitting constants: 2**ceil(p/2) + 1 for a p-bit mantissa.
+_SPLITTER_F64 = 134217729.0   # 2**27 + 1
+_SPLITTER_F32 = 4097.0        # 2**12 + 1
+
+
+class DD(NamedTuple):
+    """Unevaluated sum hi + lo, |lo| <= ulp(hi)/2 after renormalization."""
+
+    hi: Tensor
+    lo: Tensor
+
+
+def dd(hi: Tensor, lo: FloatLike = 0.0) -> DD:
+    """A DD from one or two tensors of any relative magnitude
+    (renormalized with a full two-sum)."""
+    lo = torch.as_tensor(lo, dtype=hi.dtype, device=hi.device)
+    hi, lo = torch.broadcast_tensors(hi, lo)
+    s = two_sum(hi, lo)
+    return _quick_two_sum(s.hi, s.lo)
+
+
+def dd_to_f64(a: DD) -> Tensor:
+    return a.hi + a.lo
+
+
+# ----------------------------------------------------------------------
+# Error-free transforms
+# ----------------------------------------------------------------------
+
+def two_sum(a: Tensor, b: Tensor) -> DD:
+    """Knuth two-sum: s + err == a + b exactly."""
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    return DD(s, err)
+
+
+def _quick_two_sum(a: Tensor, b: Tensor) -> DD:
+    """Fast two-sum, requires |a| >= |b| (or a == 0)."""
+    s = a + b
+    err = b - (s - a)
+    return DD(s, err)
+
+
+def _split(a: Tensor):
+    splitter = _SPLITTER_F32 if a.dtype == torch.float32 else _SPLITTER_F64
+    t = splitter * a
+    a_hi = t - (t - a)
+    a_lo = a - a_hi
+    return a_hi, a_lo
+
+
+def two_prod(a: Tensor, b: Tensor) -> DD:
+    """Dekker two-product: p + err == a * b exactly (round-to-nearest,
+    no FMA contraction)."""
+    p = a * b
+    a_hi, a_lo = _split(a)
+    b_hi, b_lo = _split(b)
+    err = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo
+    return DD(p, err)
+
+
+# ----------------------------------------------------------------------
+# DD arithmetic
+# ----------------------------------------------------------------------
+
+def dd_add(a: DD, b: DD) -> DD:
+    s = two_sum(a.hi, b.hi)
+    e = s.lo + (a.lo + b.lo)
+    return _quick_two_sum(s.hi, e)
+
+
+def dd_sub(a: DD, b: DD) -> DD:
+    s = two_sum(a.hi, -b.hi)
+    e = s.lo + (a.lo - b.lo)
+    return _quick_two_sum(s.hi, e)
+
+
+def dd_mul(a: DD, b: DD) -> DD:
+    p = two_prod(a.hi, b.hi)
+    e = p.lo + (a.hi * b.lo + a.lo * b.hi)
+    return _quick_two_sum(p.hi, e)
+
+
+def dd_div(a: DD, b: DD) -> DD:
+    # long division with one Newton correction — standard dd recipe
+    q1 = a.hi / b.hi
+    r = dd_sub(a, dd_mul_f(b, q1))
+    q2 = (r.hi + r.lo) / (b.hi + b.lo)
+    return _quick_two_sum(q1, q2)
+
+
+def dd_neg(a: DD) -> DD:
+    return DD(-a.hi, -a.lo)
+
+
+# f64-mixed fast paths (second operand an ordinary float64)
+
+def _like(b: FloatLike, a: DD) -> Tensor:
+    return torch.as_tensor(b, dtype=a.hi.dtype, device=a.hi.device)
+
+
+def dd_add_f(a: DD, b: FloatLike) -> DD:
+    s = two_sum(a.hi, _like(b, a))
+    return _quick_two_sum(s.hi, s.lo + a.lo)
+
+
+def dd_sub_f(a: DD, b: FloatLike) -> DD:
+    return dd_add_f(a, -_like(b, a))
+
+
+def dd_mul_f(a: DD, b: FloatLike) -> DD:
+    b = _like(b, a)
+    p = two_prod(a.hi, b)
+    return _quick_two_sum(p.hi, p.lo + a.lo * b)
+
+
+def dd_div_f(a: DD, b: FloatLike) -> DD:
+    b = _like(b, a)
+    return dd_div(a, DD(b, torch.zeros_like(b)))
+
+
+# ----------------------------------------------------------------------
+# Rounding / fractional part — the pulse-number primitives
+# (torch.round rounds half to even, as jnp.round does)
+# ----------------------------------------------------------------------
+
+def dd_round(a: DD) -> DD:
+    """Round to nearest integer, returned as DD (exact)."""
+    n1 = torch.round(a.hi)
+    s = two_sum(a.hi, -n1)
+    r = (s.hi + a.lo) + s.lo
+    bump = torch.round(r)
+    return dd(n1, bump)
+
+
+def dd_frac(a: DD) -> DD:
+    """Signed fractional part in [-0.5, 0.5]: a - round(a), exact."""
+    n1 = torch.round(a.hi)
+    s = two_sum(a.hi, -n1)
+    t = two_sum(s.hi, a.lo)
+    vhi, vlo = t.hi, t.lo + s.lo
+    n2 = torch.round(vhi)
+    s2 = two_sum(vhi, -n2)
+    f0 = two_sum(s2.hi, vlo)
+    f = _quick_two_sum(f0.hi, f0.lo + s2.lo)
+    # renormalize into [-0.5, 0.5]
+    shift = (f.hi > 0.5).to(f.hi.dtype) - (f.hi < -0.5).to(f.hi.dtype)
+    s3 = two_sum(f.hi, -shift)
+    f1 = two_sum(s3.hi, f.lo)
+    return _quick_two_sum(f1.hi, f1.lo + s3.lo)
+
+
+def dd_int_frac(a: DD):
+    """(integer part as DD, signed frac in [-0.5, 0.5] as DD)."""
+    return dd_round(a), dd_frac(a)
+
+
+def dd_where(cond: Tensor, a: DD, b: DD) -> DD:
+    return DD(torch.where(cond, a.hi, b.hi), torch.where(cond, a.lo, b.lo))

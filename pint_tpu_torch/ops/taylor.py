@@ -1,0 +1,48 @@
+"""Taylor-series evaluation (a port of pint_tpu/ops/taylor.py).
+
+``taylor_horner(dt, [c0, c1, c2, ...]) = c0 + c1 dt + c2 dt^2/2! + ...``
+is the spindown phase engine of the reference
+(src/pint/utils.py taylor_horner; src/pint/models/spindown.py):
+
+- ``taylor_horner``: plain Horner in the dtype of ``dt`` (delays, DM);
+- ``dd_taylor_horner``: double-double accumulator (absolute pulse phase,
+  where F0*dt is ~1e10 turns and must keep <1e-9 turn error).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+from pint_tpu_torch.ops.dd import DD, dd_add, dd_add_f, dd_div_f, dd_mul
+
+
+def taylor_horner(dt: torch.Tensor, coeffs: Sequence):
+    """Sum_i coeffs[i] * dt^i / i! via Horner (coeffs: floats or 0-d
+    tensors)."""
+    n = len(coeffs)
+    acc = torch.zeros_like(dt)
+    for i in reversed(range(n)):
+        acc = acc * dt + coeffs[i] / math.factorial(i)
+    return acc
+
+
+def dd_taylor_horner(dt: DD, coeffs: Sequence) -> DD:
+    """Sum_i coeffs[i] * dt^i / i! with a double-double accumulator.
+
+    ``dt`` is DD (seconds since epoch); each coefficient is a DD (F0 and
+    friends keep their par-file digits) or a plain number."""
+    z = torch.zeros_like(dt.hi)
+    acc = DD(z, z)
+    for i in reversed(range(len(coeffs))):
+        ci = coeffs[i]
+        fct = float(math.factorial(i))
+        acc = dd_mul(acc, dt)
+        if isinstance(ci, DD):
+            acc = dd_add(acc, dd_div_f(ci, fct) if fct != 1.0 else ci)
+        else:
+            acc = dd_add_f(acc, torch.as_tensor(
+                ci, dtype=dt.hi.dtype, device=dt.hi.device) / fct)
+    return acc

@@ -1,0 +1,337 @@
+"""TOA container and the ingestion pipeline (clock → TDB → posvels)
+(a port of pint_tpu/toa.py; reference: src/pint/toa.py TOA, TOAs,
+get_TOAs_array).
+
+All Earth-frame, clock and ephemeris physics is precomputed once, on the
+host, into flat numpy columns (the reference's host code, copied); the
+device then sees a ``ToaBatch``, a NamedTuple of float64 torch tensors,
+made by ``TOAs.to_batch(device)`` with one host→device copy.
+
+Times are carried as (int day f64, fraction as host double-double pair)
+and never squeezed through a single float64.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+from pint_tpu_torch import c_m_s, resolve_device
+from pint_tpu_torch.ephemeris import get_ephemeris
+from pint_tpu_torch.observatory import get_observatory
+from pint_tpu_torch.ops import dd_np
+from pint_tpu_torch.ops.dd import DD
+from pint_tpu_torch.time import scales
+
+SECS_PER_DAY = 86400.0
+
+# Monotonic token identifying a TOAs *state* (object identity is not
+# enough: Python reuses ids after GC, and a TOAs can be mutated in
+# place by the pipeline). TimingModel keys its per-batch cache on this.
+_TOAS_SERIAL = itertools.count(1)
+
+# Planets used by PLANET_SHAPIRO, in reference order
+# (src/pint/models/solar_system_shapiro.py _ss_obj_delay callers).
+PLANETS = ("jupiter", "saturn", "venus", "uranus", "neptune")
+
+
+class ToaBatch(NamedTuple):
+    """Device struct-of-arrays view of a TOA set: float64 tensors on one
+    device. Positions are in light-seconds, velocities in lt-s/s (v/c).
+    """
+
+    tdb_day: torch.Tensor        # (N,) integer TDB day (f64-exact)
+    tdb_frac: DD                 # (N,) dd TDB day fraction
+    freq_mhz: torch.Tensor       # (N,) barycentric obs frequency (inf ok)
+    error_us: torch.Tensor       # (N,) raw TOA uncertainty
+    ssb_obs_pos: torch.Tensor    # (N,3) SSB→observatory, lt-s
+    ssb_obs_vel: torch.Tensor    # (N,3) d/dt of the above, lt-s/s
+    obs_sun_pos: torch.Tensor    # (N,3) observatory→Sun, lt-s
+    obs_planet_pos: torch.Tensor  # (P,N,3) observatory→planet, lt-s
+    pulse_number: torch.Tensor   # (N,) f64, NaN where untracked
+
+    @property
+    def ntoas(self):
+        return self.freq_mhz.shape[0]
+
+
+# host column name (tdb_frac split in two) → leaf, in buffer order
+_COLUMNS = ("tdb_day", "tdb_frac_hi", "tdb_frac_lo", "freq_mhz",
+            "error_us", "ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos",
+            "obs_planet_pos", "pulse_number")
+
+
+def pack_batch(cols: Dict[str, np.ndarray], device) -> ToaBatch:
+    """ToaBatch on ``device`` from float64 host columns, moved by ONE
+    host→device copy: the columns are laid end to end in one buffer and
+    every leaf is a contiguous view of the copy."""
+    arrays = [np.ascontiguousarray(cols[k], dtype=np.float64)
+              for k in _COLUMNS]
+    flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrays]))
+    dev_flat = flat.to(device)
+    views, off = {}, 0
+    for k, a in zip(_COLUMNS, arrays):
+        views[k] = dev_flat[off:off + a.size].view(a.shape)
+        off += a.size
+    return ToaBatch(
+        tdb_day=views["tdb_day"],
+        tdb_frac=DD(views["tdb_frac_hi"], views["tdb_frac_lo"]),
+        freq_mhz=views["freq_mhz"],
+        error_us=views["error_us"],
+        ssb_obs_pos=views["ssb_obs_pos"],
+        ssb_obs_vel=views["ssb_obs_vel"],
+        obs_sun_pos=views["obs_sun_pos"],
+        obs_planet_pos=views["obs_planet_pos"],
+        pulse_number=views["pulse_number"],
+    )
+
+
+class TOAs:
+    """Host-side TOA table (reference: TOAs over an astropy Table; here a
+    plain struct of numpy columns + python-side flags), made by
+    get_TOAs_array. ``device`` is where ``to_batch()`` puts the batch by
+    default; ``weights`` holds photon weights or None."""
+
+    def _touch(self):
+        """Mark this TOAs state as changed (invalidates model caches)."""
+        self._serial = next(_TOAS_SERIAL)
+
+    @property
+    def cache_key(self):
+        return self._serial
+
+    # ---------------- basic container protocol ----------------
+
+    @property
+    def ntoas(self):
+        return len(self.obs)
+
+    def get_mjds(self, high_precision=False):
+        """UTC MJDs as f64 (or (day, frac-dd) when high_precision)."""
+        if high_precision:
+            return self.mjd_day, self.mjd_frac
+        return self.mjd_day + dd_np.to_f64(self.mjd_frac)
+
+    def get_flag_value(self, flag, fill_value=None, as_type=None):
+        out = []
+        for f in self.flags:
+            v = f.get(flag, fill_value)
+            if v is not None and as_type is not None:
+                v = as_type(v)
+            out.append(v)
+        return out
+
+    def get_pulse_numbers(self):
+        pn = self.get_flag_value("pn", fill_value="nan", as_type=float)
+        arr = np.array(pn)
+        return None if np.all(np.isnan(arr)) else arr
+
+    # ---------------- the pipeline ----------------
+
+    def apply_clock_corrections(self, include_gps=True, include_bipm=True,
+                                bipm_version="BIPM2021", limits="warn"):
+        """Add observatory clock chain to the raw MJDs, per obs group
+        (reference: TOAs.apply_clock_corrections)."""
+        if self.clock_applied:
+            return
+        mjd_f64 = self.get_mjds()
+        corr = np.zeros(self.ntoas)
+        for site in set(self.obs):
+            m = np.array([o == site for o in self.obs])
+            obs = get_observatory(site)
+            corr[m] = obs.clock_corrections(
+                mjd_f64[m], include_gps=include_gps,
+                include_bipm=include_bipm, bipm_version=bipm_version,
+                limits=limits)
+        self.mjd_frac = dd_np.add(
+            self.mjd_frac, dd_np.div_f(dd_np.dd(corr), SECS_PER_DAY))
+        for f, c in zip(self.flags, corr):
+            f["clkcorr"] = repr(float(c))
+        self.clock_applied = True
+        self._touch()
+
+    def compute_TDBs(self, ephem=None):
+        """UTC(site) → TT → TDB per TOA (reference: TOAs.compute_TDBs).
+        Barycenter-site TOAs are already TDB and pass through. Ground
+        sites get the topocentric TDB−TT term +(v_earth . r_obs)/c^2 on
+        top of the geocentric Fairhead–Bretagnon series."""
+        tdb_day = np.array(self.mjd_day)
+        fhi = np.array(self.mjd_frac[0])
+        flo = np.array(self.mjd_frac[1])
+        scale = np.array(
+            [get_observatory(o).timescale for o in self.obs])
+        utc_mask = scale != "tdb"
+        if np.any(utc_mask):
+            day = self.mjd_day[utc_mask]
+            frac = (self.mjd_frac[0][utc_mask], self.mjd_frac[1][utc_mask])
+            tt = scales.utc_mjd_to_tt_mjd(day, frac)
+            tdb = scales.tt_mjd_to_tdb_mjd(tt)
+            # topocentric term for every non-geocentric observer
+            tt_f64 = dd_np.to_f64(tt)
+            utc_f64 = (day + frac[0] + frac[1])
+            dt_topo = np.zeros_like(tt_f64)
+            sub_obs = [o for o, m in zip(self.obs, utc_mask) if m]
+            sub_flags = [f for f, m in zip(self.flags, utc_mask) if m]
+            self._site_gcrs_cache = {}
+            if sub_obs:
+                eph = get_ephemeris(ephem)
+                _, v_earth = eph.ssb_posvel("earth", tt_f64)
+                for site in set(sub_obs):
+                    m = np.array([o == site for o in sub_obs])
+                    obs = get_observatory(site)
+                    if hasattr(obs, "posvel_from_flags"):
+                        r_m, v_m = obs.posvel_from_flags(
+                            [f for f, mm in zip(sub_flags, m) if mm])
+                    else:
+                        r_m, v_m = obs.gcrs_posvel(utc_f64[m],
+                                                   tt_f64[m])
+                    # reused by compute_posvels (same epochs)
+                    self._site_gcrs_cache[site] = (m, r_m, v_m)
+                    dt_topo[m] = np.sum(v_earth[m] * r_m,
+                                        axis=-1) / c_m_s ** 2
+            tdb = dd_np.add(tdb, dd_np.div_f(dd_np.dd(dt_topo),
+                                             SECS_PER_DAY))
+            # renormalize to (int day, frac) — keep day integral for exact
+            # downstream (day − epoch) arithmetic
+            d = np.round(tdb[0])
+            rest = dd_np.add_f(dd_np.dd(tdb[0] - d, tdb[1]), 0.0)
+            tdb_day[utc_mask] = d
+            fhi[utc_mask] = rest[0]
+            flo[utc_mask] = rest[1]
+        self.tdb_day = tdb_day
+        self._touch()
+        self.tdb_frac = (fhi, flo)
+
+    def compute_posvels(self, ephem=None, planets=False):
+        """Observatory SSB position/velocity and Sun/planet geometry at
+        each TDB (reference: TOAs.compute_posvels)."""
+        if self.tdb_day is None:
+            self.compute_TDBs(ephem=ephem)
+        eph = get_ephemeris(ephem)
+        self.ephem = getattr(eph, "name", str(ephem))
+        self.planets = planets
+        tdb = self.tdb_day + dd_np.to_f64(self.tdb_frac)
+        utc = self.get_mjds()
+        earth_pos, earth_vel = eph.ssb_posvel("earth", tdb)
+        obs_pos = np.zeros((self.ntoas, 3))
+        obs_vel = np.zeros((self.ntoas, 3))
+        cache = getattr(self, "_site_gcrs_cache", {})
+        for site in set(self.obs):
+            m = np.array([o == site for o in self.obs])
+            obs = get_observatory(site)
+            if obs.name == "barycenter":
+                # positions stay zero; earth contribution removed below
+                continue
+            cached = cache.get(site)
+            if cached is not None and \
+                    cached[0].sum() == int(m.sum()):
+                obs_pos[m] = cached[1]
+                obs_vel[m] = cached[2]
+                continue
+            if hasattr(obs, "posvel_from_flags"):  # T2SpacecraftObs
+                p, v = obs.posvel_from_flags(
+                    [f for f, mm in zip(self.flags, m) if mm])
+                obs_pos[m] = p
+                obs_vel[m] = v
+                continue
+            p, v = obs.gcrs_posvel(utc[m], tdb[m])
+            obs_pos[m] = p
+            obs_vel[m] = v
+        bary = np.array([o == "barycenter" for o in self.obs])
+        ssb_obs_pos = earth_pos + obs_pos
+        ssb_obs_vel = earth_vel + obs_vel
+        if np.any(bary):
+            ssb_obs_pos[bary] = 0.0
+            ssb_obs_vel[bary] = 0.0
+        self.ssb_obs_pos = ssb_obs_pos
+        self.ssb_obs_vel = ssb_obs_vel
+        sun_pos, _ = eph.ssb_posvel("sun", tdb)
+        self.obs_sun_pos = sun_pos - ssb_obs_pos
+        self.obs_planet_pos = {}
+        if planets:
+            for pl in PLANETS:
+                p, _ = eph.ssb_posvel(pl, tdb)
+                self.obs_planet_pos[pl] = p - ssb_obs_pos
+        self._touch()
+
+    # ---------------- device view ----------------
+
+    def to_batch(self, device=None) -> ToaBatch:
+        """The device batch (meters → light-seconds), on ``device`` or
+        this table's device, in one host→device copy."""
+        if self.ssb_obs_pos is None:
+            raise ValueError(
+                "run compute_posvels() (or use get_TOAs_array) before "
+                "to_batch()")
+        dev = self.device if device is None else resolve_device(device)
+        pn = self.get_pulse_numbers()
+        if pn is None:
+            pn = np.full(self.ntoas, np.nan)
+        planet = np.stack(
+            [self.obs_planet_pos[p] for p in PLANETS], axis=0
+        ) / c_m_s if self.obs_planet_pos else np.zeros((0, self.ntoas, 3))
+        return pack_batch({
+            "tdb_day": self.tdb_day,
+            "tdb_frac_hi": self.tdb_frac[0],
+            "tdb_frac_lo": self.tdb_frac[1],
+            "freq_mhz": self.freq_mhz,
+            "error_us": self.error_us,
+            "ssb_obs_pos": self.ssb_obs_pos / c_m_s,
+            "ssb_obs_vel": self.ssb_obs_vel / c_m_s,
+            "obs_sun_pos": self.obs_sun_pos / c_m_s,
+            "obs_planet_pos": planet,
+            "pulse_number": pn,
+        }, dev)
+
+
+def get_TOAs_array(mjds, obs="barycenter", freqs=np.inf, errors=1.0,
+                   ephem=None, planets=False, flags=None, include_gps=True,
+                   include_bipm=True, bipm_version="BIPM2021",
+                   limits="warn", device=None) -> TOAs:
+    """Build TOAs directly from arrays (reference: get_TOAs_array). mjds
+    may be f64 (splitting day/frac) or an (day, frac-dd) pair. ``device``
+    (None means "cuda") is where to_batch() puts the batch."""
+    dev = resolve_device(device)
+    if isinstance(mjds, tuple):
+        day, frac = mjds
+        day = np.asarray(day, np.float64)
+        frac = (np.asarray(frac[0], np.float64),
+                np.asarray(frac[1], np.float64))
+    else:
+        m = np.atleast_1d(np.asarray(mjds, np.float64))
+        day = np.floor(m)
+        frac = dd_np.dd(m - day)
+    day = np.atleast_1d(day)
+    frac = (np.atleast_1d(frac[0]), np.atleast_1d(frac[1]))
+    n = day.shape[0]
+    freqs = np.broadcast_to(np.asarray(freqs, np.float64), (n,))
+    errors = np.broadcast_to(np.asarray(errors, np.float64), (n,))
+    obs_list = [obs] * n if isinstance(obs, str) else list(obs)
+    out = object.__new__(TOAs)
+    out.device = dev
+    out.mjd_day = day
+    out.mjd_frac = frac
+    out.freq_mhz = np.array(freqs)
+    out.error_us = np.array(errors)
+    out.obs = [get_observatory(o).name for o in obs_list]
+    out.flags = [dict(f) for f in flags] if flags is not None \
+        else [{} for _ in range(n)]
+    out.names = [f"fake{i}" for i in range(n)]
+    out._serial = next(_TOAS_SERIAL)
+    out.clock_applied = False
+    out.weights = None
+    out.tdb_day = None
+    out.tdb_frac = None
+    out.ssb_obs_pos = out.ssb_obs_vel = out.obs_sun_pos = None
+    out.obs_planet_pos = None
+    out.ephem = None
+    out.planets = planets
+    out.apply_clock_corrections(include_gps=include_gps,
+                                include_bipm=include_bipm,
+                                bipm_version=bipm_version, limits=limits)
+    out.compute_TDBs(ephem=ephem)
+    out.compute_posvels(ephem=ephem, planets=planets)
+    return out
