@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (pint_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed S] [--n N] [--m M]
+    python3 chip_smoke.py [--seed S] [--n N] [--m M] [--baseline-src CU]
 
 Phases, each fatal on failure:
 
-1. build the z2_harmonics CUDA kernel with nvcc (into build/);
+1. build the z2_harmonics CUDA kernel with nvcc (into build/) and print
+   ptxas's registers and spills for every instantiation (a spill fails);
 2. hold the kernel against its plain PyTorch version on the card, in
    float32 and float64, at N in {1, 1000, 8209, N} and m in {1, 2, 20,
-   129}, with rtol 5e-4 and atol 5e-3*sqrt(N); two launches must be
-   bitwise equal, and zero-weight rows at the ragged edge must be inert;
+   32, 33, 129}, with rtol 5e-4 and atol 5e-3*sqrt(N); float64 and mixed
+   float32/float64 inputs (and a misaligned slice) must give bitwise the
+   result of the kernel on the inputs cast to float32, two launches
+   must be bitwise equal, zero-weight rows at the ragged edge must be
+   inert, and the error against the float64 plain version at the main
+   shape must be at most 0.05;
 3. the double-double phase on the GPU must equal the port's CPU phase on
    the first 65,536 photons (integer part exactly, fraction to 1e-11);
 4. run the photonphase path end to end on the GPU through the port's CLI
@@ -18,8 +23,15 @@ Phases, each fatal on failure:
    from a seeded, J0030+0451-like isolated millisecond pulsar: the phases
    must cluster at the injected peak, H must agree with H from the
    float64 plain version, and the kernel must have been launched;
-5. print timings, the card's name and power limit, and one JSON line of
-   kernel measurements.
+5. time the kernel with float32 inputs (the TPU kernel's contract) and
+   with float64 inputs (what the H-test hands it), the two float32 casts
+   the float64 read saves, and the plain version, each launch between
+   its own CUDA events with the L2 flushed before it and the device
+   held asleep while the host enqueues them (see cuda_ms); with
+   --baseline-src, also a kernel built from that source with the
+   earlier, float32-only launch signature, timed the same way;
+6. print the card's name and power limit, and one JSON line of kernel
+   measurements.
 
 The last line of standard output is {"ok": true, "device": {...}}. The
 script exits non-zero, and prints no result, without a GPU.
@@ -68,6 +80,9 @@ PEAK, WIDTH, FRAC_PULSED = 0.3, 0.01, 0.8
 H100_BYTES_PER_S = 3.35e12     # HBM3
 H100_F32_OPS_PER_S = 67e12     # float32 outside the tensor cores
 RTOL = 5e-4
+MAIN_ERR_LIMIT = 0.05          # kernel vs float64 plain at the main shape
+L2_FLUSH_BYTES = 256 << 20     # written before each timed launch (L2: 50 MB)
+SLEEP_CYCLES = 20_000_000      # first device sleep while the host enqueues
 # float64 ToaBatch leaves per photon without planets: tdb_day, tdb_frac
 # (2), freq, error, three (N, 3) vectors, pulse_number
 BATCH_BYTES_PER_PHOTON = 8 * 14
@@ -109,22 +124,55 @@ def write_events(path: str, cols: dict) -> None:
         "TELESCOP": "NICER", "TIMEZERO": 0.0, "TIMEUNIT": "s"})
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device milliseconds of one fn() call over `reps` calls
-    enqueued back to back, each between two CUDA events."""
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> dict:
+    """Device milliseconds of one fn() call: {"median", "min", "max"} over
+    `reps` calls, each between its own pair of CUDA events.
+
+    - Before each call, outside its events, a 256 MB buffer is written
+      and then another one is read, so the call finds its inputs in
+      device memory and not in the 50 MB L2, as the photon path does.
+      The read matters: after the write alone the L2 holds up to 50 MB
+      of dirty lines, and writing them back would be timed with the call
+      (for a kernel that reads tens of MB, a large share of its time).
+    - The device first sleeps (torch.cuda._sleep) until the host has
+      enqueued every call; otherwise the events would also time the
+      host's work between them (argument checks, allocation, the ctypes
+      call), which can exceed a short kernel. The sleep is lengthened
+      until an event recorded after it is still pending when the
+      enqueueing ends.
+    """
     import torch
 
     for _ in range(warmup):
         fn()
+    written = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                          device="cuda")
+    read = torch.zeros_like(written)
+    total = torch.empty((), dtype=torch.float32, device="cuda")
     torch.cuda.synchronize()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    for a, b in ev:
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for a, b in ev]))
+    cycles = SLEEP_CYCLES
+    for _ in range(5):
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        torch.cuda._sleep(cycles)
+        awake = torch.cuda.Event()
+        awake.record()
+        for a, b in ev:
+            written.zero_()
+            torch.sum(read, dim=0, out=total)
+            a.record()
+            fn()
+            b.record()
+        slept_through = not awake.query()
+        torch.cuda.synchronize()
+        if slept_through:
+            break
+        cycles *= 4
+    else:
+        fail("the device woke before the host had enqueued the timed calls")
+    times = [a.elapsed_time(b) for a, b in ev]
+    return {"median": float(np.median(times)), "min": float(min(times)),
+            "max": float(max(times))}
 
 
 def check_close(name, got, want, n) -> None:
@@ -138,32 +186,53 @@ def check_close(name, got, want, n) -> None:
 
 
 def phase_kernel(zmod, dev, n_main: int, m_main: int, seed: int) -> dict:
-    """Kernel against the plain version; returns the main-shape error."""
+    """Kernel against the plain version at every N and m; float64, mixed
+    and misaligned inputs bitwise against float32 ones. Returns the error
+    at the main shape."""
     import torch
 
     rng = np.random.default_rng(seed + 1)
     main_err = None
+    ms = sorted({1, 2, m_main, 32, 33, 129})
     for n in (1, 1000, 8192 + 17, n_main):
-        ph = torch.as_tensor(rng.uniform(size=n), dtype=torch.float32,
-                             device=dev)
-        w = torch.as_tensor(rng.uniform(0.1, 1.0, n), dtype=torch.float32,
-                            device=dev)
-        for m in (1, 2, m_main, 129):
-            k1 = zmod.z2_harmonics(ph, w, m)
-            k2 = zmod.z2_harmonics(ph, w, m)
+        # one row more, so that [1:] is a view whose data are not 16-byte
+        # aligned: the kernel's scalar-load path
+        ph_all = torch.as_tensor(rng.uniform(size=n + 1),
+                                 dtype=torch.float64, device=dev)
+        w_all = torch.as_tensor(rng.uniform(0.1, 1.0, n + 1),
+                                dtype=torch.float64, device=dev)
+        ph64, w64 = ph_all[1:].clone(), w_all[1:].clone()
+        ph32, w32 = ph64.float(), w64.float()
+        for m in ms:
+            k1 = zmod.z2_harmonics(ph32, w32, m)
+            k2 = zmod.z2_harmonics(ph32, w32, m)
+            other = {"float64": zmod.z2_harmonics(ph64, w64, m),
+                     "float32/float64": zmod.z2_harmonics(ph32, w64, m),
+                     "float64/float32": zmod.z2_harmonics(ph64, w32, m),
+                     "misaligned float64": zmod.z2_harmonics(
+                         ph_all[1:], w_all[1:], m)}
             torch.cuda.synchronize()
             if not torch.equal(k1, k2):
                 fail(f"two launches differ at N={n} m={m}")
             if k1.shape != (2, m) or k1.dtype != torch.float64:
                 fail(f"kernel output {tuple(k1.shape)} {k1.dtype}")
-            p32 = zmod.z2_harmonics_plain(ph, w, m)
-            p64 = zmod.z2_harmonics_plain(ph.double(), w.double(), m)
+            for name, got in other.items():
+                if not torch.equal(got, k1):
+                    fail(f"{name} inputs differ from float32 ones at N={n} "
+                         f"m={m} (max {(got - k1).abs().max().item():.3e})")
+            p32 = zmod.z2_harmonics_plain(ph32, w32, m)
+            p64 = zmod.z2_harmonics_plain(ph32.double(), w32.double(), m)
             check_close(f"N={n} m={m} vs f32 plain", k1, p32, n)
             check_close(f"N={n} m={m} vs f64 plain", k1, p64, n)
             if n == n_main and m == m_main:
                 main_err = (k1 - p64).abs().max().item()
+                if not main_err <= MAIN_ERR_LIMIT:
+                    fail(f"max abs error {main_err:.3e} against the float64 "
+                         f"plain version at N={n} m={m} (limit "
+                         f"{MAIN_ERR_LIMIT})")
             del p32, p64
-        print(f"kernel == plain at N={n}, m in (1, 2, {m_main}, 129)")
+        print(f"kernel == plain at N={n}, m in {tuple(ms)}; float64, mixed "
+              "and misaligned inputs bitwise equal to float32 ones")
     # zero-weight rows at the ragged edge (beyond 8192 and past the last
     # full block) must leave the sums of the first 8192 rows unchanged
     n = 8192 + 17
@@ -304,12 +373,87 @@ def card() -> str:
     return out.strip().splitlines()[0]
 
 
+def bound(n: int, m: int, in_bytes: int) -> tuple:
+    """(ms, "bytes" or "operations", bytes, ops): the least time an H100
+    could take for the sums, reading `in_bytes` per photon and writing
+    (2, m) float64, at m sine-cosines and 4m FMAs of 2 flops a photon."""
+    nbytes = in_bytes * n + 16 * m
+    ops = m * n + 2 * 4 * m * n
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "operations" if t_ops >= t_bytes
+            else "bytes", nbytes, ops)
+
+
+def phase_registers(zmod, kc_main: int) -> dict:
+    """ptxas's registers and spills of every instantiation (a spill
+    fails); returns those of the photon path's (float64 inputs)."""
+    rep = zmod.ptxas_report()
+    if len(rep) != 32:
+        fail(f"ptxas reported {len(rep)} of the 32 kernel instantiations")
+    spills = sum(v["spill_stores"] + v["spill_loads"] for v in rep.values())
+    for p, w in (("f", "f"), ("d", "d"), ("f", "d"), ("d", "f")):
+        regs = " ".join(f"{kc}:{v['regs']}" for (pp, ww, kc), v in
+                        sorted(rep.items()) if (pp, ww) == (p, w))
+        print(f"ptxas registers, inputs {p}/{w}, by harmonics per block: "
+              f"{regs}")
+    print(f"ptxas spill bytes over all instantiations: {spills}")
+    if spills:
+        fail(f"the kernel spills {spills} bytes")
+    return {"regs": rep[("d", "d", kc_main)]["regs"], "spill_bytes": spills}
+
+
+def baseline_kernel(zmod, src: str):
+    """A launcher of a kernel built from `src` with the earlier,
+    float32-only interface (phi, w, n, m, partials, nblocks, out, device,
+    stream) and its wrapper's grid, for timing beside this one."""
+    import ctypes
+
+    import torch
+
+    zmod._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = str(zmod._BUILD_DIR / "z2_harmonics-baseline.so")
+    subprocess.run([zmod._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-o", so, src], check=True, capture_output=True,
+                   timeout=600)
+    fn = ctypes.CDLL(so).z2_harmonics_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def launch(ph, w, m):
+        n = ph.shape[0]
+        nblocks = max(1, min(-(-n // 256), 4 * sms))
+        partials = torch.empty((nblocks, 2, m), dtype=torch.float32,
+                               device=ph.device)
+        out = torch.empty((2, m), dtype=torch.float64, device=ph.device)
+        err = fn(ph.data_ptr(), w.data_ptr(), n, m, partials.data_ptr(),
+                 nblocks, out.data_ptr(), ph.device.index,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"baseline kernel launch failed: CUDA error {err}")
+        return out
+
+    return launch
+
+
+def fmt(t: dict) -> str:
+    return (f"{t['median']:.4f} ms median of 20 (min {t['min']:.4f}, "
+            f"max {t['max']:.4f})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=4_194_304,
                     help="photons on the path (default 4,194,304)")
     ap.add_argument("--m", type=int, default=20, help="harmonics")
+    ap.add_argument("--baseline-src", default=None,
+                    help="also time a kernel built from this .cu source "
+                         "with the earlier float32-only interface")
     args = ap.parse_args()
 
     import torch
@@ -326,6 +470,8 @@ def main() -> int:
     zmod.build()
     print(f"build: z2_harmonics.cu compiled in "
           f"{time.perf_counter() - t0:.2f} s")
+    kc_main = zmod._plan(zmod._load(), dev.index or 0, args.m)[0]
+    regs = phase_registers(zmod, kc_main)
 
     kern = phase_kernel(zmod, dev, args.n, args.m, args.seed)
     cols = event_columns(args.n, args.seed)
@@ -336,29 +482,46 @@ def main() -> int:
         cold_s = phase_exact(dev, cols, par, tmp)
         path = phase_path(zmod, dev, cols, par, args.m, tmp)
 
-    # timings at the main path's shape
-    rng = np.random.default_rng(args.seed + 2)
-    ph = torch.as_tensor(rng.uniform(size=args.n), dtype=torch.float32,
-                         device=dev)
-    w = torch.as_tensor(rng.uniform(size=args.n), dtype=torch.float32,
-                        device=dev)
-    k_ms = cuda_ms(lambda: zmod.z2_harmonics(ph, w, args.m))
-    p_ms = cuda_ms(lambda: zmod.z2_harmonics_plain(ph, w, args.m))
+    # timings at the main path's shape: float32 inputs (the TPU kernel's
+    # contract) and float64 inputs (what the H-test hands the kernel)
     n, m = args.n, args.m
-    bytes_moved = 8 * n + 16 * m       # read phases+weights, write (2, m)
-    ops = m * n + 2 * 4 * m * n        # sincospif + 4 FMAs of 2 flops each
-    t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_OPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    rng = np.random.default_rng(args.seed + 2)
+    ph64 = torch.as_tensor(rng.uniform(size=n), dtype=torch.float64,
+                           device=dev)
+    w64 = torch.as_tensor(rng.uniform(size=n), dtype=torch.float64,
+                          device=dev)
+    ph32, w32 = ph64.float(), w64.float()
+    tiny = torch.zeros(1000, dtype=torch.float32, device=dev)
+    k32 = cuda_ms(lambda: zmod.z2_harmonics(ph32, w32, m))
+    k64 = cuda_ms(lambda: zmod.z2_harmonics(ph64, w64, m))
+    casts = cuda_ms(lambda: (ph64.to(torch.float32), w64.to(torch.float32)))
+    plain = cuda_ms(lambda: zmod.z2_harmonics_plain(ph32, w32, m))
+    floor = cuda_ms(lambda: tiny.add_(1.0))
+    earlier = None
+    if args.baseline_src:
+        base = baseline_kernel(zmod, args.baseline_src)
+        check_close("earlier design", base(ph32, w32, m),
+                    zmod.z2_harmonics_plain(ph64, w64, m), n)
+        earlier = cuda_ms(lambda: base(ph32, w32, m))
+    b32, by32, bytes32, ops = bound(n, m, 8)
+    b64, by64, bytes64, _ = bound(n, m, 16)
     st = path["stages"]
     copy_ms = h2d_ms(args.n * BATCH_BYTES_PER_PHOTON)
-    print(f"kernel z2_harmonics: {k_ms:.4f} ms median of 20 "
-          f"(N={n}, m={m})")
-    print(f"plain float32 version: {p_ms:.4f} ms median of 20")
-    print(f"bound: {bound_ms * 1e3:.2f} us, set by {bound_by} "
-          f"({t_bytes * 1e3:.2f} us for {bytes_moved} B at 3.35 TB/s, "
-          f"{t_ops * 1e3:.2f} us for {ops} ops at 67 TF/s)")
+    print(f"kernel z2_harmonics, float32 inputs: {fmt(k32)} (N={n}, m={m}); "
+          f"bound {b32 * 1e3:.2f} us set by {by32} ({bytes32} B at "
+          f"3.35 TB/s, {ops} ops at 67 TF/s), {b32 / k32['median']:.1%} "
+          "of it")
+    print(f"kernel z2_harmonics, float64 inputs: {fmt(k64)}; bound "
+          f"{b64 * 1e3:.2f} us set by {by64} ({bytes64} B), "
+          f"{b64 / k64['median']:.1%} of it")
+    print(f"the two .to(torch.float32) casts the float64 read saves: "
+          f"{fmt(casts)}")
+    print(f"plain float32 version: {fmt(plain)}")
+    print(f"timing floor (a 1,000-element add_ between the same events): "
+          f"{fmt(floor)}")
+    if earlier:
+        print(f"earlier design ({args.baseline_src}), float32 inputs: "
+              f"{fmt(earlier)}")
     print(f"stages: host ingest {st['ingest']:.3f} s, host->device "
           f"(batch packing + copy) {st['batch'] * 1e3:.2f} ms, device "
           f"phase {st['phase'] * 1e3:.2f} ms, H-test "
@@ -387,8 +550,14 @@ def main() -> int:
         "replaces": "pint_tpu/ops/pallas_kernels.py:81",
         "launches": path["launches"],
         "max_abs_err": kern["max_abs_err"],
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}))
+        "ms": k32["median"], "plain_ms": plain["median"], "bound_ms": b32,
+        "bound_by": by32, "library_ms": None,
+        "ms_f64_in": k64["median"], "bound_ms_f64_in": b64,
+        "bound_by_f64_in": by64, "ms_min_max": [k32["min"], k32["max"]],
+        "ms_f64_in_min_max": [k64["min"], k64["max"]],
+        "casts_ms": casts["median"], "timing_floor_ms": floor["median"],
+        "ms_earlier_design": earlier["median"] if earlier else None,
+        "regs": regs["regs"], "spill_bytes": regs["spill_bytes"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,9 +5,13 @@ and binding, and its plain PyTorch version.
     c_k = sum_i w_i cos(2 pi k phi_i),  s_k = sum_i w_i sin(2 pi k phi_i)
 
 The kernel (``pint_tpu_torch/csrc/z2_harmonics.cu``) replaces the Pallas
-TPU kernel ``pint_tpu/ops/pallas_kernels.py:z2_harmonics_pallas``. It
-takes float32 phases and weights, as the Pallas kernel did; the wrapper
-makes that cast and returns float64 sums.
+TPU kernel ``pint_tpu/ops/pallas_kernels.py:z2_harmonics_pallas``. Like
+it, the kernel computes in float32 on float32-rounded inputs; it reads
+float32 or float64 phases and weights as they are (rounding in
+registers, no cast pass) and returns float64 sums, in one launch. The
+result is bitwise the same for either input type and from launch to
+launch. Phases are taken in turns and must lie within +-2^20 (beyond
+that float32 keeps under 3 bits of a turn's fraction).
 
 - On a CUDA tensor the wrapper launches the kernel, or raises. It never
   falls back to the plain version.
@@ -16,7 +20,8 @@ makes that cast and returns float64 sums.
 
 The kernel is compiled by ``nvcc`` for sm_90a into ``build/`` beside the
 package on first use, keyed on a hash of its source, and loaded with
-ctypes. Importing this module builds nothing.
+ctypes; ptxas's register and spill report is kept beside the library
+(``ptxas_report``). Importing this module builds nothing.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -32,19 +38,36 @@ from typing import Optional
 
 import torch
 
-__all__ = ["z2_harmonics", "z2_harmonics_plain", "build", "launches"]
+__all__ = ["z2_harmonics", "z2_harmonics_plain", "build", "ptxas_report",
+           "launches"]
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "z2_harmonics.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _THREADS = 256          # kThreads in the source
-_BLOCKS_PER_SM = 4      # grid cap: enough blocks in flight to fill the card
+_PHOTONS_PER_STEP = 4   # kPhotons: photons a thread takes per loop step
+_GROUP = 16             # kGroup: blocks whose partials are summed together
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+
+# ctypes signatures of the source's extern "C" functions
+_PLAN_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                  ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+_LAUNCH_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 # number of kernel launches made through z2_harmonics (not the plain path)
 launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
+_sms: dict = {}       # device index -> SM count
+_plans: dict = {}     # (device, m) -> (kc, chunks, max blocks)
+# (device, stream) -> int32 ticket counters. The kernel's last block
+# resets each counter to 0, and launches on one stream run in order, so
+# a stream's counters are always 0 when its next launch starts.
+_tickets: dict = {}
 
 
 def z2_harmonics_plain(phases: torch.Tensor, weights: torch.Tensor,
@@ -72,13 +95,18 @@ def _nvcc() -> str:
                        "built (put the CUDA toolkit's bin/ on PATH)")
 
 
-def build() -> Path:
-    """Compile the kernel into build/ unless a library built from this
-    exact source and these flags is already there. Returns its path."""
+def _paths() -> tuple:
     src = _SRC.read_bytes()
     key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
     so = _BUILD_DIR / f"z2_harmonics-{key[:16]}.so"
-    if so.exists():
+    return so, so.with_suffix(".ptxas.txt")
+
+
+def build() -> Path:
+    """Compile the kernel into build/ unless a library built from this
+    exact source and these flags is already there. Returns its path."""
+    so, log = _paths()
+    if so.exists() and log.exists():
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -87,19 +115,53 @@ def build() -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    log_tmp = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+    log_tmp.write_text(proc.stdout + proc.stderr)
+    os.replace(log_tmp, log)
     os.replace(tmp, so)  # atomic against a concurrent build
     return so
+
+
+def parse_ptxas(text: str) -> dict:
+    """{(phi type, weight type, harmonics per block): {"regs", "spill_stores",
+    "spill_loads"}} from ptxas -v output, types as "f" or "d"."""
+    out: dict = {}
+    cur = None
+    for line in text.splitlines():
+        mk = re.search(r"z2_kernelI([fd])([fd])Li(\d+)E", line)
+        if mk and ("Compiling entry function" in line
+                   or "Function properties for" in line):
+            cur = (mk.group(1), mk.group(2), int(mk.group(3)))
+            out.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        ms = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       line)
+        if ms:
+            out[cur]["spill_stores"] = int(ms.group(1))
+            out[cur]["spill_loads"] = int(ms.group(2))
+        mr = re.search(r"Used (\d+) registers", line)
+        if mr:
+            out[cur]["regs"] = int(mr.group(1))
+    return out
+
+
+def ptxas_report() -> dict:
+    """ptxas's registers and spills for every kernel instantiation of the
+    current build (see parse_ptxas); builds first if needed."""
+    build()
+    return parse_ptxas(_paths()[1].read_text())
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        fn = lib.z2_harmonics_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        lib.z2_harmonics_plan.restype = ctypes.c_int
+        lib.z2_harmonics_plan.argtypes = _PLAN_ARGTYPES
+        lib.z2_harmonics_launch.restype = ctypes.c_int
+        lib.z2_harmonics_launch.argtypes = _LAUNCH_ARGTYPES
         _lib = lib
     return _lib
 
@@ -117,33 +179,72 @@ def _check(phases: torch.Tensor, weights: torch.Tensor, m) -> None:
         raise ValueError(f"phases {tuple(phases.shape)} and weights "
                          f"{tuple(weights.shape)} must be equal 1-D shapes")
     for t in (phases, weights):
-        if t.dtype not in (torch.float32, torch.float64):
+        if t.dtype not in _DTYPE_CODE:
             raise TypeError(f"expected float32 or float64, got {t.dtype}")
     if isinstance(m, bool) or not isinstance(m, int) or m < 1:
         raise ValueError(f"m must be an integer >= 1, got {m!r}")
 
 
+def _plan(lib, dev: int, m: int) -> tuple:
+    """(harmonics per block, chunks, most blocks per chunk for one wave),
+    cached per device and m; the same for every input type."""
+    key = (dev, m)
+    if key not in _plans:
+        if dev not in _sms:
+            _sms[dev] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        kc, chunks, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        err = lib.z2_harmonics_plan(m, dev, ctypes.byref(kc),
+                                    ctypes.byref(chunks),
+                                    ctypes.byref(per_sm))
+        if err != 0 or per_sm.value < 1:
+            raise RuntimeError(f"z2_harmonics kernel cannot run: CUDA error "
+                               f"{err}, {per_sm.value} blocks per SM")
+        wave = -(-per_sm.value * _sms[dev] // chunks.value)
+        _plans[key] = (kc.value, chunks.value, max(1, wave))
+    return _plans[key]
+
+
+def _ticket_counters(dev: torch.device, stream: int,
+                     count: int) -> torch.Tensor:
+    """At least `count` zeroed int32 ticket counters for launches on
+    `stream`, allocated once and then grown as needed."""
+    key = (dev.index, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < count:
+        t = torch.zeros(max(count, 64), dtype=torch.int32, device=dev)
+        _tickets[key] = t
+    return t
+
+
 def z2_harmonics(phases: torch.Tensor, weights: torch.Tensor,
                  m: int) -> torch.Tensor:
     """(2, m) sums [c; s]. CUDA tensors: the kernel, in float32 with
-    float64 output. CPU tensors: the plain version in the input dtype."""
+    float64 output, whichever of float32 and float64 the inputs are.
+    CPU tensors: the plain version in the input dtype."""
     global launches
     _check(phases, weights, m)
     if phases.device.type == "cpu":
         return z2_harmonics_plain(phases, weights, m)
-    phi = phases.to(torch.float32).contiguous()
-    w = weights.to(torch.float32).contiguous()
-    n = phi.shape[0]
-    dev = phi.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    nblocks = max(1, min(-(-n // _THREADS), _BLOCKS_PER_SM * sms))
-    partials = torch.empty((nblocks, 2, m), dtype=torch.float32, device=dev)
-    out = torch.empty((2, m), dtype=torch.float64, device=dev)
+    phi = phases.contiguous()
+    w = weights.contiguous()
+    dev = phi.device  # a tensor's device always carries its index
+    pcode, wcode = _DTYPE_CODE[phi.dtype], _DTYPE_CODE[w.dtype]
     lib = _load()
+    kc, chunks, wave = _plan(lib, dev.index, m)
+    n = phi.shape[0]
+    steps = -(-n // _PHOTONS_PER_STEP)
+    nblocks = max(1, min(-(-steps // _THREADS), wave))
+    partials = torch.empty((chunks, nblocks, 2 * kc), dtype=torch.float64,
+                           device=dev)
+    out = torch.empty((2, m), dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.z2_harmonics_launch(phi.data_ptr(), w.data_ptr(), n, m,
-                                  partials.data_ptr(), nblocks,
-                                  out.data_ptr(), dev.index or 0, stream)
+    tickets = _ticket_counters(dev, stream,
+                               chunks * (-(-nblocks // _GROUP) + 1))
+    err = lib.z2_harmonics_launch(phi.data_ptr(), pcode, w.data_ptr(), wcode,
+                                  n, m, partials.data_ptr(), nblocks,
+                                  tickets.data_ptr(), out.data_ptr(),
+                                  dev.index, stream)
     if err != 0:
         raise RuntimeError(f"z2_harmonics kernel launch failed: CUDA error "
                            f"{err}")
