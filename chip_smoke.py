@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (pint_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed S] [--n N] [--m M] [--baseline-src CU]
+    python3 chip_smoke.py [--seed S] [--n N] [--path-n N] [--m M]
+                          [--fit-ntoa N] [--fit-ndmx K] [--baseline-src CU]
 
 Phases, each fatal on failure:
 
@@ -19,10 +20,11 @@ Phases, each fatal on failure:
    the first 65,536 photons (integer part exactly, fraction to 1e-11);
 4. run the photonphase path end to end on the GPU through the port's CLI
    (par file -> barycentred FITS events -> double-double phase -> weighted
-   H-test) at N photons (default 4,194,304) and m harmonics (default 20),
-   from a seeded, J0030+0451-like isolated millisecond pulsar: the phases
-   must cluster at the injected peak, H must agree with H from the
-   float64 plain version, and the kernel must have been launched;
+   H-test) at --path-n photons (default 1,048,576) and m harmonics
+   (default 20), from a seeded, J0030+0451-like isolated millisecond
+   pulsar: the phases must cluster at the injected peak, H must agree
+   with H from the float64 plain version, and the kernel must have been
+   launched;
 5. time the kernel with float32 inputs (the TPU kernel's contract) and
    with float64 inputs (what the H-test hands it), the two float32 casts
    the float64 read saves, and the plain version, each launch between
@@ -30,7 +32,23 @@ Phases, each fatal on failure:
    held asleep while the host enqueues them (see cuda_ms); with
    --baseline-src, also a kernel built from that source with the
    earlier, float32-only launch signature, timed the same way;
-6. print the card's name and power limit, and one JSON line of kernel
+6. the GLS timing fit (the main path; it runs no hand-written kernel):
+   fit-build: bench.build_problem()'s model and TOAs (10,000 TOAs, 40
+     free parameters + Offset, 30 red-noise Fourier modes, ECORR on
+     2,500 four-TOA epochs; the recipe copied here) built by the port;
+   fit-step: the fit step on the GPU against the same step on the CPU
+     (dparams within 1e-6 sigma, cov diagonal within 1e-8 relative,
+     chi2 within 1e-10 relative plus the change the residual difference
+     explains, residuals within 1e-12 s), two GPU steps bitwise equal;
+   fit-time: 20 GPU steps on the host clock and between CUDA events,
+     and one torch.profiler window (device-busy share, launches per
+     step, device time by stage and by operation);
+   fit-downhill: DownhillGLSFitter to convergence on the GPU and on the
+     CPU, the same optimum (parameters within 1e-6 sigma);
+   pintempo: the CLI on tests/datafile/NGC6440E.{par,tim} on the GPU
+     and on the CPU, the same fitted F0 (1e-6 sigma), within 3 sigma of
+     the par file's;
+7. print the card's name and power limit, and one JSON line of kernel
    measurements.
 
 The last line of standard output is {"ok": true, "device": {...}}. The
@@ -86,6 +104,24 @@ SLEEP_CYCLES = 20_000_000      # first device sleep while the host enqueues
 # float64 ToaBatch leaves per photon without planets: tdb_day, tdb_frac
 # (2), freq, error, three (N, 3) vectors, pulse_number
 BATCH_BYTES_PER_PHOTON = 8 * 14
+
+# The fit path's problem: bench.build_problem() (bench.py:280), copied —
+# this script imports nothing of the JAX package's tree. DM/DM1/DM2 are
+# frozen (the free DMX windows tile the span); two bands per cluster.
+FIT_SPAN = (53000.0, 57000.0)
+FIT_PAR = [
+    "PSR J0000+0000", "RAJ 12:00:00.0 1", "DECJ 30:00:00.0 1",
+    "PMRA 2.0 1", "PMDEC -3.0 1", "PX 1.2 1", "F0 300.123456789 1",
+    "F1 -1.0e-15 1", "F2 1e-26 1", "DM 20.0", "DM1 1e-4", "DM2 1e-6",
+    "PEPOCH 55000", "POSEPOCH 55000", "DMEPOCH 55000", "TZRMJD 55000.1",
+    "TZRSITE @", "TZRFRQ 1400", "UNITS TDB", "EFAC -be X 1.1",
+    "EQUAD -be X 0.3", "ECORR -be X 1.2", "TNREDAMP -13.7",
+    "TNREDGAM 3.5", "TNREDC 30",
+] + [f"JUMP -grp g{i} 1e-6 1" for i in range(4)]
+DP_SIGMA, COV_REL, CHI2_REL, RESID_S = 1e-6, 1e-8, 1e-10, 1e-12
+NGC = tuple(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests", "datafile", f"NGC6440E.{ext}")
+            for ext in ("par", "tim"))
 
 
 def fail(msg: str) -> None:
@@ -440,6 +476,266 @@ def baseline_kernel(zmod, src: str):
     return launch
 
 
+# ------------------------------------------------------- the GLS fit path
+
+
+def fit_par(ndmx: int) -> str:
+    """The par text of bench.build_problem(): FIT_PAR plus ndmx free DMX
+    windows tiling the span."""
+    par = list(FIT_PAR)
+    edges = np.linspace(*FIT_SPAN, ndmx + 1)
+    for i in range(ndmx):
+        par += [f"DMX_{i + 1:04d} 0.0 1", f"DMXR1_{i + 1:04d} {edges[i]:.4f}",
+                f"DMXR2_{i + 1:04d} {edges[i + 1]:.4f}"]
+    return "\n".join(par) + "\n"
+
+
+def fit_build(ntoa: int, ndmx: int, seed: int, dev) -> tuple:
+    """(par text, model, TOAs) of bench.build_problem(), built by the port
+    on `dev`: clustered epochs (ntoa/4 clusters of 4 TOAs within 30 min),
+    two bands, simulated onto integer phase with a white draw from
+    default_rng(seed), then the -be/-grp flags set (after the draw, as
+    there)."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
+
+    span0, span1 = FIT_SPAN
+    centers = np.linspace(span0 + 1, span1 - 1, ntoa // 4)
+    mjds = (centers[:, None] + np.linspace(0.0, 0.021, 4)[None, :]).ravel()
+    freqs = np.tile([1400.0, 1400.0, 820.0, 820.0], ntoa // 4)
+    par = fit_par(ndmx)
+    model = get_model(io.StringIO(par), device=dev)
+    toas = make_fake_toas_fromMJDs(mjds, model, error_us=1.0,
+                                   freq_mhz=freqs, add_noise=True,
+                                   rng=np.random.default_rng(seed))
+    for i, f in enumerate(toas.flags):
+        f["be"] = "X"
+        f["grp"] = f"g{i % 5}"
+    return par, model, toas
+
+
+def chi2_tol(chi2: float, dr, sigma, rel: float) -> float:
+    """How far two chi2 = r^T C^-1 r may differ when their residual
+    vectors differ by `dr`: `rel` of chi2 for the arithmetic, plus what
+    dr itself moves (C >= diag(sigma^2), so by Cauchy-Schwarz
+    |chi2(r + dr) - chi2(r)| <= 2 sqrt(chi2) |dr/sigma| + |dr/sigma|^2).
+    sin/cos/log round differently on the card and on the CPU, so a few
+    delays differ by 1 ulp (~6e-14 s)."""
+    d = float(np.linalg.norm(np.asarray(dr) / np.asarray(sigma)))
+    return rel * abs(chi2) + 2.0 * math.sqrt(abs(chi2)) * d + d * d
+
+
+def fit_step_check(model, toas, dev) -> dict:
+    """The step on the GPU twice (bitwise equal) and on the CPU, held to
+    DP_SIGMA, COV_REL, CHI2_REL (+ chi2_tol) and RESID_S."""
+    from pint_tpu_torch.parallel import build_fit_step
+
+    step, args, names = build_fit_step(model, toas, device=dev)
+    g1 = [x.cpu().numpy() for x in step(*args)]
+    g2 = [x.cpu().numpy() for x in step(*args)]
+    for nm, a, b in zip(("dparams", "cov", "chi2", "resids"), g1, g2):
+        if not np.array_equal(a.view(np.int64), b.view(np.int64)):
+            fail(f"fit-step: two GPU steps differ in {nm}")
+    cstep, cargs, cnames = build_fit_step(model, toas, device="cpu")
+    cstep(*cargs)
+    t0 = time.perf_counter()
+    c = [x.numpy() for x in cstep(*cargs)]
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if cnames != names:
+        fail("fit-step: CPU and GPU steps have other parameters")
+    sig = np.sqrt(np.diag(c[1]))
+    dr = g1[3] - c[3]
+    got = {"dp_sigma": float(np.max(np.abs(g1[0] - c[0]) / sig)),
+           "cov_rel": float(np.max(np.abs(np.diag(g1[1]) - np.diag(c[1]))
+                                   / np.diag(c[1]))),
+           "chi2_rel": float(abs(g1[2] - c[2]) / abs(c[2])),
+           "resid_s": float(np.max(np.abs(dr))),
+           "chi2_gpu": float(g1[2]), "chi2_cpu": float(c[2]),
+           "cpu_step_ms": cpu_ms}
+    tol = chi2_tol(float(c[2]), dr, np.sqrt(cargs[8].numpy()), CHI2_REL)
+    got["chi2_tol_rel"] = tol / abs(float(c[2]))
+    print(f"fit-step: GPU vs CPU max |d dparams| {got['dp_sigma']:.3e} sigma "
+          f"(limit {DP_SIGMA}), cov diagonal {got['cov_rel']:.3e} relative "
+          f"(limit {COV_REL}), chi2 {got['chi2_gpu']!r} vs "
+          f"{got['chi2_cpu']!r}: {got['chi2_rel']:.3e} relative (limit "
+          f"{got['chi2_tol_rel']:.3e} = {CHI2_REL} + what the residual "
+          f"difference explains), residuals {got['resid_s']:.3e} s (limit "
+          f"{RESID_S}); two GPU steps bitwise equal; the CPU step took "
+          f"{cpu_ms:.1f} ms (second call, host clock)")
+    if not (got["dp_sigma"] <= DP_SIGMA and got["cov_rel"] <= COV_REL
+            and abs(g1[2] - c[2]) <= tol and got["resid_s"] <= RESID_S
+            and np.all(np.isfinite(g1[0]))):
+        fail("fit-step: the GPU step disagrees with the CPU step")
+    return {"step": step, "args": args, "names": names, **got}
+
+
+def fit_time(step, args, reps: int = 20) -> dict:
+    """Host-clock and CUDA-event times of `reps` steps, then a profiler
+    window of 3 steps: device-busy share, launches per step, device time
+    by stage (the fit_step.* spans) and by operation."""
+    import torch
+
+    for _ in range(3):
+        step(*args)
+    torch.cuda.synchronize()
+    host, dev_ms = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        step(*args)
+        b.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(a.elapsed_time(b))
+    out = {"host_ms": [float(np.median(host)), min(host), max(host)],
+           "event_ms": [float(np.median(dev_ms)), min(dev_ms),
+                        max(dev_ms)]}
+    print(f"fit-time: step {out['host_ms'][0]:.3f} ms median of {reps} on "
+          f"the host clock to synchronize (min {out['host_ms'][1]:.3f}, "
+          f"max {out['host_ms'][2]:.3f}); {out['event_ms'][0]:.3f} ms "
+          f"between CUDA events (min {out['event_ms'][1]:.3f}, max "
+          f"{out['event_ms'][2]:.3f})")
+    nsteps = 3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(nsteps):
+            step(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device events: kernels, copies and sets, plus the device-side
+    # ranges of the fit_step.* annotations, which are spans, not work
+    spans, work, launches = {}, [], 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            tr = e.time_range
+            if e.name.startswith("fit_step.") or \
+                    getattr(e, "is_user_annotation", False):
+                spans.setdefault(e.name, []).append((tr.start, tr.end))
+            else:
+                work.append((tr.start, tr.end, e.name))
+        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                        "cuLaunchKernel", "cuLaunchKernelEx"):
+            launches += 1
+    busy_us = sum(b - a for a, b, _ in work)
+    out["busy_share"] = busy_us / 1e3 / wall_ms if work else None
+    out["launches_per_step"] = launches / nsteps
+    out["window_ms"] = wall_ms / nsteps
+    stages = {}
+    for name, ranges in spans.items():
+        span = sum(b - a for a, b in ranges)
+        inside = sum(b - a for a, b, _ in work
+                     if any(lo <= a < hi for lo, hi in ranges))
+        stages[name] = (inside / 1e3 / nsteps, span / 1e3 / nsteps)
+    out["stages_ms"] = {k: v[0] for k, v in stages.items()}
+    out["stage_spans_ms"] = {k: v[1] for k, v in stages.items()}
+    ops = {}
+    for e in prof.key_averages():
+        sdt = getattr(e, "self_device_time_total", None)
+        if sdt is None:
+            sdt = getattr(e, "self_cuda_time_total", 0.0)
+        if e.key.startswith("aten::") and sdt:
+            ops[e.key] = sdt / 1e3 / nsteps
+    out["top_ops_ms"] = dict(sorted(ops.items(), key=lambda kv: -kv[1])[:10])
+    kernels = {}
+    for _, _, name in work:
+        kernels[name] = kernels.get(name, 0) + 1
+    if work:
+        print(f"fit-time: profiler window of {nsteps} steps, "
+              f"{out['window_ms']:.3f} ms a step: device busy "
+              f"{busy_us / 1e3 / nsteps:.3f} ms a step (kernels, copies "
+              f"and sets), busy share {out['busy_share']:.4f} (idle share "
+              f"{1 - out['busy_share']:.4f}); "
+              f"{out['launches_per_step']:.0f} kernel launches a step")
+        for k, (ms, span) in sorted(stages.items(), key=lambda kv: -kv[1][0]):
+            print(f"  stage {k:28s} {ms:9.3f} ms device busy in a "
+                  f"{span:9.3f} ms span, a step")
+        for k, ms in out["top_ops_ms"].items():
+            print(f"  op    {k:28s} {ms:9.3f} ms device a step")
+    else:
+        print(f"fit-time: {out['launches_per_step']:.0f} kernel launches a "
+              "step; device busy share not measured (the profiler "
+              "recorded no device time)")
+    return out
+
+
+def fit_downhill(par: str, toas, dev) -> dict:
+    """DownhillGLSFitter to convergence on the GPU and on the CPU from the
+    par's values: the same optimum."""
+    import torch
+
+    from pint_tpu_torch.gls import DownhillGLSFitter
+    from pint_tpu_torch.models import get_model
+
+    res = {}
+    for tag, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        m = get_model(io.StringIO(par), device=d)
+        f = DownhillGLSFitter(toas, m)
+        t0 = time.perf_counter()
+        chi2 = f.fit_toas()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        res[tag] = (f, chi2, time.perf_counter() - t0)
+    (fg, cg, tg), (fc, cc, tc) = res["gpu"], res["cpu"]
+    dev_sigma = max(abs(fg.model.get_param(n).value
+                        - fc.model.get_param(n).value) / fc.errors[n]
+                    for n in fc.model.free_params)
+    dr = fg.resids.time_resids.cpu().numpy() - \
+        fc.resids.time_resids.numpy()
+    tol = chi2_tol(cc, dr, fc.model.scaled_toa_uncertainty(toas), CHI2_REL)
+    print(f"fit-downhill: GPU {fg.stats.iterations} iterations in "
+          f"{tg:.3f} s, chi2 {cg!r}; CPU {fc.stats.iterations} iterations "
+          f"in {tc:.3f} s, chi2 {cc!r}; parameters within "
+          f"{dev_sigma:.3e} sigma (limit {DP_SIGMA}), chi2 "
+          f"{abs(cg - cc) / abs(cc):.3e} relative (limit "
+          f"{tol / abs(cc):.3e})")
+    if not (fg.converged and fc.converged and dev_sigma <= DP_SIGMA
+            and abs(cg - cc) <= tol
+            and fg.stats.iterations == fc.stats.iterations):
+        fail("fit-downhill: the GPU fit does not reach the CPU optimum")
+    return {"iterations": fg.stats.iterations, "gpu_s": tg, "cpu_s": tc,
+            "chi2": cg, "dp_sigma": dev_sigma}
+
+
+def fit_pintempo(tmp: str) -> dict:
+    """The pintempo CLI on NGC6440E on the GPU and on the CPU: the same
+    fit (F0 within 1e-6 sigma; the CPU fit is held to the reference's in
+    tests/test_torch_fit.py), F0 within 3 sigma of the par file's."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.scripts import pintempo
+
+    f0, wall = {}, {}
+    for tag in ("cuda", "cpu"):
+        out = os.path.join(tmp, f"ngc6440e_post_{tag}.par")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = pintempo.main([*NGC, "--outfile", out, "--device", tag])
+        wall[tag] = time.perf_counter() - t0
+        text = buf.getvalue()
+        if tag == "cuda":
+            print(text, end="")
+        if rc != 0 or f"on {tag}" not in text:
+            fail(f"pintempo returned {rc} or did not run on {tag}")
+        f0[tag] = get_model(out, device="cpu").F0
+    f0_par = get_model(NGC[0], device="cpu").F0
+    g, c = f0["cuda"], f0["cpu"]
+    par_sigma = abs(g.value - f0_par.value) / g.uncertainty
+    cpu_sigma = abs(g.value - c.value) / c.uncertainty
+    print(f"pintempo: {wall['cuda']:.3f} s on the GPU, {wall['cpu']:.3f} s "
+          f"on the CPU; fitted F0 {g.value!r} +- {g.uncertainty:.3e} Hz: "
+          f"{cpu_sigma:.3e} sigma from the CPU fit's, {par_sigma:.3f} sigma "
+          f"from the par file's {f0_par.value!r}")
+    if not (cpu_sigma <= DP_SIGMA and par_sigma <= 3.0):
+        fail("pintempo: the GPU fit of F0 disagrees with the CPU fit or "
+             "with the par file")
+    return {"wall_s": wall["cuda"], "cpu_wall_s": wall["cpu"],
+            "f0_par_sigma": par_sigma, "f0_cpu_sigma": cpu_sigma}
+
+
 def fmt(t: dict) -> str:
     return (f"{t['median']:.4f} ms median of 20 (min {t['min']:.4f}, "
             f"max {t['max']:.4f})")
@@ -449,7 +745,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=4_194_304,
-                    help="photons on the path (default 4,194,304)")
+                    help="photons of the kernel checks and timings "
+                         "(default 4,194,304)")
+    ap.add_argument("--path-n", type=int, default=1_048_576,
+                    help="photons on the photonphase path (default "
+                         "1,048,576)")
+    ap.add_argument("--fit-ntoa", type=int, default=10_000,
+                    help="TOAs of the fit path (default 10,000)")
+    ap.add_argument("--fit-ndmx", type=int, default=28,
+                    help="free DMX windows of the fit path (default 28)")
     ap.add_argument("--m", type=int, default=20, help="harmonics")
     ap.add_argument("--baseline-src", default=None,
                     help="also time a kernel built from this .cu source "
@@ -474,13 +778,33 @@ def main() -> int:
     regs = phase_registers(zmod, kc_main)
 
     kern = phase_kernel(zmod, dev, args.n, args.m, args.seed)
-    cols = event_columns(args.n, args.seed)
+    cols = event_columns(args.path_n, args.seed)
     with tempfile.TemporaryDirectory() as tmp:
         par = os.path.join(tmp, "j0030.par")
         with open(par, "w") as f:
             f.write(PAR)
         cold_s = phase_exact(dev, cols, par, tmp)
         path = phase_path(zmod, dev, cols, par, args.m, tmp)
+
+        # the GLS fit path
+        t0 = time.perf_counter()
+        fit_par_text, model, toas = fit_build(args.fit_ntoa, args.fit_ndmx,
+                                              1, dev)
+        build_s = time.perf_counter() - t0
+        dense_q = sum(n for _, n in
+                      model.noise_model_dimensions(toas).values())
+        seg = model.noise_model_ecorr_segments(toas)
+        step = fit_step_check(model, toas, dev)
+        print(f"fit-build: {build_s:.3f} s on the host (model, simulated "
+              f"TOAs on {dev}); N = {toas.ntoas}, p = {len(step['names'])}"
+              f" (Offset + {len(model.free_params)} free), q = "
+              f"{step['args'][6].shape[1]} Fourier columns, nseg = "
+              f"{len(seg[1])} ({len(seg[1]) - 1} ECORR epochs + the "
+              f"'no epoch' slot); the fitters' dense noise basis has "
+              f"{dense_q} columns")
+        ftime = fit_time(step["step"], step["args"])
+        downhill = fit_downhill(fit_par_text, toas, dev)
+        tempo = fit_pintempo(tmp)
 
     # timings at the main path's shape: float32 inputs (the TPU kernel's
     # contract) and float64 inputs (what the H-test hands the kernel)
@@ -506,7 +830,7 @@ def main() -> int:
     b32, by32, bytes32, ops = bound(n, m, 8)
     b64, by64, bytes64, _ = bound(n, m, 16)
     st = path["stages"]
-    copy_ms = h2d_ms(args.n * BATCH_BYTES_PER_PHOTON)
+    copy_ms = h2d_ms(args.path_n * BATCH_BYTES_PER_PHOTON)
     print(f"kernel z2_harmonics, float32 inputs: {fmt(k32)} (N={n}, m={m}); "
           f"bound {b32 * 1e3:.2f} us set by {by32} ({bytes32} B at "
           f"3.35 TB/s, {ops} ops at 67 TF/s), {b32 / k32['median']:.1%} "
@@ -527,7 +851,7 @@ def main() -> int:
           f"phase {st['phase'] * 1e3:.2f} ms, H-test "
           f"{st['htest'] * 1e3:.2f} ms, total {st['total']:.3f} s")
     print(f"host->device copy alone: {copy_ms:.2f} ms for "
-          f"{args.n * BATCH_BYTES_PER_PHOTON} B; first (cold) GPU phase "
+          f"{args.path_n * BATCH_BYTES_PER_PHOTON} B; first (cold) GPU phase "
           f"on 65,536 photons {cold_s * 1e3:.2f} ms")
     km = path["kernels_ms"]
     window_ms = (st["batch"] + st["phase"] + st["htest"]) * 1e3
@@ -542,6 +866,23 @@ def main() -> int:
     else:
         print("device busy during the path: not measured (the profiler "
               "recorded no device time)")
+    print(f"fit path: build {build_s:.3f} s, step "
+          f"{ftime['host_ms'][0]:.3f} ms (host) / {ftime['event_ms'][0]:.3f}"
+          f" ms (events), {ftime['launches_per_step']:.0f} launches a step, "
+          f"downhill {downhill['iterations']} iterations in "
+          f"{downhill['gpu_s']:.3f} s (CPU {downhill['cpu_s']:.3f} s), "
+          f"pintempo {tempo['wall_s']:.3f} s")
+    print(json.dumps({"fit_path": {
+        "ntoa": toas.ntoas, "build_s": build_s,
+        "step_host_ms": ftime["host_ms"], "step_event_ms": ftime["event_ms"],
+        "launches_per_step": ftime["launches_per_step"],
+        "busy_share": ftime["busy_share"], "stages_ms": ftime["stages_ms"],
+        "stage_spans_ms": ftime["stage_spans_ms"],
+        "cpu_step_ms": step["cpu_step_ms"],
+        "top_ops_ms": ftime["top_ops_ms"],
+        "gpu_vs_cpu": {k: step[k] for k in (
+            "dp_sigma", "cov_rel", "chi2_rel", "chi2_tol_rel", "resid_s")},
+        "downhill": downhill, "pintempo": tempo}}))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": [{

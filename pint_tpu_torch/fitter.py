@@ -1,0 +1,289 @@
+"""Fitters: weighted least squares (WLS), the downhill wrapper, and
+``Fitter.auto`` (a port of pint_tpu/fitter.py; reference:
+src/pint/fitter.py Fitter, WLSFitter, DownhillFitter family).
+
+Residuals, the design matrix and the solve stay on the model's device
+as float64 tensors; the host keeps the parameter bookkeeping (exact dd
+parameter values, updated by add_delta) and the accept/reject logic.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from pint_tpu_torch.residuals import Residuals
+
+__all__ = ["Fitter", "WLSFitter", "DownhillWLSFitter", "fit_summary",
+           "FitStats", "ConvergenceFailure", "MaxiterReached",
+           "StepProblem", "DegeneracyWarning"]
+
+
+class DegeneracyWarning(UserWarning):
+    """The normal matrix was singular or ill-conditioned enough that the
+    Cholesky solve failed and the SVD fallback (which drops
+    near-degenerate directions) was used."""
+
+
+def warn_degenerate(what: str = "normal matrix") -> None:
+    import warnings
+
+    warnings.warn(
+        f"{what} Cholesky failed (degenerate design columns?); "
+        f"using the SVD fallback", DegeneracyWarning, stacklevel=4)
+
+
+class ConvergenceFailure(RuntimeError):
+    pass
+
+
+class MaxiterReached(ConvergenceFailure):
+    pass
+
+
+class StepProblem(ConvergenceFailure):
+    pass
+
+
+@dataclass
+class FitStats:
+    """Structured result of one fit (Fitter.stats)."""
+
+    fitter: str = ""
+    ntoa: int = 0
+    nfree: int = 0
+    dof: int = 0
+    chi2: float = float("nan")
+    reduced_chi2: float = float("nan")
+    iterations: int = 0
+    converged: bool = False
+    wall_time_s: float = 0.0
+    toas_per_sec: float = 0.0
+
+    def __str__(self) -> str:
+        return (f"{self.fitter}: chi2={self.chi2:.3f} "
+                f"(red. {self.reduced_chi2:.4f}), "
+                f"{self.iterations} iter in {self.wall_time_s * 1e3:.1f} ms "
+                f"({self.toas_per_sec:.0f} TOA/s)")
+
+
+def _wls_solve(M, r, err_s, threshold=None):
+    """min ||(r − Mx)/σ||²: column-normalized SVD solve, singular values
+    below threshold·s_max dropped (reference: _wls_solve). Returns
+    (x, cov, chi2_post_linear)."""
+    w = 1.0 / err_s
+    colmax = torch.amax(torch.abs(M), dim=0)
+    colmax = torch.where(colmax == 0, torch.ones_like(colmax), colmax)
+    Mw = (M / colmax[None, :]) * w[:, None]
+    rw = r * w
+    norm = torch.sqrt(torch.sum(Mw * Mw, dim=0))
+    norm = torch.where(norm == 0, torch.ones_like(norm), norm)
+    Mn = Mw / norm[None, :]
+    U, s, Vt = torch.linalg.svd(Mn, full_matrices=False)
+    thresh = (threshold if threshold is not None
+              else float(np.finfo(np.float64).eps) * max(M.shape))
+    keep = s > thresh * s[0]
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)),
+                        torch.zeros_like(s))
+    x_n = Vt.T @ (s_inv * (U.T @ rw))
+    x = x_n / colmax / norm
+    cov_n = (Vt.T * (s_inv ** 2)[None, :]) @ Vt
+    cov = cov_n / torch.outer(colmax, colmax) / torch.outer(norm, norm)
+    resid_post = rw - Mn @ x_n
+    return x, cov, torch.sum(resid_post ** 2)
+
+
+class Fitter:
+    """Base fitter: parameter bookkeeping + the fit_toas contract
+    (reference: Fitter). Runs on the model's device."""
+
+    def __init__(self, toas, model, residuals=None, track_mode=None):
+        self.toas = toas
+        self.model = model
+        self.device = model.device
+        self.track_mode = track_mode
+        self.resids_init = residuals or Residuals(toas, model,
+                                                  track_mode=track_mode)
+        self.resids = self.resids_init
+        self.parameter_covariance_matrix = None
+        self.errors: Dict[str, float] = {}
+        self.converged = False
+        self.stats = None  # FitStats, set by fit_toas
+
+    def _residuals(self) -> Residuals:
+        return Residuals(self.toas, self.model, track_mode=self.track_mode)
+
+    def _errors_s(self) -> torch.Tensor:
+        return torch.as_tensor(self.toas.get_errors() * 1e-6,
+                               dtype=torch.float64, device=self.device)
+
+    def _record_stats(self, chi2: float, iterations: int, t0: float,
+                      dof=None):
+        wall = time.perf_counter() - t0
+        n = self.toas.ntoas
+        if dof is None:
+            dof = getattr(self.resids, "dof",
+                          n - len(self.model.free_params))
+        self.stats = FitStats(
+            fitter=type(self).__name__, ntoa=n,
+            nfree=len(self.model.free_params), dof=dof,
+            chi2=float(chi2),
+            reduced_chi2=float(chi2) / dof if dof else float("nan"),
+            iterations=iterations, converged=self.converged,
+            wall_time_s=wall,
+            toas_per_sec=n * max(1, iterations) / wall if wall else 0.0)
+        return self.stats
+
+    @staticmethod
+    def auto(toas, model, downhill=True, device=None, serve=None,
+             streaming=None, **kw):
+        """Pick a fitter from model contents (reference: Fitter.auto):
+        GLS when correlated-noise components are present, WLS otherwise;
+        downhill wrappers by default. The wideband, streaming, serve and
+        whole-fit-on-device routes of the reference are not ported yet
+        and raise NotImplementedError."""
+        todo = "pint_tpu_torch does not have it yet: ROADMAP.md queue 1"
+        if serve is not None:
+            raise NotImplementedError(f"Fitter.auto(serve=): the serve "
+                                      f"path; {todo} item 11")
+        if streaming:
+            raise NotImplementedError(
+                f"Fitter.auto(streaming=True): StreamingGLSFitter; "
+                f"{todo} item 8")
+        if device:
+            raise NotImplementedError(
+                f"Fitter.auto(device=True): DeviceDownhillGLSFitter; "
+                f"{todo} item 5")
+        if toas.flags and all("pp_dm" in f for f in toas.flags):
+            raise NotImplementedError(
+                f"wideband TOAs (-pp_dm flags): the wideband fitters; "
+                f"{todo} item 7")
+        if model.has_correlated_errors:
+            from pint_tpu_torch.gls import DownhillGLSFitter, GLSFitter
+
+            cls = DownhillGLSFitter if downhill else GLSFitter
+        else:
+            cls = DownhillWLSFitter if downhill else WLSFitter
+        return cls(toas, model, **kw)
+
+    # -- shared plumbing ----------------------------------------------
+
+    def get_fitparams(self) -> List[str]:
+        return self.model.free_params
+
+    def get_designmatrix(self):
+        return self.model.designmatrix(self.toas, incoffset=True)
+
+    def update_model(self, x, names: List[str]):
+        for name, dx in zip(names, np.asarray(x, np.float64)):
+            if name == "Offset":
+                continue
+            self.model.get_param(name).add_delta(float(dx))
+        self.model.invalidate_cache(params_only=True)
+
+    def set_uncertainties(self, cov, names: List[str]):
+        cov = np.asarray(cov, np.float64)
+        self.parameter_covariance_matrix = cov
+        sig = np.sqrt(np.diag(cov))
+        for name, s in zip(names, sig):
+            if name == "Offset":
+                continue
+            self.model.get_param(name).uncertainty = float(s)
+            self.errors[name] = float(s)
+
+    def print_summary(self):
+        print(fit_summary(self))
+
+    def fit_toas(self, maxiter=1, **kw):
+        raise NotImplementedError
+
+
+class WLSFitter(Fitter):
+    """Weighted least squares via SVD (reference: WLSFitter)."""
+
+    def _solve(self, threshold):
+        self.resids = self._residuals()
+        M, names, _ = self.get_designmatrix()
+        x, cov, _ = _wls_solve(M, self.resids.time_resids,
+                               self._errors_s(), threshold)
+        # r ≈ M·(θ−θ_true): the parameter correction is −x
+        return (-x).cpu().numpy(), cov.cpu().numpy(), names
+
+    def fit_toas(self, maxiter=1, threshold=None):
+        t0 = time.perf_counter()
+        for _ in range(max(1, maxiter)):
+            x, cov, names = self._solve(threshold)
+            self.update_model(x, names)
+            self.set_uncertainties(cov, names)
+        self.resids = self._residuals()
+        chi2 = self.resids.chi2
+        self.converged = True
+        self._record_stats(chi2, max(1, maxiter), t0)
+        return chi2
+
+
+class DownhillWLSFitter(WLSFitter):
+    """Step-halving line search (reference: DownhillWLSFitter): accept a
+    step only if chi2 improves, else retry with lambda/2; raise after
+    exhausting maxiter."""
+
+    def fit_toas(self, maxiter=20, threshold=None, min_lambda=1e-3,
+                 required_chi2_decrease=1e-2):
+        t0 = time.perf_counter()
+        iterations = 0
+        best_chi2 = self._residuals().chi2
+        converged = False
+        for _ in range(maxiter):
+            iterations += 1
+            x, cov, names = self._solve(threshold)
+            lam, accepted = 1.0, False
+            while lam >= min_lambda:
+                self.update_model(lam * x, names)
+                new_chi2 = self._residuals().chi2
+                if new_chi2 <= best_chi2 + 1e-12:
+                    accepted = True
+                    break
+                self.update_model(-lam * x, names)  # undo
+                lam /= 2.0
+            if not accepted:
+                converged = True  # cannot improve: at the minimum
+                break
+            improved = best_chi2 - new_chi2
+            best_chi2 = new_chi2
+            self.set_uncertainties(cov, names)
+            if improved < required_chi2_decrease:
+                converged = True
+                break
+        else:
+            raise MaxiterReached(
+                f"no convergence in {maxiter} downhill iterations")
+        self.converged = converged
+        self.resids = self._residuals()
+        if self.parameter_covariance_matrix is None:
+            self.set_uncertainties(cov, names)
+        self._record_stats(best_chi2, iterations, t0)
+        return best_chi2
+
+
+def fit_summary(fitter: Fitter) -> str:
+    """Human-readable post-fit report (reference: Fitter.print_summary)."""
+    m = fitter.model
+    res = fitter.resids
+    lines = [
+        f"Fitted model {m.name or '?'} with {type(fitter).__name__}",
+        f"TOAs: {fitter.toas.ntoas}   free params: "
+        f"{len(m.free_params)}   dof: {res.dof}",
+        f"Post-fit weighted RMS: {res.rms_weighted() * 1e6:.4f} us",
+        f"chi2: {res.chi2:.3f}   reduced chi2: {res.reduced_chi2:.4f}",
+        "",
+        f"{'PARAM':<12} {'VALUE':>24} {'UNCERTAINTY':>14} UNITS",
+    ]
+    for name in m.free_params:
+        p = m.get_param(name)
+        lines.append(f"{name:<12} {p._format_value():>24} "
+                     f"{p._format_uncertainty():>14} {p.units}")
+    return "\n".join(lines)

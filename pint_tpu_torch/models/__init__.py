@@ -13,12 +13,14 @@ from pint_tpu_torch.models import absolute_phase  # noqa: F401
 from pint_tpu_torch.models import astrometry  # noqa: F401
 from pint_tpu_torch.models import dispersion  # noqa: F401
 from pint_tpu_torch.models import jump  # noqa: F401
+from pint_tpu_torch.models import noise  # noqa: F401
 from pint_tpu_torch.models import phase_offset  # noqa: F401
 from pint_tpu_torch.models import solar_system_shapiro  # noqa: F401
 from pint_tpu_torch.models import spindown  # noqa: F401
 from pint_tpu_torch.models.model_builder import (  # noqa: F401
     ModelBuilder,
     get_model,
+    get_model_and_toas,
 )
 
 __all__ = [
@@ -29,4 +31,5 @@ __all__ = [
     "component_types",
     "ModelBuilder",
     "get_model",
+    "get_model_and_toas",
 ]

@@ -5,6 +5,9 @@ packed parameter vector (``pint_tpu`` ``TimingModel._pack()``: names and
 double-double (hi, lo) values of the free and frozen parameters) and the
 TOA batch (the ``ToaBatch`` leaves). Both arrive as numpy arrays, so the
 same inputs can be fed to both phase chains without either parser.
+``fit_args_from_numpy`` carries a whole fit-step argument tuple across
+(parameters, batch, per-TOA cache, noise bases, ECORR segments), and
+``toas_from_columns`` a processed TOA table (its host columns).
 """
 
 from __future__ import annotations
@@ -44,3 +47,67 @@ def batch_from_numpy(leaves: dict, device=None):
     cols["tdb_frac_hi"] = np.asarray(hi, np.float64)
     cols["tdb_frac_lo"] = np.asarray(lo, np.float64)
     return pack_batch(cols, resolve_device(device))
+
+
+def _batch_leaves(batch) -> dict:
+    """{leaf: numpy} of a batch-like NamedTuple (``tdb_frac`` as its
+    (hi, lo) pair)."""
+    out = {k: np.asarray(v) for k, v in batch._asdict().items()
+           if k != "tdb_frac"}
+    out["tdb_frac"] = tuple(np.asarray(x) for x in batch.tdb_frac)
+    return out
+
+
+def _cache_from_numpy(cache: dict, dev) -> dict:
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out[k] = _cache_from_numpy(v, dev)
+        elif hasattr(v, "_asdict"):
+            out[k] = batch_from_numpy(_batch_leaves(v), dev)
+        else:
+            out[k] = torch.as_tensor(np.array(v, np.float64), device=dev)
+    return out
+
+
+def fit_args_from_numpy(args: Sequence, device=None) -> tuple:
+    """A fit step's 12 arguments (th, tl, fh, fl, batch, cache, F, phi,
+    nvec, valid, eid, jvar) as the port's step_fn takes them, from any
+    array-likes that numpy can read: float64 tensors on ``device``,
+    the batch and the cache's TZR batch as port ``ToaBatch``es, the
+    epoch ids as int64."""
+    dev = resolve_device(device)
+    th, tl, fh, fl, batch, cache, F, phi, nvec, valid, eid, jvar = args
+
+    def f64(x):
+        return torch.as_tensor(np.array(x, np.float64), device=dev)
+
+    return (f64(th), f64(tl), f64(fh), f64(fl),
+            batch_from_numpy(_batch_leaves(batch), dev),
+            _cache_from_numpy(cache, dev), f64(F), f64(phi), f64(nvec),
+            f64(valid), torch.as_tensor(np.array(eid, np.int64),
+                                        device=dev), f64(jvar))
+
+
+_TOA_COLUMNS = ("mjd_day", "mjd_frac", "freq_mhz", "error_us", "obs",
+                "flags", "names", "clock_applied", "tdb_day", "tdb_frac",
+                "ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos",
+                "obs_planet_pos", "ephem", "planets")
+
+
+def toas_from_columns(src, device=None):
+    """A port ``TOAs`` holding copies of the host columns of a processed
+    TOA table ``src`` (clock-corrected, TDBs and positions computed), so
+    both packages see the same TOAs without running either pipeline
+    again."""
+    import copy
+
+    from pint_tpu_torch.toa import _TOAS_SERIAL, TOAs
+
+    out = object.__new__(TOAs)
+    for k in _TOA_COLUMNS:
+        setattr(out, k, copy.deepcopy(getattr(src, k)))
+    out.device = resolve_device(device)
+    out.weights = None
+    out._serial = next(_TOAS_SERIAL)
+    return out

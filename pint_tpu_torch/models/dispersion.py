@@ -3,12 +3,16 @@ pint_tpu/models/dispersion.py; reference:
 src/pint/models/dispersion_model.py DispersionDM).
 
 Delay = DMconst · DM(t) / ν² with ν the Doppler-corrected barycentric
-frequency (ctx["bfreq"] from astrometry). DMX and DMJUMP are not ported
-yet (ROADMAP.md).
+frequency (ctx["bfreq"] from astrometry). DispersionDMX (piecewise DM
+windows, DispersionDMX in the reference) is here too; DMJUMP is not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from pint_tpu_torch import DMconst
@@ -39,7 +43,9 @@ class Dispersion(DelayComponent):
             _, _, i = split_prefixed_name(name)
             return ne / parse_unit("yr") ** i
 
-        return {"DM": ne, "DM*": dm_dim, "DMEPOCH": parse_unit("d")}
+        return {"DM": ne, "DM*": dm_dim, "DMEPOCH": parse_unit("d"),
+                "DMX": ne, "DMX_*": ne, "DMXR1_*": parse_unit("d"),
+                "DMXR2_*": parse_unit("d")}
 
 
 class DispersionDM(Dispersion):
@@ -93,3 +99,120 @@ class DispersionDM(Dispersion):
         dm = self.dm_value(pv, batch)
         ctx["dm"] = dm
         return DMconst * dm / (bf * bf)
+
+    def linear_design_names(self):
+        free = [nm for nm in self.dm_terms()
+                if not self.params[nm].frozen]
+        if free and not self.DMEPOCH.frozen:
+            return []  # dt_yr pivots on a fitted DMEPOCH: stay on AD
+        return free
+
+    def linear_design_local(self, pv, batch, cache, ctx):
+        """d(delay)/d(DMk) = DMconst * dt_yr^k/k! / nu^2 (the Taylor
+        factor mirrors dm_value's taylor_horner)."""
+        names = self.linear_design_names()
+        if not names:
+            return {}
+        bf = self._bfreq(batch, ctx)
+        inv2 = DMconst / (bf * bf)
+        terms = self.dm_terms()
+        if len(terms) > 1:
+            dmep = pv["DMEPOCH"].hi + pv["DMEPOCH"].lo \
+                if "DMEPOCH" in pv else self._parent.ref_day
+            tdb = batch.tdb_day + dd_to_f64(batch.tdb_frac)
+            dt_yr = (tdb - dmep) / 365.25
+        out = {}
+        for nm in names:
+            k = terms.index(nm)
+            if k == 0:
+                out[nm] = ("pre_delay", inv2 * torch.ones_like(bf))
+            else:
+                out[nm] = ("pre_delay",
+                           inv2 * dt_yr ** k / math.factorial(k))
+        return out
+
+
+class DispersionDMX(Dispersion):
+    """Piecewise-constant ΔDM over MJD windows: DMX_0001/DMXR1_/DMXR2_
+    (reference: DispersionDMX + TOASelect masks)."""
+
+    register = True
+
+    def __init__(self):
+        super().__init__()
+        self.add_param(floatParameter("DMX", units="pc cm^-3", value=0.0,
+                                      description="legacy header value"))
+        self.dmx_ids: list = []  # index ints, sorted at setup
+
+    def add_dmx_range(self, index, mjd_start, mjd_end, value=0.0,
+                      frozen=True, index_str=None):
+        istr = index_str or f"{index:04d}"
+        self.add_param(prefixParameter(prefix="DMX_", index=index,
+                                       index_str=istr, value=value,
+                                       units="pc cm^-3", frozen=frozen))
+        self.add_param(prefixParameter(prefix="DMXR1_", index=index,
+                                       index_str=istr, value=mjd_start,
+                                       units="MJD"))
+        self.add_param(prefixParameter(prefix="DMXR2_", index=index,
+                                       index_str=istr, value=mjd_end,
+                                       units="MJD"))
+
+    def setup(self):
+        ids = []
+        for name in self.params:
+            if name.startswith("DMX_"):
+                _, istr, idx = split_prefixed_name(name)
+                ids.append((idx, istr))
+        self.dmx_ids = sorted(ids)
+
+    def validate(self):
+        for idx, istr in self.dmx_ids:
+            for pre in ("DMXR1_", "DMXR2_"):
+                if f"{pre}{istr}" not in self.params:
+                    raise ValueError(f"DMX_{istr} missing {pre}{istr}")
+
+    def prepare(self, toas, cache, prefix=""):
+        """(N, k) window mask matrix, host-precomputed (DMXR bounds are
+        not fittable, as in the reference)."""
+        if not self.dmx_ids:
+            return
+        mjd = toas.get_mjds()
+        cols = []
+        for idx, istr in self.dmx_ids:
+            r1 = self.params[f"DMXR1_{istr}"].value
+            r2 = self.params[f"DMXR2_{istr}"].value
+            cols.append(((mjd >= r1) & (mjd <= r2)).astype(np.float64))
+        cache["dmx_masks"] = np.stack(cols, axis=-1)
+
+    def dm_value_device(self, pv, batch, cache, ctx):
+        if not self.dmx_ids:
+            return torch.zeros_like(batch.freq_mhz)
+        vals = torch.stack(
+            [pv[f"DMX_{istr}"].hi + pv[f"DMX_{istr}"].lo
+             for _, istr in self.dmx_ids])
+        return cache["dmx_masks"] @ vals
+
+    def linear_design_names(self):
+        return [f"DMX_{istr}" for _, istr in self.dmx_ids
+                if not self.params[f"DMX_{istr}"].frozen]
+
+    def linear_design_local(self, pv, batch, cache, ctx):
+        """d(delay)/d(DMX_i) = DMconst * window_mask_i / nu^2."""
+        if not self.dmx_ids:
+            return {}
+        bf = self._bfreq(batch, ctx)
+        inv2 = DMconst / (bf * bf)
+        masks = cache["dmx_masks"]
+        out = {}
+        for col, (_, istr) in enumerate(self.dmx_ids):
+            nm = f"DMX_{istr}"
+            if not self.params[nm].frozen:
+                out[nm] = ("pre_delay", inv2 * masks[:, col])
+        return out
+
+    def delay(self, pv, batch, cache, ctx, delay_so_far):
+        if not self.dmx_ids:
+            return torch.zeros_like(batch.freq_mhz)
+        bf = self._bfreq(batch, ctx)
+        return DMconst * self.dm_value_device(pv, batch, cache, ctx) \
+            / (bf * bf)

@@ -46,3 +46,12 @@ class PhaseJump(PhaseComponent):
                 cache[f"mask_{name}"]
         ph = -total * f0
         return DD(ph, torch.zeros_like(ph))
+
+    def linear_design_names(self):
+        return [nm for nm in self.jumps if not self.params[nm].frozen]
+
+    def linear_design_local(self, pv, batch, cache, ctx):
+        """d(phase)/d(JUMPi) = -F0 * mask_i at the current F0."""
+        f0 = pv["F0"].hi + pv["F0"].lo
+        return {nm: ("phase", -f0 * cache[f"mask_{nm}"])
+                for nm in self.jumps if not self.params[nm].frozen}

@@ -4,11 +4,13 @@ src/pint/models/model_builder.py get_model).
 
 Each registered Component contributes its parameter names and aliases to
 an index; prefixed families (F2.., DM2..) and JUMP mask parameters are
-recognized by pattern. Keys nobody knows are warned about and ignored,
-as in the reference. Keys of components the reference has but this port
-does not have yet (binaries, DMX, noise, the extra component families)
-raise NotImplementedError naming the ROADMAP item: ignoring e.g. a BINARY
-line would give wrong phases silently.
+recognized by pattern, as are DMX windows and the noise mask families
+(EFAC, EQUAD, TNEQ, ECORR and their aliases). Keys nobody knows are
+warned about and ignored, as in the reference. Keys of components the
+reference has but this port does not have yet (binaries, DMJUMP, the
+DM-noise and extra component families) raise NotImplementedError naming
+the ROADMAP item: ignoring e.g. a BINARY line would give wrong phases
+silently.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Dict, List
 from pint_tpu_torch.io.par import ParfileLine, parse_parfile
 from pint_tpu_torch.models.parameter import (
     maskParameter,
+    prefixParameter,
     split_prefixed_name,
 )
 from pint_tpu_torch.models.timing_model import (
@@ -33,19 +36,27 @@ DEFAULT_COMPONENTS = ["Spindown"]
 
 _F_RE = re.compile(r"^F(\d+)$")
 _DM_RE = re.compile(r"^DM(\d+)$")
+_DMX_RE = re.compile(r"^(DMX_|DMXR1_|DMXR2_)(\d+)$")
+
+# noise mask families → owning component, canonical name per alias and
+# par-file units (reference: MASK_FAMILIES, MASK_CANONICAL, MASK_UNITS)
+MASK_FAMILIES: Dict[str, str] = {
+    "EFAC": "ScaleToaError", "T2EFAC": "ScaleToaError",
+    "EQUAD": "ScaleToaError", "T2EQUAD": "ScaleToaError",
+    "TNEQ": "ScaleToaError", "ECORR": "EcorrNoise", "TNECORR": "EcorrNoise",
+}
+MASK_CANONICAL = {"T2EFAC": "EFAC", "T2EQUAD": "EQUAD", "TNECORR": "ECORR"}
+MASK_UNITS = {"EFAC": "", "EQUAD": "us", "TNEQ": "log10(s)", "ECORR": "us"}
 
 # ---- what the reference knows and this port does not have yet ----------
 # component → ROADMAP.md item that ports it
 _BINARIES = "ROADMAP.md queue 1 item 7 (binary models)"
 _ZOO = "ROADMAP.md queue 1 item 7 (rest of the model zoo)"
-_FIT = "ROADMAP.md queue 1 item 3 (GLS-fit components)"
 UNPORTED_COMPONENTS: Dict[str, str] = {
     **{c: _BINARIES for c in (
         "BinaryBT", "BinaryBTPiecewise", "BinaryDD", "BinaryDDGR",
         "BinaryDDH", "BinaryDDK", "BinaryDDS", "BinaryELL1", "BinaryELL1H",
         "BinaryELL1k")},
-    **{c: _FIT for c in (
-        "DispersionDMX", "ScaleToaError", "EcorrNoise", "PLRedNoise")},
     **{c: _ZOO for c in (
         "DispersionJump", "ScaleDmError", "FDJump", "FD", "Glitch",
         "IFunc", "Wave", "WaveX", "DMWaveX", "CMWaveX", "ChromaticCM",
@@ -73,7 +84,6 @@ for _cls, _keys in {
     "ChromaticCMX": "CMX CMXR1 CMXR1_ CMXR2 CMXR2_ CMX_",
     "DMWaveX": "DMWXCOS DMWXCOS_ DMWXEPOCH DMWXFREQ DMWXFREQ_ DMWXSIN "
                "DMWXSIN_",
-    "DispersionDMX": "DMX DMX_ DMXR1_ DMXR2_",
     "FD": "FD FD1",
     "Glitch": "GLEP GLEP_ GLF0 GLF0D GLF0D_ GLF0_ GLF1 GLF1_ GLF2 GLF2_ "
               "GLPH GLPH_ GLTD GLTD_",
@@ -81,8 +91,6 @@ for _cls, _keys in {
     "PLChromNoise": "TNCHROMAMP TNCHROMC TNCHROMGAM TNChromAmp TNChromC "
                     "TNChromGam",
     "PLDMNoise": "TNDMAMP TNDMAmp TNDMC TNDMGAM TNDMGam",
-    "PLRedNoise": "RNAMP RNIDX TNREDAMP TNREDC TNREDFLOW TNREDGAM TNRedAmp "
-                  "TNRedC TNRedGam",
     "PLSWNoise": "TNSWAMP TNSWAmp TNSWC TNSWGAM TNSWGam",
     "PiecewiseSpindown": "PWEP PWEP_ PWF0 PWF0_ PWF1 PWF1_ PWF2 PWF2_ PWPH "
                          "PWPH_ PWSTART PWSTART_ PWSTOP PWSTOP_",
@@ -93,8 +101,6 @@ for _cls, _keys in {
     "WaveX": "WXCOS WXCOS_ WXEPOCH WXFREQ WXFREQ_ WXSIN WXSIN_",
     # mask-parameter families
     "DispersionJump": "DMJUMP",
-    "ScaleToaError": "EFAC T2EFAC EQUAD T2EQUAD TNEQ",
-    "EcorrNoise": "ECORR TNECORR",
     "ScaleDmError": "DMEFAC DMEQUAD",
     "FDJump": "FDJUMP",
 }.items():
@@ -167,6 +173,7 @@ class ModelBuilder:
         import pint_tpu_torch.models.astrometry  # noqa: F401
         import pint_tpu_torch.models.dispersion  # noqa: F401
         import pint_tpu_torch.models.jump  # noqa: F401
+        import pint_tpu_torch.models.noise  # noqa: F401
         import pint_tpu_torch.models.phase_offset  # noqa: F401
         import pint_tpu_torch.models.solar_system_shapiro  # noqa: F401
         import pint_tpu_torch.models.spindown  # noqa: F401
@@ -177,6 +184,7 @@ class ModelBuilder:
         comps: Dict[str, Component] = {}
         unknown: List[str] = []
         jump_count = 0
+        mask_counters: Dict[str, int] = {}
 
         def get_comp(cls_name: str) -> Component:
             if cls_name not in comps:
@@ -231,11 +239,29 @@ class ModelBuilder:
                 p.from_tokens(toks)
                 continue
 
-            # 3. JUMP mask parameters (one instance per line)
+            m = _DMX_RE.match(key)
+            if m:
+                p = prefixParameter(name=key, units="pc cm^-3"
+                                    if m.group(1) == "DMX_" else "MJD")
+                get_comp("DispersionDMX").add_param(p)
+                p.from_tokens(toks)
+                continue
+
+            # 3. mask parameters (one instance per line)
             if key == "JUMP":
                 jump_count += 1
                 p = maskParameter("JUMP", index=jump_count, units="s")
                 get_comp("PhaseJump").add_param(p)
+                p.from_tokens(toks)
+                continue
+            if key in MASK_FAMILIES:
+                canonical = MASK_CANONICAL.get(key, key)
+                mask_counters[canonical] = mask_counters.get(canonical,
+                                                             0) + 1
+                p = maskParameter(canonical,
+                                  index=mask_counters[canonical],
+                                  units=MASK_UNITS[canonical])
+                get_comp(MASK_FAMILIES[key]).add_param(p)
                 p.from_tokens(toks)
                 continue
 
@@ -297,3 +323,13 @@ def get_model(parfile, name="", device=None) -> TimingModel:
     if psr and not model.name:
         model.name = psr
     return model
+
+
+def get_model_and_toas(parfile, timfile, device=None, **kw):
+    """(model, toas) in one call (reference: get_model_and_toas), both
+    on ``device`` (None means "cuda")."""
+    from pint_tpu_torch.toa import get_TOAs
+
+    model = get_model(parfile, device=device)
+    toas = get_TOAs(timfile, model=model, device=device, **kw)
+    return model, toas

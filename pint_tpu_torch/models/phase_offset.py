@@ -33,3 +33,11 @@ class PhaseOffset(PhaseComponent):
         off = -(pv["PHOFF"].hi + pv["PHOFF"].lo)
         ph = off * torch.ones_like(batch.freq_mhz)
         return DD(ph, torch.zeros_like(ph))
+
+    def linear_design_names(self):
+        return [] if self.PHOFF.frozen else ["PHOFF"]
+
+    def linear_design_local(self, pv, batch, cache, ctx):
+        if self.PHOFF.frozen:
+            return {}
+        return {"PHOFF": ("phase", -torch.ones_like(batch.freq_mhz))}

@@ -8,6 +8,8 @@ coefficients, so 19-digit par values keep all their bits.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from pint_tpu_torch.models.parameter import (
@@ -90,3 +92,23 @@ class Spindown(PhaseComponent):
         coeffs = [DD(torch.zeros_like(dt.hi), torch.zeros_like(dt.hi))]
         coeffs += [pv[nm] for nm in self.f_terms()]
         return dd_taylor_horner(dt, coeffs)
+
+    def linear_design_names(self):
+        """F1+ only: F0 also scales other components' phases (PhaseJump
+        converts seconds with it), so it stays on AD. A fitted PEPOCH
+        pivots dt, so then everything stays on AD."""
+        if not self.PEPOCH.frozen or self.PEPOCH.value is None:
+            return []
+        return [nm for nm in self.f_terms()
+                if nm != "F0" and not self.params[nm].frozen]
+
+    def linear_design_local(self, pv, batch, cache, ctx):
+        names = self.linear_design_names()
+        if not names:
+            return {}
+        dt_dd = self.dt(pv, ctx["tb"])
+        dts = dt_dd.hi + dt_dd.lo  # f64 suffices for a design column
+        terms = self.f_terms()
+        return {nm: ("phase",
+                     dts ** (i + 1) / math.factorial(i + 1))
+                for i, nm in enumerate(terms) if nm in names}

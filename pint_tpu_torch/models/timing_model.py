@@ -119,6 +119,22 @@ class Component:
         """Host precompute into `cache` (numpy masks etc.) for these
         TOAs; get_cache moves every array to the model's device."""
 
+    # -- hybrid-Jacobian hooks (see TimingModel.linear_design_columns) -
+
+    def linear_design_names(self) -> List[str]:
+        """FREE params of this component whose design-matrix columns
+        have a closed form (no AD tangent needed). Must agree with
+        linear_design_local's claims."""
+        return []
+
+    def linear_design_local(self, pv, batch, cache, ctx) -> dict:
+        """{claimed name: (kind, g)} with kind "pre_delay" (g =
+        d(own delay)/d(param) [s/unit]; the model multiplies by the
+        shared pre-binary stage sensitivity d(phase)/d(delay)) or
+        "phase" (g = d(phase)/d(param) [turns/unit], used directly),
+        evaluated at the current pv."""
+        return {}
+
 
 class DelayComponent(Component):
     category = "delay"
@@ -220,6 +236,15 @@ class TimingModel:
     def _ordered_components(self):
         return sorted(self.components.values(), key=_category_rank)
 
+    @property
+    def free_params(self) -> List[str]:
+        out = []
+        for c in self._ordered_components():
+            for p in c.params.values():
+                if not p.frozen and p.value is not None:
+                    out.append(p.name)
+        return out
+
     def get_param(self, name: str) -> Parameter:
         for c in self.components.values():
             if name in c.params:
@@ -291,22 +316,34 @@ class TimingModel:
         self._ref_day = day if day is not None else 55000.0
         return self._ref_day
 
-    def _delay_tb(self, pv, batch, cache, sub: str):
-        """The delay chain + delay-subtracted barycentric time."""
+    def _delay_tb(self, pv, batch, cache, sub: str,
+                  pre_binary_shift=None):
+        """The delay chain + delay-subtracted barycentric time.
+        ``pre_binary_shift`` is added to the accumulated delay just
+        before the pulsar_system components (or at the end without
+        one): the probe of the hybrid Jacobian's stage sensitivity."""
         ctx: dict = {}
         delay = torch.zeros_like(batch.freq_mhz)
+        shifted = pre_binary_shift is None
         for comp in self.delay_components:
+            if not shifted and comp.category == "pulsar_system":
+                delay = delay + pre_binary_shift
+                shifted = True
             delay = delay + comp.delay(pv, batch, cache[sub], ctx, delay)
+        if not shifted:
+            delay = delay + pre_binary_shift
         tb = dd_mul_f(dd_addf_day(batch, self.ref_day), SECS_PER_DAY)
         tb = dd_sub_f(tb, delay)
         ctx["tb"] = tb
         return delay, tb, ctx
 
-    def _raw_phase_fn(self, pv, batch, cache, sub: str):
+    def _raw_phase_fn(self, pv, batch, cache, sub: str,
+                      pre_binary_shift=None):
         """The full delay→phase chain, absolute dd. Components with
         ``apply_to_tzr = False`` (PhaseOffset) are left out of the TZR
         row."""
-        delay, tb, ctx = self._delay_tb(pv, batch, cache, sub)
+        delay, tb, ctx = self._delay_tb(pv, batch, cache, sub,
+                                        pre_binary_shift)
         phase = DD(torch.zeros_like(delay), torch.zeros_like(delay))
         for comp in self.phase_components:
             if sub == "tzr" and not getattr(comp, "apply_to_tzr", True):
@@ -326,10 +363,149 @@ class TimingModel:
             phase = dd_sub(phase, DD(tzr_phase.hi[0], tzr_phase.lo[0]))
         return phase, delay
 
-    def invalidate_cache(self):
-        """Drop the per-TOAs cache and the derived reference day."""
-        self._cache = None
-        self._cache_key = None
+    def _build_phase_fn(self):
+        """(phase_fn(th, tl, fh, fl, batch, cache), (free, frozen)): the
+        phase function of packed parameter vectors, as the reference's
+        ``_build_phase_fn`` returns it; a thin wrapper over phase_fn."""
+        free_names, frozen_names, *_ = self._pack()
+
+        def fn(th, tl, fh, fl, batch, cache):
+            return self.phase_fn(make_pv(free_names, frozen_names, th, tl,
+                                         fh, fl), batch, cache)
+
+        return fn, (free_names, frozen_names)
+
+    # -------- hybrid Jacobian: closed-form design columns -------------
+    #
+    # Every non-binary delay component is additive before the binary
+    # stage, so d(phase)/d(p) = S_pre(t) * d(delay_comp)/d(p) with ONE
+    # shared stage sensitivity S_pre = d(phase)/d(shift) (one JVP), and
+    # phase-linear params (JUMP, PHOFF, spin F1+) have direct columns.
+    # The fit step drops all such params from the jacfwd tangent set.
+
+    def _abs_phase_shift(self, pv, batch, cache, sub: str, s):
+        ph, _ = self._raw_phase_fn(pv, batch, cache, sub,
+                                   pre_binary_shift=s)
+        return ph.hi + ph.lo
+
+    def linear_design_names(self) -> set:
+        """Free-param names with closed-form design columns."""
+        free = set(self.free_params)
+        out: set = set()
+        for comp in self.components.values():
+            out |= set(comp.linear_design_names()) & free
+        return out
+
+    def _ld_rows(self, pv, batch, cache, sub: str, names):
+        dt = batch.freq_mhz.dtype
+        dev = batch.freq_mhz.device
+        delay, tb, ctx = self._delay_tb(pv, batch, cache, sub)
+        local = []  # (name, kind, g); same-name claims add up
+        for comp in self._ordered_components():
+            if sub == "tzr" and not getattr(comp, "apply_to_tzr", True):
+                continue
+            for nm, (kind, g) in comp.linear_design_local(
+                    pv, batch, cache[sub], ctx).items():
+                if nm in names:
+                    local.append((nm, kind, g))
+        # the stage-sensitivity JVP costs one full-chain tangent pass:
+        # paid only when some claim is delay-kind
+        s_pre = None
+        if any(kind == "pre_delay" for _, kind, _ in local):
+            zero = torch.zeros((), dtype=dt, device=dev)
+
+            def f(s):
+                return self._abs_phase_shift(pv, batch, cache, sub, s)
+
+            _, s_pre = torch.func.jvp(f, (zero,), (torch.ones_like(zero),))
+        out: dict = {}
+        for nm, kind, g in local:
+            contrib = s_pre * g if kind == "pre_delay" else g
+            out[nm] = out[nm] + contrib if nm in out else contrib
+        return out
+
+    def linear_design_columns(self, pv, batch, cache, names) -> dict:
+        """{name: exact d(phase)/d(param) column [turns/unit]} for the
+        claimed ``names``, including the TZR-row subtraction (what
+        jacfwd of the TZR-referenced phase gives)."""
+        main = self._ld_rows(pv, batch, cache, "main", names)
+        if "tzr_batch" in cache:
+            tzr = self._ld_rows(pv, cache["tzr_batch"], cache, "tzr",
+                                names)
+            # a claim can be absent from the tzr row (apply_to_tzr =
+            # False components, e.g. PhaseOffset): no subtraction then
+            return {nm: main[nm] - tzr[nm][0] if nm in tzr
+                    else main[nm] for nm in names}
+        return main
+
+    def design_jacobian(self, th, tl, fh, fl, batch, cache,
+                        hybrid: bool = True):
+        """(N, p) d(phase)/d(free_j) [turns/unit] at the packed point:
+        closed-form columns for linear_design_names (when ``hybrid``),
+        ``torch.func.jacfwd`` tangents for the rest."""
+        phase_fn, (free, frozen) = self._build_phase_fn()
+        lin = self.linear_design_names() if hybrid else set()
+        nl_idx = [i for i, nm in enumerate(free) if nm not in lin]
+        if nl_idx:
+            idx = torch.as_tensor(nl_idx, device=th.device)
+
+            def sub(th_nl):
+                ph, _ = phase_fn(th.index_put((idx,), th_nl), tl, fh, fl,
+                                 batch, cache)
+                return ph.hi + ph.lo
+
+            jac_nl = torch.func.jacfwd(sub)(th[idx])
+        if lin:
+            cols = self.linear_design_columns(
+                make_pv(free, frozen, th, tl, fh, fl), batch, cache, lin)
+        out, k = [], 0
+        for nm in free:
+            if nm in lin:
+                out.append(cols[nm])
+            else:
+                out.append(jac_nl[:, k])
+                k += 1
+        if not out:
+            return torch.zeros((batch.freq_mhz.shape[0], 0),
+                               dtype=batch.freq_mhz.dtype,
+                               device=batch.freq_mhz.device)
+        return torch.stack(out, dim=1)
+
+    def designmatrix(self, toas, incoffset=True, device=None):
+        """(M, names, units): M[i,j] = d(time-resid_i)/d(free-param_j)
+        [s / param-unit] as a float64 tensor on ``device`` (the model's
+        by default), with a leading offset column when incoffset
+        (reference: TimingModel.designmatrix). PHOFF, when present,
+        replaces the implicit offset column."""
+        if "PhaseOffset" in self.components:
+            incoffset = False
+        dev = self.device if device is None else resolve_device(device)
+        cache = self.get_cache(toas, dev)
+        free, _, th, tl, fh, fl = self._pack()
+        t = [torch.as_tensor(np.asarray(x, np.float64), device=dev)
+             for x in (th, tl, fh, fl)]
+        jac = self.design_jacobian(*t, cache["batch"], cache)
+        f0 = self.F0.value
+        M = jac / f0
+        names = list(free)
+        if incoffset:
+            M = torch.cat([torch.full((M.shape[0], 1), 1.0 / f0,
+                                      dtype=M.dtype, device=dev), M], dim=1)
+            names = ["Offset"] + names
+        units = ["turn"] + [self.get_param(n).units for n in free] \
+            if incoffset else [self.get_param(n).units for n in free]
+        return M, names, units
+
+    def invalidate_cache(self, params_only=False):
+        """Drop the per-TOAs cache and the derived reference day.
+        params_only=True (a parameter VALUE changed) keeps the per-TOAs
+        cache and the noise bases: only the reference day is
+        re-derived."""
+        if not params_only:
+            self._cache = None
+            self._cache_key = None
+            self.__dict__.pop("_noise_basis_cache", None)
+            self.__dict__.pop("_noise_device_cache", None)
         self.__dict__.pop("_ref_day", None)
 
     def get_cache(self, toas, device=None) -> dict:
@@ -402,6 +578,150 @@ class TimingModel:
         _, delay = self._evaluate(toas, True, device)
         return delay
 
+    # ---------------- noise-model aggregation -------------------------
+    # (host numpy, as in the reference: the bases are static during a
+    # least-squares fit; the fitters move them to the device once)
+
+    @property
+    def noise_components(self):
+        out = [c for c in self.components.values()
+               if getattr(c, "category", "") == "noise"]
+        return sorted(out, key=lambda c: type(c).__name__)
+
+    @property
+    def has_correlated_errors(self) -> bool:
+        return any(getattr(c, "is_basis_noise", False)
+                   for c in self.noise_components)
+
+    def scaled_toa_uncertainty(self, toas) -> np.ndarray:
+        """Per-TOA white sigma [s] after EFAC/EQUAD scaling."""
+        sigma2 = (toas.get_errors() * 1e-6) ** 2
+        for c in self.noise_components:
+            sigma2 = c.scale_toa_sigma_s2(toas, sigma2)
+        return np.sqrt(sigma2)
+
+    def noise_model_basis_weight_pairs(self, toas, exclude=(),
+                                       tspan=None, tref_day=None):
+        """[(component name, F, phi), ...] for every active basis,
+        cached per (TOA state, noise hyperparameter values, exclude
+        set); excluded components are never densified."""
+        exclude = tuple(sorted(exclude))
+        key = tuple(
+            (p.name, p.value, getattr(p, "key", None),
+             tuple(getattr(p, "key_value", ())))
+            for c in self.noise_components for p in c.params.values()
+        ) + (exclude, tspan, tref_day)
+        cached = self.__dict__.get("_noise_basis_cache")
+        serial = getattr(toas, "cache_key", None)
+        if cached is not None and cached[0] is toas \
+                and cached[1] == serial and cached[2] == key:
+            return cached[3]
+        out = []
+        for c in self.noise_components:
+            if not getattr(c, "is_basis_noise", False) or \
+                    type(c).__name__ in exclude:
+                continue
+            pair = c.noise_basis_weight(toas, tspan=tspan,
+                                         tref_day=tref_day)
+            if pair is not None:
+                out.append((type(c).__name__, pair[0], pair[1]))
+        self._noise_basis_cache = (toas, serial, key, out)
+        return out
+
+    def noise_model_designmatrix(self, toas, exclude=(), tspan=None,
+                                 tref_day=None):
+        """Stacked (N, q) noise basis, or None when no basis is active."""
+        pairs = self.noise_model_basis_weight_pairs(
+            toas, exclude=exclude, tspan=tspan, tref_day=tref_day)
+        if not pairs:
+            return None
+        return np.concatenate([F for _, F, _ in pairs], axis=1)
+
+    def noise_model_basis_weight(self, toas, exclude=(), tspan=None,
+                                 tref_day=None):
+        """Stacked (q,) prior variances matching the designmatrix."""
+        pairs = self.noise_model_basis_weight_pairs(
+            toas, exclude=exclude, tspan=tspan, tref_day=tref_day)
+        if not pairs:
+            return None
+        return np.concatenate([phi for _, _, phi in pairs])
+
+    def noise_model_ecorr_segments(self, toas):
+        """ECORR epoch-segment structure for the Sherman-Morrison GLS
+        path: (epoch_ids (N,) int32 — value K means 'in no epoch' —,
+        jvar (K+1,) per-epoch jitter variances [s^2] with jvar[K] = 0,
+        consumed component names), or None when no segment-capable
+        component is active or epochs overlap (callers then use the
+        dense quantization basis)."""
+        from pint_tpu_torch.models.noise import EcorrOverlapError
+
+        eids, jvars, consumed = [], [], []
+        for c in self.noise_components:
+            fn = getattr(c, "noise_epoch_segments", None)
+            if fn is None:
+                continue
+            try:
+                seg = fn(toas)
+            except EcorrOverlapError:
+                return None
+            if seg is not None:
+                eids.append(seg[0])
+                jvars.append(seg[1])
+                consumed.append(type(c).__name__)
+        if not eids:
+            return None
+        eid = np.full(toas.ntoas, -1, dtype=np.int32)
+        jv: list = []
+        for e, v in zip(eids, jvars):
+            mask = e >= 0
+            if np.any(eid[mask] >= 0):
+                return None  # overlap across components: dense basis
+            eid[mask] = e[mask] + len(jv)
+            jv.extend(v.tolist())
+        K = len(jv)
+        eid[eid < 0] = K  # 'no epoch' slot with zero variance
+        return eid, np.asarray(jv + [0.0]), tuple(consumed)
+
+    def noise_model_dimensions(self, toas):
+        """{component name: (start, length)} column spans in the stacked
+        basis."""
+        out = {}
+        start = 0
+        for name, F, _ in self.noise_model_basis_weight_pairs(toas):
+            out[name] = (start, F.shape[1])
+            start += F.shape[1]
+        return out
+
+    def noise_device(self, toas, device=None):
+        """(nvec, F, phi) float64 tensors on ``device`` for the dense
+        basis (F (N, 0) and phi (0,) without one), moved once per noise
+        basis and kept beside it."""
+        dev = self.device if device is None else resolve_device(device)
+        pairs = self.noise_model_basis_weight_pairs(toas)
+        nvec = self.scaled_toa_uncertainty(toas) ** 2
+        cached = self.__dict__.get("_noise_device_cache")
+        if cached is not None and cached[0] is pairs and \
+                cached[1] == str(dev) and np.array_equal(cached[2], nvec):
+            return cached[3]
+        if pairs:
+            F = np.concatenate([F for _, F, _ in pairs], axis=1)
+            phi = np.concatenate([phi for _, _, phi in pairs])
+        else:
+            F, phi = np.zeros((toas.ntoas, 0)), np.ones(0)
+        out = tuple(torch.as_tensor(np.asarray(x, np.float64), device=dev)
+                    for x in (nvec, F, phi))
+        self._noise_device_cache = (pairs, str(dev), nvec, out)
+        return out
+
+    def as_parfile(self) -> str:
+        lines = []
+        for c in self._ordered_components():
+            for p in c.params.values():
+                line = p.as_parfile_line()
+                if line:
+                    lines.append(line)
+        return "".join(lines)
+
     def validate(self):
         for c in self.components.values():
             c.validate()
@@ -415,6 +735,13 @@ class TimingModel:
 
 
 # ---------------- small device helpers ----------------
+
+
+def make_pv(free_names, frozen_names, th, tl, fh, fl) -> dict:
+    """{name: DD of 0-d tensors} from packed parameter tensors."""
+    pv = {nm: DD(th[i], tl[i]) for i, nm in enumerate(free_names)}
+    pv.update({nm: DD(fh[j], fl[j]) for j, nm in enumerate(frozen_names)})
+    return pv
 
 
 def dd_addf_day(batch, ref_day: float) -> DD:

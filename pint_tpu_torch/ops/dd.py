@@ -12,8 +12,10 @@ same order, so on the CPU the results are bitwise those of the reference.
   through ``torch.compile``: its generated kernels may contract.
 - IEEE f64 is correctly rounded on the CPU and on the GPU alike, so the
   same chain is exact on both.
-- The photon path takes no derivatives; the reference's custom JVP rules
-  are not ported here.
+- add/sub/mul/div, round and frac are ``torch.autograd.Function``s
+  carrying the reference's custom JVP rules (plain float64 tangents), so
+  ``torch.func.jacfwd`` through the phase chain gives the reference's
+  design-matrix columns.
 """
 
 from __future__ import annotations
@@ -88,37 +90,143 @@ def two_prod(a: Tensor, b: Tensor) -> DD:
 
 
 # ----------------------------------------------------------------------
-# DD arithmetic
+# DD arithmetic. Each public op is a torch.autograd.Function whose
+# forward-mode rule (jvp) is the reference's custom JVP: the tangent is
+# the plain float64 derivative of hi + lo, with a zero lo tangent, so
+# torch.func.jacfwd never differentiates through the error-term algebra.
+# generate_vmap_rule lets jacfwd batch the tangents.
 # ----------------------------------------------------------------------
 
-def dd_add(a: DD, b: DD) -> DD:
+def _dd_add(a: DD, b: DD) -> DD:
     s = two_sum(a.hi, b.hi)
     e = s.lo + (a.lo + b.lo)
     return _quick_two_sum(s.hi, e)
 
 
-def dd_sub(a: DD, b: DD) -> DD:
+def _dd_sub(a: DD, b: DD) -> DD:
     s = two_sum(a.hi, -b.hi)
     e = s.lo + (a.lo - b.lo)
     return _quick_two_sum(s.hi, e)
 
 
-def dd_mul(a: DD, b: DD) -> DD:
+def _dd_mul(a: DD, b: DD) -> DD:
     p = two_prod(a.hi, b.hi)
     e = p.lo + (a.hi * b.lo + a.lo * b.hi)
     return _quick_two_sum(p.hi, e)
 
 
-def dd_div(a: DD, b: DD) -> DD:
+def _dd_div(a: DD, b: DD) -> DD:
     # long division with one Newton correction — standard dd recipe
     q1 = a.hi / b.hi
-    r = dd_sub(a, dd_mul_f(b, q1))
+    r = _dd_sub(a, dd_mul_f(b, q1))
     q2 = (r.hi + r.lo) / (b.hi + b.lo)
     return _quick_two_sum(q1, q2)
 
 
+def _tangent(t, like: Tensor) -> Tensor:
+    """An input's tangent, zeros when it has none (the reference
+    instantiates symbolic zeros the same way, so a -0.0 tangent plus a
+    zero lo tangent gives +0.0 in both)."""
+    return torch.zeros_like(like) if t is None else t
+
+
+def _out(t: Tensor):
+    return t, torch.zeros_like(t)
+
+
+class _Binary(torch.autograd.Function):
+    """(a.hi, a.lo, b.hi, b.lo) -> (hi, lo); subclasses set ``fn`` and
+    ``rule(dav, dbv, av, bv)``, the float64 tangent of the value."""
+
+    generate_vmap_rule = True
+
+    @classmethod
+    def forward(cls, ahi, alo, bhi, blo):
+        r = cls.fn(DD(ahi, alo), DD(bhi, blo))
+        return r.hi, r.lo
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs)
+
+    @classmethod
+    def jvp(cls, ctx, dahi, dalo, dbhi, dblo):
+        ahi, alo, bhi, blo = ctx.saved_tensors
+        dav = _tangent(dahi, ahi) + _tangent(dalo, alo)
+        dbv = _tangent(dbhi, bhi) + _tangent(dblo, blo)
+        return _out(cls.rule(dav, dbv, ahi + alo, bhi + blo))
+
+
+class _Add(_Binary):
+    fn = staticmethod(_dd_add)
+
+    @staticmethod
+    def rule(dav, dbv, av, bv):
+        return dav + dbv
+
+
+class _Sub(_Binary):
+    fn = staticmethod(_dd_sub)
+
+    @staticmethod
+    def rule(dav, dbv, av, bv):
+        return dav - dbv
+
+
+class _Mul(_Binary):
+    fn = staticmethod(_dd_mul)
+
+    @staticmethod
+    def rule(dav, dbv, av, bv):
+        return dav * bv + dbv * av
+
+
+class _Div(_Binary):
+    fn = staticmethod(_dd_div)
+
+    @staticmethod
+    def rule(dav, dbv, av, bv):
+        return (dav - dbv * (av / bv)) / bv
+
+
+def _plain(*ts) -> bool:
+    """True when no torch.func transform is active and no input takes
+    part in autograd: then the plain function runs, skipping the
+    autograd.Function's dispatch (same values, bitwise). Derivatives of
+    these ops go through torch.func."""
+    return not torch._C._are_functorch_transforms_active() and \
+        not any(t.requires_grad for t in ts)
+
+
+def _binary(fn: type, plain, a: DD, b: DD) -> DD:
+    if _plain(a.hi, a.lo, b.hi, b.lo):
+        return plain(a, b)
+    return DD(*fn.apply(a.hi, a.lo, b.hi, b.lo))
+
+
+def dd_add(a: DD, b: DD) -> DD:
+    return _binary(_Add, _dd_add, a, b)
+
+
+def dd_sub(a: DD, b: DD) -> DD:
+    return _binary(_Sub, _dd_sub, a, b)
+
+
+def dd_mul(a: DD, b: DD) -> DD:
+    return _binary(_Mul, _dd_mul, a, b)
+
+
+def dd_div(a: DD, b: DD) -> DD:
+    return _binary(_Div, _dd_div, a, b)
+
+
 def dd_neg(a: DD) -> DD:
     return DD(-a.hi, -a.lo)
+
+
+def dd_abs(a: DD) -> DD:
+    neg = a.hi < 0
+    return DD(torch.where(neg, -a.hi, a.hi), torch.where(neg, -a.lo, a.lo))
 
 
 # f64-mixed fast paths (second operand an ordinary float64)
@@ -152,8 +260,7 @@ def dd_div_f(a: DD, b: FloatLike) -> DD:
 # (torch.round rounds half to even, as jnp.round does)
 # ----------------------------------------------------------------------
 
-def dd_round(a: DD) -> DD:
-    """Round to nearest integer, returned as DD (exact)."""
+def _dd_round(a: DD) -> DD:
     n1 = torch.round(a.hi)
     s = two_sum(a.hi, -n1)
     r = (s.hi + a.lo) + s.lo
@@ -161,8 +268,7 @@ def dd_round(a: DD) -> DD:
     return dd(n1, bump)
 
 
-def dd_frac(a: DD) -> DD:
-    """Signed fractional part in [-0.5, 0.5]: a - round(a), exact."""
+def _dd_frac(a: DD) -> DD:
     n1 = torch.round(a.hi)
     s = two_sum(a.hi, -n1)
     t = two_sum(s.hi, a.lo)
@@ -178,6 +284,53 @@ def dd_frac(a: DD) -> DD:
     return _quick_two_sum(f1.hi, f1.lo + s3.lo)
 
 
+class _Unary(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @classmethod
+    def forward(cls, ahi, alo):
+        r = cls.fn(DD(ahi, alo))
+        return r.hi, r.lo
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs)
+
+
+class _Round(_Unary):
+    fn = staticmethod(_dd_round)
+
+    @staticmethod
+    def jvp(ctx, dahi, dalo):
+        ahi, _ = ctx.saved_tensors
+        z = torch.zeros_like(ahi)
+        return z, z
+
+
+class _Frac(_Unary):
+    fn = staticmethod(_dd_frac)
+
+    @staticmethod
+    def jvp(ctx, dahi, dalo):
+        ahi, alo = ctx.saved_tensors
+        return _out(_tangent(dahi, ahi) + _tangent(dalo, alo))
+
+
+def dd_round(a: DD) -> DD:
+    """Round to nearest integer, returned as DD (exact); zero tangent."""
+    if _plain(a.hi, a.lo):
+        return _dd_round(a)
+    return DD(*_Round.apply(a.hi, a.lo))
+
+
+def dd_frac(a: DD) -> DD:
+    """Signed fractional part in [-0.5, 0.5]: a - round(a), exact; the
+    tangent passes through (d frac/dx = 1 away from half-integers)."""
+    if _plain(a.hi, a.lo):
+        return _dd_frac(a)
+    return DD(*_Frac.apply(a.hi, a.lo))
+
+
 def dd_int_frac(a: DD):
     """(integer part as DD, signed frac in [-0.5, 0.5] as DD)."""
     return dd_round(a), dd_frac(a)
@@ -185,3 +338,34 @@ def dd_int_frac(a: DD):
 
 def dd_where(cond: Tensor, a: DD, b: DD) -> DD:
     return DD(torch.where(cond, a.hi, b.hi), torch.where(cond, a.lo, b.lo))
+
+
+# ----------------------------------------------------------------------
+# Comparisons and sums
+# ----------------------------------------------------------------------
+
+def dd_lt(a: DD, b: DD) -> Tensor:
+    return (a.hi < b.hi) | ((a.hi == b.hi) & (a.lo < b.lo))
+
+
+def dd_le(a: DD, b: DD) -> Tensor:
+    return (a.hi < b.hi) | ((a.hi == b.hi) & (a.lo <= b.lo))
+
+
+def dd_sum(a: DD, axis=None) -> DD:
+    """Sum of a DD array along ``axis`` with compensated accumulation of
+    the hi chain (the two-sum error of every cumulative step); the los
+    are summed plainly. The error terms are exact only where cumsum is
+    the sequential recurrence, as torch's is on the CPU."""
+    if axis is None:
+        a = DD(a.hi.reshape(-1), a.lo.reshape(-1))
+        axis = 0
+    s = torch.cumsum(a.hi, dim=axis)
+    n = a.hi.shape[axis]
+    prev = torch.cat([torch.zeros_like(s.narrow(axis, 0, 1)),
+                      s.narrow(axis, 0, n - 1)], dim=axis)
+    bb = s - prev
+    err = (prev - (s - bb)) + (a.hi - bb)
+    hi_s = s.select(axis, n - 1)
+    lo_s = torch.sum(err, dim=axis) + torch.sum(a.lo, dim=axis)
+    return _quick_two_sum(hi_s, lo_s)

@@ -4,7 +4,8 @@
 is the spindown phase engine of the reference
 (src/pint/utils.py taylor_horner; src/pint/models/spindown.py):
 
-- ``taylor_horner``: plain Horner in the dtype of ``dt`` (delays, DM);
+- ``taylor_horner``/``taylor_horner_deriv``: plain Horner in the dtype
+  of ``dt`` (delays, DM, their time derivatives);
 - ``dd_taylor_horner``: double-double accumulator (absolute pulse phase,
   where F0*dt is ~1e10 turns and must keep <1e-9 turn error).
 """
@@ -22,10 +23,22 @@ from pint_tpu_torch.ops.dd import DD, dd_add, dd_add_f, dd_div_f, dd_mul
 def taylor_horner(dt: torch.Tensor, coeffs: Sequence):
     """Sum_i coeffs[i] * dt^i / i! via Horner (coeffs: floats or 0-d
     tensors)."""
+    return taylor_horner_deriv(dt, coeffs, deriv_order=0)
+
+
+def taylor_horner_deriv(dt: torch.Tensor, coeffs: Sequence,
+                        deriv_order: int = 1):
+    """deriv_order-th derivative of taylor_horner with respect to dt."""
     n = len(coeffs)
+    if n <= deriv_order:
+        return torch.zeros_like(dt)
+    # the derivative shifts the series: sum_{i>=d} c_i dt^{i-d}/(i-d)!
     acc = torch.zeros_like(dt)
-    for i in reversed(range(n)):
-        acc = acc * dt + coeffs[i] / math.factorial(i)
+    for i in reversed(range(deriv_order, n)):
+        ci = coeffs[i]
+        if not torch.is_tensor(ci):
+            ci = float(ci)
+        acc = acc * dt + ci / math.factorial(i - deriv_order)
     return acc
 
 

@@ -14,16 +14,18 @@ and never squeezed through a single float64.
 from __future__ import annotations
 
 import itertools
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
 
 from pint_tpu_torch import c_m_s, resolve_device
 from pint_tpu_torch.ephemeris import get_ephemeris
+from pint_tpu_torch.io.tim import TimTOA, parse_tim
 from pint_tpu_torch.observatory import get_observatory
 from pint_tpu_torch.ops import dd_np
 from pint_tpu_torch.ops.dd import DD
+from pint_tpu_torch.time import mjd as mjdmod
 from pint_tpu_torch.time import scales
 
 SECS_PER_DAY = 86400.0
@@ -91,9 +93,39 @@ def pack_batch(cols: Dict[str, np.ndarray], device) -> ToaBatch:
 
 class TOAs:
     """Host-side TOA table (reference: TOAs over an astropy Table; here a
-    plain struct of numpy columns + python-side flags), made by
-    get_TOAs_array. ``device`` is where ``to_batch()`` puts the batch by
-    default; ``weights`` holds photon weights or None."""
+    plain struct of numpy columns + python-side flags), made from parsed
+    .tim lines (get_TOAs) or by get_TOAs_array. ``device`` is where
+    ``to_batch()`` puts the batch by default; ``weights`` holds photon
+    weights or None."""
+
+    def __init__(self, timtoas: List[TimTOA], device=None):
+        self.device = resolve_device(device)
+        days, frac = mjdmod.parse_mjd_strings([t.mjd_str for t in timtoas])
+        self.mjd_day = days                      # UTC (pulsar-MJD) int day
+        self.mjd_frac = frac                     # dd day fraction
+        self.freq_mhz = np.array(
+            [t.freq_mhz if t.freq_mhz > 0 else np.inf for t in timtoas])
+        self.error_us = np.array([t.error_us for t in timtoas])
+        self.obs = [get_observatory(t.obs).name for t in timtoas]
+        self.flags: List[Dict[str, str]] = [dict(t.flags) for t in timtoas]
+        self.names = [t.name for t in timtoas]
+        # applied "TIME" offsets from the tim file (seconds)
+        toff = np.array([float(f.get("to", 0.0)) for f in self.flags])
+        if np.any(toff != 0.0):
+            self.mjd_frac = dd_np.add(
+                self.mjd_frac, dd_np.div_f(dd_np.dd(toff), SECS_PER_DAY))
+        self.clock_applied = False
+        self.weights = None
+        # populated by the pipeline:
+        self.tdb_day = None
+        self.tdb_frac = None
+        self.ssb_obs_pos = None   # (N,3) meters
+        self.ssb_obs_vel = None   # (N,3) m/s
+        self.obs_sun_pos = None
+        self.obs_planet_pos = None  # dict name -> (N,3) m
+        self.ephem = None
+        self.planets = False
+        self._serial = next(_TOAS_SERIAL)
 
     def _touch(self):
         """Mark this TOAs state as changed (invalidates model caches)."""
@@ -114,6 +146,9 @@ class TOAs:
         if high_precision:
             return self.mjd_day, self.mjd_frac
         return self.mjd_day + dd_np.to_f64(self.mjd_frac)
+
+    def get_errors(self):
+        return self.error_us
 
     def get_flag_value(self, flag, fill_value=None, as_type=None):
         out = []
@@ -285,6 +320,75 @@ class TOAs:
             "obs_planet_pos": planet,
             "pulse_number": pn,
         }, dev)
+
+
+def merge_TOAs(toas_list: List[TOAs]) -> TOAs:
+    """Concatenate TOA sets (reference: merge_TOAs). All inputs must be
+    at the same pipeline stage; the result takes the first one's
+    device."""
+    first = toas_list[0]
+    out = object.__new__(TOAs)
+    out.device = first.device
+    out.weights = None
+    out.mjd_day = np.concatenate([t.mjd_day for t in toas_list])
+    out.mjd_frac = (
+        np.concatenate([t.mjd_frac[0] for t in toas_list]),
+        np.concatenate([t.mjd_frac[1] for t in toas_list]))
+    out.freq_mhz = np.concatenate([t.freq_mhz for t in toas_list])
+    out.error_us = np.concatenate([t.error_us for t in toas_list])
+    out.obs = sum((t.obs for t in toas_list), [])
+    out.flags = sum(([dict(f) for f in t.flags] for t in toas_list), [])
+    out.names = sum((t.names for t in toas_list), [])
+    out.clock_applied = first.clock_applied
+    out.ephem = first.ephem
+    out.planets = first.planets
+    stages = {t.clock_applied for t in toas_list}
+    if len(stages) > 1:
+        raise ValueError("cannot merge TOAs at different pipeline stages")
+    for col in ("tdb_day", "ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos"):
+        vals = [getattr(t, col) for t in toas_list]
+        setattr(out, col,
+                None if any(v is None for v in vals)
+                else np.concatenate(vals))
+    fracs = [t.tdb_frac for t in toas_list]
+    out.tdb_frac = None if any(f is None for f in fracs) else (
+        np.concatenate([f[0] for f in fracs]),
+        np.concatenate([f[1] for f in fracs]))
+    pls = [t.obs_planet_pos for t in toas_list]
+    if any(p is None for p in pls):
+        out.obs_planet_pos = None
+    elif any(bool(p) != bool(pls[0]) for p in pls):
+        raise ValueError(
+            "cannot merge TOAs with and without planet positions; "
+            "recompute with a consistent planets= setting")
+    elif not pls[0]:
+        out.obs_planet_pos = {}
+    else:
+        out.obs_planet_pos = {
+            k: np.concatenate([p[k] for p in pls]) for k in pls[0]}
+    out._serial = next(_TOAS_SERIAL)
+    return out
+
+
+def get_TOAs(timfile, ephem=None, planets=False, model=None,
+             include_gps=True, include_bipm=True, bipm_version="BIPM2021",
+             limits="warn", device=None) -> TOAs:
+    """One-call ingestion pipeline for a .tim file: parse → clock → TDB
+    → posvels (reference: get_TOAs, without its npz cache). ``device``
+    (None means "cuda") is where to_batch() puts the batch."""
+    if model is not None:
+        if ephem is None:
+            ephem = getattr(model, "EPHEM", None) and model.EPHEM.value
+        if not planets:
+            ps = getattr(model, "PLANET_SHAPIRO", None)
+            planets = bool(ps is not None and ps.value)
+    t = TOAs(parse_tim(timfile), device=device)
+    t.apply_clock_corrections(include_gps=include_gps,
+                              include_bipm=include_bipm,
+                              bipm_version=bipm_version, limits=limits)
+    t.compute_TDBs(ephem=ephem)
+    t.compute_posvels(ephem=ephem, planets=planets)
+    return t
 
 
 def get_TOAs_array(mjds, obs="barycenter", freqs=np.inf, errors=1.0,

@@ -149,12 +149,44 @@ def test_packed_params_bitwise(models):
 
 @pytest.mark.parametrize("line,owner", [
     ("BINARY ELL1", "BinaryBT"), ("PB 1.5", "BinaryELL1"),
-    ("DMX_0001 0.01", "DispersionDMX"), ("EFAC -f L 1.1", "ScaleToaError"),
+    ("DMEFAC -f L 1.1", "ScaleDmError"), ("TNDMAMP -14", "PLDMNoise"),
     ("GLF0_1 1e-7", "Glitch"), ("FB0 1e-4", "BinaryELL1"),
-    ("TNREDAMP -14", "PLRedNoise"), ("UNITS TCB", "TCB")])
+    ("DMJUMP -f L 0.1", "DispersionJump"), ("UNITS TCB", "TCB")])
 def test_unported_components_refuse(line, owner):
     with pytest.raises(NotImplementedError, match=owner):
         get_model(io.StringIO(PAR + line + "\n"), device=CPU)
+
+
+@pytest.mark.parametrize("lines", [
+    "DMX_0001 0.01 1\nDMXR1_0001 56000\nDMXR2_0001 57000",
+    "EFAC -f L 1.1\nT2EFAC -f S 1.2\nEQUAD -f L 0.3\nT2EQUAD -f S 0.2"
+    "\nTNEQ -f L -6.5",
+    "ECORR -f L 1.2\nTNECORR -f S 0.7",
+    "TNREDAMP -14\nTNREDGAM 3.1\nTNREDC 12",
+    "RNAMP 0.02\nRNIDX -3.3"])
+def test_lifted_keys_build_the_reference_components(lines):
+    """DMX windows and the EFAC/EQUAD/ECORR/red-noise families, which
+    the port used to refuse, build the reference's components with
+    bitwise the same packed values and the same TOA selections."""
+    par = PAR + lines + "\n"
+    ref = _quiet(r_get_model, io.StringIO(par))
+    port = _quiet(get_model, io.StringIO(par), device=CPU)
+    assert sorted(port.components) == sorted(ref.components)
+    rp, tp = ref._pack(), port._pack()
+    assert rp[:2] == tp[:2]
+    for a, b in zip(rp[2:], tp[2:]):
+        assert np.array_equal(np.asarray(a).view(np.int64),
+                              np.asarray(b).view(np.int64))
+    for name in ref.components:
+        rc, tc = ref.components[name], port.components[name]
+        assert list(tc.params) == list(rc.params), name
+        for pn, rpar in rc.params.items():
+            tpar = tc.params[pn]
+            assert (tpar.value, tpar.frozen, tpar.units) == \
+                (rpar.value, rpar.frozen, rpar.units), pn
+            assert getattr(tpar, "key", None) == getattr(rpar, "key", None)
+            assert tuple(getattr(tpar, "key_value", ())) == \
+                tuple(getattr(rpar, "key_value", ()))
 
 
 def test_unknown_keys_warn_and_are_ignored():
@@ -339,6 +371,12 @@ def _port_sources():
 
 def test_port_never_imports_jax_or_the_reference():
     bad = []
+    names = {str(f.relative_to(REPO)) for f in _port_sources()}
+    # the fit slice's modules are among those checked
+    assert {"pint_tpu_torch/parallel/fit_step.py", "pint_tpu_torch/gls.py",
+            "pint_tpu_torch/fitter.py", "pint_tpu_torch/residuals.py",
+            "pint_tpu_torch/simulation.py", "pint_tpu_torch/models/noise.py",
+            "pint_tpu_torch/scripts/pintempo.py", "chip_smoke.py"} <= names
     for f in _port_sources():
         for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
             if isinstance(node, ast.Import):
@@ -349,17 +387,44 @@ def test_port_never_imports_jax_or_the_reference():
                 continue
             for nm in names:
                 top = nm.split(".")[0]
-                if top in ("jax", "jaxlib", "pint_tpu"):
+                if top in ("jax", "jaxlib", "pint_tpu", "bench",
+                           "__graft_entry__"):
                     bad.append(f"{f.relative_to(REPO)}:{node.lineno} {nm}")
     assert not bad, bad
 
 
 def _entry_points(tmp_path, event_file):
+    from pint_tpu_torch.models import get_model_and_toas
+    from pint_tpu_torch.parallel import build_fit_step
+    from pint_tpu_torch.residuals import Residuals
+    from pint_tpu_torch.scripts import pintempo
     from pint_tpu_torch.scripts.photonphase import main
+    from pint_tpu_torch.simulation import make_fake_toas_uniform
+    from pint_tpu_torch.toa import get_TOAs
 
     par = tmp_path / "m.par"
     par.write_text(PAR)
+    tim = REPO / "tests" / "datafile" / "NGC6440E.tim"
+    ngc = REPO / "tests" / "datafile" / "NGC6440E.par"
+
+    def cpu_fit_inputs():
+        return (get_model(str(ngc), device=CPU),
+                get_TOAs(str(tim), device=CPU))
+
     return {
+        "get_TOAs": lambda: get_TOAs(str(tim)),
+        "get_model_and_toas": lambda: get_model_and_toas(str(ngc),
+                                                         str(tim)),
+        "pintempo": lambda: pintempo.main([str(ngc), str(tim)]),
+        # a model and TOAs made for the CPU, asked for the GPU
+        "build_fit_step": lambda: build_fit_step(*cpu_fit_inputs(),
+                                                 device="cuda"),
+        "designmatrix": lambda: (lambda m, t: m.designmatrix(
+            t, device="cuda"))(*cpu_fit_inputs()),
+        "Residuals": lambda: Residuals(*cpu_fit_inputs()[::-1],
+                                       device="cuda").time_resids,
+        "make_fake_toas_uniform": lambda: make_fake_toas_uniform(
+            56000, 56100, 4, cpu_fit_inputs()[0], device="cuda"),
         "get_model": lambda: get_model(io.StringIO(PAR)),
         "get_TOAs_array": lambda: get_TOAs_array(np.array([56500.0])),
         "load_fits_TOAs": lambda: load_fits_TOAs(event_file),
@@ -375,7 +440,11 @@ def _entry_points(tmp_path, event_file):
 
 @pytest.mark.parametrize("name", ["get_model", "get_TOAs_array",
                                   "load_fits_TOAs", "hmw", "z2m",
-                                  "photonphase", "TimingModel.phase"])
+                                  "photonphase", "TimingModel.phase",
+                                  "get_TOAs", "get_model_and_toas",
+                                  "pintempo", "build_fit_step",
+                                  "designmatrix", "Residuals",
+                                  "make_fake_toas_uniform"])
 def test_default_device_is_the_gpu_and_never_falls_back(
         name, tmp_path, event_file):
     if torch.cuda.is_available():
