@@ -38,13 +38,17 @@ Phases, each fatal on failure:
      2,500 four-TOA epochs; the recipe copied here) built by the port;
    fit-step: the fit step on the GPU against the same step on the CPU
      (dparams within 1e-6 sigma, cov diagonal within 1e-8 relative,
-     chi2 within 1e-10 relative plus the change the residual difference
-     explains, residuals within 1e-12 s), two GPU steps bitwise equal;
+     chi2 within 1e-10 relative, residuals within 1e-12 s), two GPU
+     steps bitwise equal; the step with the reference's hybrid Jacobian
+     split (hybrid_jac=True: closed-form columns for the linear
+     parameters) against it on the GPU, to the same limits;
    fit-time: 20 GPU steps on the host clock and between CUDA events,
      and one torch.profiler window (device-busy share, launches per
-     step, device time by stage and by operation);
+     step, device time by stage and by operation), for the step and
+     for the hybrid step;
    fit-downhill: DownhillGLSFitter to convergence on the GPU and on the
-     CPU, the same optimum (parameters within 1e-6 sigma);
+     CPU, the same optimum (parameters within 1e-6 sigma, chi2 within
+     1e-10 relative plus the change the residual difference explains);
    pintempo: the CLI on tests/datafile/NGC6440E.{par,tim} on the GPU
      and on the CPU, the same fitted F0 (1e-6 sigma), within 3 sigma of
      the par file's;
@@ -525,9 +529,28 @@ def chi2_tol(chi2: float, dr, sigma, rel: float) -> float:
     return rel * abs(chi2) + 2.0 * math.sqrt(abs(chi2)) * d + d * d
 
 
+def step_diff(got, want) -> dict:
+    """The largest differences of step outputs `got` from `want` (numpy
+    arrays), in the units of the limits DP_SIGMA, COV_REL, CHI2_REL and
+    RESID_S."""
+    sig = np.sqrt(np.diag(want[1]))
+    return {"dp_sigma": float(np.max(np.abs(got[0] - want[0]) / sig)),
+            "cov_rel": float(np.max(np.abs(np.diag(got[1])
+                                           - np.diag(want[1]))
+                                    / np.diag(want[1]))),
+            "chi2_rel": float(abs(got[2] - want[2]) / abs(want[2])),
+            "resid_s": float(np.max(np.abs(got[3] - want[3])))}
+
+
+def within_limits(d: dict) -> bool:
+    return (d["dp_sigma"] <= DP_SIGMA and d["cov_rel"] <= COV_REL
+            and d["chi2_rel"] <= CHI2_REL and d["resid_s"] <= RESID_S)
+
+
 def fit_step_check(model, toas, dev) -> dict:
     """The step on the GPU twice (bitwise equal) and on the CPU, held to
-    DP_SIGMA, COV_REL, CHI2_REL (+ chi2_tol) and RESID_S."""
+    DP_SIGMA, COV_REL, CHI2_REL and RESID_S; the all-jacfwd step on the
+    GPU against the hybrid_jac=True one, to the same limits."""
     from pint_tpu_torch.parallel import build_fit_step
 
     step, args, names = build_fit_step(model, toas, device=dev)
@@ -543,33 +566,31 @@ def fit_step_check(model, toas, dev) -> dict:
     cpu_ms = (time.perf_counter() - t0) * 1e3
     if cnames != names:
         fail("fit-step: CPU and GPU steps have other parameters")
-    sig = np.sqrt(np.diag(c[1]))
-    dr = g1[3] - c[3]
-    got = {"dp_sigma": float(np.max(np.abs(g1[0] - c[0]) / sig)),
-           "cov_rel": float(np.max(np.abs(np.diag(g1[1]) - np.diag(c[1]))
-                                   / np.diag(c[1]))),
-           "chi2_rel": float(abs(g1[2] - c[2]) / abs(c[2])),
-           "resid_s": float(np.max(np.abs(dr))),
-           "chi2_gpu": float(g1[2]), "chi2_cpu": float(c[2]),
-           "cpu_step_ms": cpu_ms}
-    tol = chi2_tol(float(c[2]), dr, np.sqrt(cargs[8].numpy()), CHI2_REL)
-    got["chi2_tol_rel"] = tol / abs(float(c[2]))
+    got = {**step_diff(g1, c), "chi2_gpu": float(g1[2]),
+           "chi2_cpu": float(c[2]), "cpu_step_ms": cpu_ms}
     print(f"fit-step: GPU vs CPU max |d dparams| {got['dp_sigma']:.3e} sigma "
           f"(limit {DP_SIGMA}), cov diagonal {got['cov_rel']:.3e} relative "
           f"(limit {COV_REL}), chi2 {got['chi2_gpu']!r} vs "
           f"{got['chi2_cpu']!r}: {got['chi2_rel']:.3e} relative (limit "
-          f"{got['chi2_tol_rel']:.3e} = {CHI2_REL} + what the residual "
-          f"difference explains), residuals {got['resid_s']:.3e} s (limit "
+          f"{CHI2_REL}), residuals {got['resid_s']:.3e} s (limit "
           f"{RESID_S}); two GPU steps bitwise equal; the CPU step took "
           f"{cpu_ms:.1f} ms (second call, host clock)")
-    if not (got["dp_sigma"] <= DP_SIGMA and got["cov_rel"] <= COV_REL
-            and abs(g1[2] - c[2]) <= tol and got["resid_s"] <= RESID_S
-            and np.all(np.isfinite(g1[0]))):
+    if not (within_limits(got) and np.all(np.isfinite(g1[0]))):
         fail("fit-step: the GPU step disagrees with the CPU step")
-    return {"step": step, "args": args, "names": names, **got}
+    hy_step, hy_args, hy_names = build_fit_step(model, toas, device=dev,
+                                                hybrid_jac=True)
+    hy = step_diff([x.cpu().numpy() for x in hy_step(*hy_args)], g1)
+    print(f"fit-step: hybrid step vs all-jacfwd step on the GPU: "
+          f"|d dparams| {hy['dp_sigma']:.3e} sigma, cov diagonal "
+          f"{hy['cov_rel']:.3e}, chi2 {hy['chi2_rel']:.3e} relative, "
+          f"residuals {hy['resid_s']:.3e} s (the limits above)")
+    if hy_names != names or not within_limits(hy):
+        fail("fit-step: the hybrid step disagrees with the all-jacfwd one")
+    return {"step": step, "args": args, "names": names, "hy_step": hy_step,
+            "hy_args": hy_args, "hybrid_vs_step": hy, **got}
 
 
-def fit_time(step, args, reps: int = 20) -> dict:
+def fit_time(step, args, label: str, reps: int = 20) -> dict:
     """Host-clock and CUDA-event times of `reps` steps, then a profiler
     window of 3 steps: device-busy share, launches per step, device time
     by stage (the fit_step.* spans) and by operation."""
@@ -592,8 +613,9 @@ def fit_time(step, args, reps: int = 20) -> dict:
     out = {"host_ms": [float(np.median(host)), min(host), max(host)],
            "event_ms": [float(np.median(dev_ms)), min(dev_ms),
                         max(dev_ms)]}
-    print(f"fit-time: step {out['host_ms'][0]:.3f} ms median of {reps} on "
-          f"the host clock to synchronize (min {out['host_ms'][1]:.3f}, "
+    print(f"fit-time, {label}: {out['host_ms'][0]:.3f} ms median of "
+          f"{reps} on the host clock to synchronize (min "
+          f"{out['host_ms'][1]:.3f}, "
           f"max {out['host_ms'][2]:.3f}); {out['event_ms'][0]:.3f} ms "
           f"between CUDA events (min {out['event_ms'][1]:.3f}, max "
           f"{out['event_ms'][2]:.3f})")
@@ -644,7 +666,7 @@ def fit_time(step, args, reps: int = 20) -> dict:
     for _, _, name in work:
         kernels[name] = kernels.get(name, 0) + 1
     if work:
-        print(f"fit-time: profiler window of {nsteps} steps, "
+        print(f"fit-time, {label}: profiler window of {nsteps} steps, "
               f"{out['window_ms']:.3f} ms a step: device busy "
               f"{busy_us / 1e3 / nsteps:.3f} ms a step (kernels, copies "
               f"and sets), busy share {out['busy_share']:.4f} (idle share "
@@ -656,9 +678,9 @@ def fit_time(step, args, reps: int = 20) -> dict:
         for k, ms in out["top_ops_ms"].items():
             print(f"  op    {k:28s} {ms:9.3f} ms device a step")
     else:
-        print(f"fit-time: {out['launches_per_step']:.0f} kernel launches a "
-              "step; device busy share not measured (the profiler "
-              "recorded no device time)")
+        print(f"fit-time, {label}: {out['launches_per_step']:.0f} kernel "
+              "launches a step; device busy share not measured (the "
+              "profiler recorded no device time)")
     return out
 
 
@@ -802,7 +824,8 @@ def main() -> int:
               f"{len(seg[1])} ({len(seg[1]) - 1} ECORR epochs + the "
               f"'no epoch' slot); the fitters' dense noise basis has "
               f"{dense_q} columns")
-        ftime = fit_time(step["step"], step["args"])
+        ftime = fit_time(step["step"], step["args"], "step")
+        hytime = fit_time(step["hy_step"], step["hy_args"], "hybrid step")
         downhill = fit_downhill(fit_par_text, toas, dev)
         tempo = fit_pintempo(tmp)
 
@@ -868,7 +891,10 @@ def main() -> int:
               "recorded no device time)")
     print(f"fit path: build {build_s:.3f} s, step "
           f"{ftime['host_ms'][0]:.3f} ms (host) / {ftime['event_ms'][0]:.3f}"
-          f" ms (events), {ftime['launches_per_step']:.0f} launches a step, "
+          f" ms (events), {ftime['launches_per_step']:.0f} launches a step "
+          f"(hybrid step {hytime['host_ms'][0]:.3f} ms / "
+          f"{hytime['event_ms'][0]:.3f} ms, "
+          f"{hytime['launches_per_step']:.0f} launches), "
           f"downhill {downhill['iterations']} iterations in "
           f"{downhill['gpu_s']:.3f} s (CPU {downhill['cpu_s']:.3f} s), "
           f"pintempo {tempo['wall_s']:.3f} s")
@@ -880,8 +906,12 @@ def main() -> int:
         "stage_spans_ms": ftime["stage_spans_ms"],
         "cpu_step_ms": step["cpu_step_ms"],
         "top_ops_ms": ftime["top_ops_ms"],
+        "hybrid": {k: hytime[k] for k in (
+            "host_ms", "event_ms", "launches_per_step", "busy_share",
+            "stages_ms", "stage_spans_ms")},
         "gpu_vs_cpu": {k: step[k] for k in (
-            "dp_sigma", "cov_rel", "chi2_rel", "chi2_tol_rel", "resid_s")},
+            "dp_sigma", "cov_rel", "chi2_rel", "resid_s")},
+        "hybrid_vs_step": step["hybrid_vs_step"],
         "downhill": downhill, "pintempo": tempo}}))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card())

@@ -381,7 +381,10 @@ class TimingModel:
     # stage, so d(phase)/d(p) = S_pre(t) * d(delay_comp)/d(p) with ONE
     # shared stage sensitivity S_pre = d(phase)/d(shift) (one JVP), and
     # phase-linear params (JUMP, PHOFF, spin F1+) have direct columns.
-    # The fit step drops all such params from the jacfwd tangent set.
+    # With the hybrid split on, the design Jacobian drops all such params
+    # from the jacfwd tangent set. It is off by default: run eagerly, the
+    # columns' second chain pass costs more than the tangents they save
+    # (see parallel.fit_step._build_fit_core).
 
     def _abs_phase_shift(self, pv, batch, cache, sub: str, s):
         ph, _ = self._raw_phase_fn(pv, batch, cache, sub,
@@ -439,10 +442,10 @@ class TimingModel:
         return main
 
     def design_jacobian(self, th, tl, fh, fl, batch, cache,
-                        hybrid: bool = True):
+                        hybrid: bool = False):
         """(N, p) d(phase)/d(free_j) [turns/unit] at the packed point:
-        closed-form columns for linear_design_names (when ``hybrid``),
-        ``torch.func.jacfwd`` tangents for the rest."""
+        ``torch.func.jacfwd`` tangents, or with ``hybrid`` closed-form
+        columns for linear_design_names and tangents for the rest."""
         phase_fn, (free, frozen) = self._build_phase_fn()
         lin = self.linear_design_names() if hybrid else set()
         nl_idx = [i for i, nm in enumerate(free) if nm not in lin]

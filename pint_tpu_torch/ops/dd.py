@@ -189,35 +189,20 @@ class _Div(_Binary):
         return (dav - dbv * (av / bv)) / bv
 
 
-def _plain(*ts) -> bool:
-    """True when no torch.func transform is active and no input takes
-    part in autograd: then the plain function runs, skipping the
-    autograd.Function's dispatch (same values, bitwise). Derivatives of
-    these ops go through torch.func."""
-    return not torch._C._are_functorch_transforms_active() and \
-        not any(t.requires_grad for t in ts)
-
-
-def _binary(fn: type, plain, a: DD, b: DD) -> DD:
-    if _plain(a.hi, a.lo, b.hi, b.lo):
-        return plain(a, b)
-    return DD(*fn.apply(a.hi, a.lo, b.hi, b.lo))
-
-
 def dd_add(a: DD, b: DD) -> DD:
-    return _binary(_Add, _dd_add, a, b)
+    return DD(*_Add.apply(a.hi, a.lo, b.hi, b.lo))
 
 
 def dd_sub(a: DD, b: DD) -> DD:
-    return _binary(_Sub, _dd_sub, a, b)
+    return DD(*_Sub.apply(a.hi, a.lo, b.hi, b.lo))
 
 
 def dd_mul(a: DD, b: DD) -> DD:
-    return _binary(_Mul, _dd_mul, a, b)
+    return DD(*_Mul.apply(a.hi, a.lo, b.hi, b.lo))
 
 
 def dd_div(a: DD, b: DD) -> DD:
-    return _binary(_Div, _dd_div, a, b)
+    return DD(*_Div.apply(a.hi, a.lo, b.hi, b.lo))
 
 
 def dd_neg(a: DD) -> DD:
@@ -318,16 +303,12 @@ class _Frac(_Unary):
 
 def dd_round(a: DD) -> DD:
     """Round to nearest integer, returned as DD (exact); zero tangent."""
-    if _plain(a.hi, a.lo):
-        return _dd_round(a)
     return DD(*_Round.apply(a.hi, a.lo))
 
 
 def dd_frac(a: DD) -> DD:
     """Signed fractional part in [-0.5, 0.5]: a - round(a), exact; the
     tangent passes through (d frac/dx = 1 away from half-integers)."""
-    if _plain(a.hi, a.lo):
-        return _dd_frac(a)
     return DD(*_Frac.apply(a.hi, a.lo))
 
 

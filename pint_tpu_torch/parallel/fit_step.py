@@ -7,8 +7,7 @@ src/pint/fitter.py GLSFitter.fit_toas).
 
 runs the whole iteration on the device of its arguments: the dd phase
 chain, residuals with the weighted mean removed, the design matrix
-(``torch.func.jacfwd`` over the nonlinear parameters, closed-form
-columns for the linear ones), whitening, the normal equations with the
+(``torch.func.jacfwd`` over the free parameters), whitening, the normal equations with the
 red-noise Fourier basis and ECORR's per-epoch Sherman-Morrison
 downdates, the Jacobi-scaled Cholesky and the noise-marginalized chi2.
 The signature and output order are the reference's, so one function's
@@ -16,7 +15,8 @@ arguments can be fed to the other (models.convert.fit_args_from_numpy).
 
 This is the route the reference takes on its CPU backend, where float64
 is IEEE, as it is on the GPU: the direct dd phase chain, the float64
-Jacobian and the float64 Gram. The anchored, f32-Jacobian and f32-Gram
+Jacobian and the float64 Gram, with the reference's hybrid Jacobian
+split an option (off by default, see ``_build_fit_core``). The anchored, f32-Jacobian and f32-Gram
 routes, wideband rows, TOA padding, health taps and the on-device
 downhill loop are not ported yet (ROADMAP.md).
 """
@@ -66,11 +66,19 @@ class SegmentSum:
         return torch.cat([head, tail])
 
 
-def _build_fit_core(model, toas, device=None):
+def _build_fit_core(model, toas, device=None, hybrid_jac=False):
     """(step_fn, parts_fn, args, names, meta) on ``device`` (the model's
     by default). ``dparams`` is aligned with ``names``: an implicit
     Offset column leads unless the model has a PhaseOffset, and then
-    the residuals are not mean-subtracted either (check names[0])."""
+    the residuals are not mean-subtracted either (check names[0]).
+
+    Every design column comes from one vmapped jacfwd over all free
+    parameters. ``hybrid_jac=True`` takes the reference's default
+    instead: closed-form columns for the linear parameters and jacfwd
+    over the rest. Eager, the closed-form columns cost a second delay
+    chain and a stage-sensitivity JVP over the whole chain (main and
+    TZR rows), while more tangents do not add launches (vmap), so the
+    all-jacfwd step is the faster one (PERF.md)."""
     dev = model.device if device is None else resolve_device(device)
     phase_fn, (free, frozen) = model._build_phase_fn()
     cache = model.get_cache(toas, dev)
@@ -94,9 +102,9 @@ def _build_fit_core(model, toas, device=None):
     if has_padd:
         sc = {**sc, "padd": tensor(padd_np)}
 
-    # hybrid Jacobian: closed-form columns for the linear params, AD
+    # with hybrid_jac, closed-form columns for the linear params and AD
     # tangents only for the rest (static split at build time)
-    lin_set = model.linear_design_names()
+    lin_set = model.linear_design_names() if hybrid_jac else set()
     nl_idx_list = [i for i, nm in enumerate(free) if nm not in lin_set]
     nl_idx = torch.as_tensor(nl_idx_list, dtype=torch.long, device=dev)
 
@@ -190,17 +198,19 @@ def _build_fit_core(model, toas, device=None):
             (["Offset"] if incoffset else []) + free, meta)
 
 
-def build_fit_step(model, toas, device=None):
+def build_fit_step(model, toas, device=None, hybrid_jac=False):
     """(step_fn, args, names): one fit iteration and its arguments on
     ``device`` (the model's by default); see ``_build_fit_core``."""
-    step_fn, _, args, names, _ = _build_fit_core(model, toas, device)
+    step_fn, _, args, names, _ = _build_fit_core(model, toas, device,
+                                                 hybrid_jac)
     return step_fn, args, names
 
 
-def build_fit_parts(model, toas, device=None):
+def build_fit_parts(model, toas, device=None, hybrid_jac=False):
     """(parts_fn, args, names, meta): the design/residual assembly half
     of the step, taking the same 12 arguments as ``step_fn``."""
-    _, parts_fn, args, names, meta = _build_fit_core(model, toas, device)
+    _, parts_fn, args, names, meta = _build_fit_core(model, toas, device,
+                                                     hybrid_jac)
     return parts_fn, args, names, meta
 
 

@@ -1,7 +1,7 @@
 """The GLS-fit slice of the port (pint_tpu_torch) against the reference
 pint_tpu on the CPU: .tim ingestion, noise models, the design matrix
-(hybrid closed-form columns + torch.func.jacfwd), simulated TOAs, the
-fit step with ECORR segments, and the fitters, on
+(torch.func.jacfwd, and the hybrid closed-form columns), simulated TOAs,
+the fit step with ECORR segments, and the fitters, on
 ``__graft_entry__._flagship`` and on ``bench.build_problem``'s model cut
 to 400 TOAs and 4 DMX windows.
 
@@ -167,9 +167,9 @@ def test_hybrid_columns_match_pure_ad(problem):
         assert (np.max(np.abs(a - b)) / scale < 1e-12
                 or np.max(np.abs(a - b)) < 1e-13), nm
     # and the hybrid design Jacobian equals the all-AD one
-    hyb = m.design_jacobian(th, tl, fh, fl, cache["batch"], cache).numpy()
-    ad = m.design_jacobian(th, tl, fh, fl, cache["batch"], cache,
-                           hybrid=False).numpy()
+    hyb = m.design_jacobian(th, tl, fh, fl, cache["batch"], cache,
+                            hybrid=True).numpy()
+    ad = m.design_jacobian(th, tl, fh, fl, cache["batch"], cache).numpy()
     err = np.abs(hyb - ad) / np.maximum(np.max(np.abs(ad), axis=0), 1e-300)
     assert np.max(err) < 1e-12
 
@@ -239,6 +239,17 @@ def test_step_matches_reference(problem):
     _check_step(ref, step(*fit_args_from_numpy(rargs, CPU)), nvec,
                 "converted")
     _check_step(ref, step(*args), nvec, "own args")
+
+
+def test_hybrid_step_matches_reference(problem):
+    """The hybrid Jacobian split (the reference's default, an option of
+    the port's step) on both sides."""
+    rm, rt, tm, tt = problem
+    rstep, rargs, rnames = r_build_fit_step(rm, rt, hybrid_jac=True)
+    ref = jax.jit(rstep)(*rargs)
+    step, args, names = build_fit_step(tm, tt, device=CPU, hybrid_jac=True)
+    assert names == rnames
+    _check_step(ref, step(*args), np.asarray(rargs[8]), "hybrid")
 
 
 def test_step_repeats_bitwise_and_segments_match_dense(problem):
