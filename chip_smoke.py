@@ -52,7 +52,26 @@ Phases, each fatal on failure:
    pintempo: the CLI on tests/datafile/NGC6440E.{par,tim} on the GPU
      and on the CPU, the same fitted F0 (1e-6 sigma), within 3 sigma of
      the par file's;
-7. print the card's name and power limit, and one JSON line of kernel
+7. the binary path (it runs no hand-written kernel either):
+   binary-build: BASELINE config 2 (bench.config2_b1855like, recipe
+     copied): a B1855+09-like ELL1 binary, 5,000 TOAs in four-TOA
+     clusters at 1400/430 MHz, 26 free parameters (astrometry, F0/F1,
+     the orbit, 12 DMX), EFAC/EQUAD/ECORR, 20 red-noise modes, simulated
+     by the port from seed 2;
+   binary-step: as fit-step and fit-time, on that model; then the same
+     checks and timings for its DD twin (the orbit as DD: kepler_E in the
+     step);
+   binary-downhill: DownhillGLSFitter from PB, A1, TASC and EPS1 moved
+     3 sigma, on the GPU and the CPU (fit-downhill's limits), every
+     fitted parameter within 3 sigma of the simulated truth;
+   binary-zoo: each of the 10 binary models on a J1012+5307-like par at
+     10,000 TOAs: GPU delay vs CPU within 1e-12 s, GPU design matrix
+     vs CPU within 1e-10 of each column's largest entry;
+   fullcov: BASELINE config 4 (bench.config4_j0613like_fullcov, 2,000
+     TOAs, 15 red-noise modes, seed 4): the dense full-covariance solve
+     on the GPU against the CPU's (1e-8) and against the GPU Woodbury
+     solve (rtol 1e-6), both timed as cuda_ms times the kernel;
+8. print the card's name and power limit, and one JSON line of kernel
    measurements.
 
 The last line of standard output is {"ok": true, "device": {...}}. The
@@ -123,6 +142,71 @@ FIT_PAR = [
     "TNREDGAM 3.5", "TNREDC 30",
 ] + [f"JUMP -grp g{i} 1e-6 1" for i in range(4)]
 DP_SIGMA, COV_REL, CHI2_REL, RESID_S = 1e-6, 1e-8, 1e-10, 1e-12
+
+# The binary path's configurations, copied from bench.py like FIT_PAR:
+# config 2 (bench.config2_b1855like, bench.py:1118), a B1855+09-like
+# ELL1 binary with 12 free DMX windows over MJD 53000-56000, and config 4
+# (bench.config4_j0613like_fullcov, bench.py:1244), a J0613-0200-like
+# ELL1 binary with red noise for the dense full-covariance solve.
+B1855_SPAN = (53000.0, 56000.0)
+B1855_NTOA, B1855_NDMX = 5_000, 12
+B1855_PAR = [
+    "PSR B1855+09x", "RAJ 18:57:36.39 1", "DECJ 09:43:17.2 1",
+    "PMRA -2.9 1", "PMDEC -5.5 1", "PX 0.3 1", "F0 186.49408156698235 1",
+    "F1 -6.2049e-16 1", "DM 13.29", "PEPOCH 54500", "POSEPOCH 54500",
+    "DMEPOCH 54500", "TZRMJD 54500.1", "TZRSITE @", "TZRFRQ 1400",
+    "UNITS TDB", "BINARY ELL1", "PB 12.32717 1", "A1 9.2307805 1",
+    "TASC 54500.03 1", "EPS1 -2.15e-5 1", "EPS2 -3.1e-7 1", "SINI 0.999 1",
+    "M2 0.25 1", "EFAC -be X 1.1", "EQUAD -be X 0.2", "ECORR -be X 0.9",
+    "TNREDAMP -14.1", "TNREDGAM 4.1", "TNREDC 20",
+]
+# the parameters the downhill fit starts ~3 sigma away from
+B1855_OFFSET = ("PB", "A1", "TASC", "EPS1")
+J0613_PAR = [
+    "PSR J0613-0200x", "RAJ 06:13:43.97 1", "DECJ -02:00:47.2 1",
+    "PMRA 1.84 1", "PMDEC -10.6 1", "PX 0.9 1", "F0 326.6005670074 1",
+    "F1 -1.023e-15 1", "DM 38.77 1", "PEPOCH 54500", "POSEPOCH 54500",
+    "TZRMJD 54500.1", "TZRSITE @", "TZRFRQ 1400", "UNITS TDB",
+    "BINARY ELL1", "PB 1.198512575 1", "A1 1.09144 1", "TASC 54500.11 1",
+    "EPS1 3.5e-6 1", "EPS2 -2.5e-6 1", "TNREDAMP -13.9", "TNREDGAM 3.1",
+    "TNREDC 15",
+]
+FULLCOV_REL = 1e-8          # GPU vs CPU dense solve
+WOODBURY_RTOL, WOODBURY_ATOL = 1e-6, 1e-13   # tests/test_gls.py:179-180
+ZOO_DELAY_S, ZOO_DESIGN_REL = 1e-12, 1e-10
+ZOO_NTOA = 10_000
+# The binary zoo: one J1012+5307-like par per registered model (orbits as
+# in tests/test_binary_zoo.py and tests/test_binary.py).
+ZOO_BASE = [
+    "PSR J1012+5307", "RAJ 10:12:33.43 1", "DECJ 53:07:02.5 1",
+    "PMRA 2.6 1", "PMDEC -25.5 1", "PX 1.2 1", "F0 190.2678376220576 1",
+    "F1 -6.2e-16 1", "PEPOCH 55000", "POSEPOCH 55000", "DM 9.02 1",
+    "DMEPOCH 55000", "TZRMJD 55000.1", "TZRSITE @", "TZRFRQ 1400",
+    "UNITS TDB",
+]
+_DD_ORBIT = ["PB 0.6 1", "A1 1.45 1", "T0 55000.2 1", "ECC 0.02 1",
+             "OM 47.0 1"]
+ZOO = {
+    "ELL1": ["PB 0.60467271355 1", "A1 0.5818172 1", "TASC 55000.40712 1",
+             "EPS1 1.2e-5 1", "EPS2 -3.4e-6 1", "M2 0.2 1", "SINI 0.9 1"],
+    "ELL1H": ["PB 0.60467271355 1", "A1 0.5818172 1", "TASC 55000.40712 1",
+              "EPS1 1.2e-5 1", "EPS2 -3.4e-6 1", "H3 2.1e-7 1", "STIG 0.6 1"],
+    "ELL1k": ["PB 0.2 1", "A1 0.9 1", "TASC 55000.05 1", "EPS1 1.1e-5 1",
+              "EPS2 -0.4e-5 1", "M2 0.2", "SINI 0.9", "OMDOT 1.5 1",
+              "LNEDOT 1e-12"],
+    "BT": ["PB 0.60467271355 1", "A1 0.5818172 1", "T0 55000.40712 1",
+           "ECC 1.0e-5 1", "OM 45.0 1", "GAMMA 0.0"],
+    "BT_piecewise": ["PB 1.2 1", "A1 3.5 1", "T0 55000.2 1", "ECC 0.01 1",
+                     "OM 40.0 1", "T0X_0001 55000.2002 1",
+                     "A1X_0001 3.5004 1", "XR1_0001 54800",
+                     "XR2_0001 55200"],
+    "DD": _DD_ORBIT + ["GAMMA 1e-4 1", "M2 0.3 1", "SINI 0.95 1"],
+    "DDS": _DD_ORBIT + ["M2 0.3 1", "SHAPMAX 2.5 1"],
+    "DDH": _DD_ORBIT + ["H3 2.0e-7 1", "STIG 0.7 1"],
+    "DDGR": ["PB 0.4 1", "A1 2.34 1", "T0 55000.1 1", "ECC 0.17 1",
+             "OM 30.0 1", "MTOT 2.8 1", "M2 1.3 1"],
+    "DDK": _DD_ORBIT + ["M2 0.3 1", "KIN 71.0 1", "KOM 35.0 1"],
+}
 NGC = tuple(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tests", "datafile", f"NGC6440E.{ext}")
             for ext in ("par", "tim"))
@@ -164,7 +248,8 @@ def write_events(path: str, cols: dict) -> None:
         "TELESCOP": "NICER", "TIMEZERO": 0.0, "TIMEUNIT": "s"})
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> dict:
+def cuda_ms(fn, reps: int = 20, warmup: int = 3,
+            per_sleep: int | None = None) -> dict:
     """Device milliseconds of one fn() call: {"median", "min", "max"} over
     `reps` calls, each between its own pair of CUDA events.
 
@@ -175,11 +260,15 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> dict:
       of dirty lines, and writing them back would be timed with the call
       (for a kernel that reads tens of MB, a large share of its time).
     - The device first sleeps (torch.cuda._sleep) until the host has
-      enqueued every call; otherwise the events would also time the
+      enqueued the calls; otherwise the events would also time the
       host's work between them (argument checks, allocation, the ctypes
       call), which can exceed a short kernel. The sleep is lengthened
       until an event recorded after it is still pending when the
       enqueueing ends.
+    - `per_sleep` calls are enqueued under one sleep (all `reps` by
+      default). A call of hundreds of launches (a cuSOLVER factor and
+      its solves) fills the device's launch queue within a few calls,
+      and the host then waits for the sleeping device: give it 1.
     """
     import torch
 
@@ -190,27 +279,30 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> dict:
     read = torch.zeros_like(written)
     total = torch.empty((), dtype=torch.float32, device="cuda")
     torch.cuda.synchronize()
-    cycles = SLEEP_CYCLES
-    for _ in range(5):
-        ev = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-        torch.cuda._sleep(cycles)
-        awake = torch.cuda.Event()
-        awake.record()
-        for a, b in ev:
-            written.zero_()
-            torch.sum(read, dim=0, out=total)
-            a.record()
-            fn()
-            b.record()
-        slept_through = not awake.query()
-        torch.cuda.synchronize()
-        if slept_through:
-            break
-        cycles *= 4
-    else:
-        fail("the device woke before the host had enqueued the timed calls")
-    times = [a.elapsed_time(b) for a, b in ev]
+    cycles, times = SLEEP_CYCLES, []
+    while len(times) < reps:
+        for _ in range(5):
+            ev = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(min(per_sleep or reps, reps - len(times)))]
+            torch.cuda._sleep(cycles)
+            awake = torch.cuda.Event()
+            awake.record()
+            for a, b in ev:
+                written.zero_()
+                torch.sum(read, dim=0, out=total)
+                a.record()
+                fn()
+                b.record()
+            slept_through = not awake.query()
+            torch.cuda.synchronize()
+            if slept_through:
+                break
+            cycles *= 4
+        else:
+            fail("the device woke before the host had enqueued the timed "
+                 "calls")
+        times += [a.elapsed_time(b) for a, b in ev]
     return {"median": float(np.median(times)), "min": float(min(times)),
             "max": float(max(times))}
 
@@ -483,37 +575,53 @@ def baseline_kernel(zmod, src: str):
 # ------------------------------------------------------- the GLS fit path
 
 
-def fit_par(ndmx: int) -> str:
-    """The par text of bench.build_problem(): FIT_PAR plus ndmx free DMX
-    windows tiling the span."""
-    par = list(FIT_PAR)
-    edges = np.linspace(*FIT_SPAN, ndmx + 1)
+def with_dmx(par_lines, span, ndmx: int) -> list:
+    """`par_lines` plus `ndmx` free DMX windows tiling `span`."""
+    par = list(par_lines)
+    edges = np.linspace(*span, ndmx + 1)
     for i in range(ndmx):
         par += [f"DMX_{i + 1:04d} 0.0 1", f"DMXR1_{i + 1:04d} {edges[i]:.4f}",
                 f"DMXR2_{i + 1:04d} {edges[i + 1]:.4f}"]
-    return "\n".join(par) + "\n"
+    return par
 
 
-def fit_build(ntoa: int, ndmx: int, seed: int, dev) -> tuple:
-    """(par text, model, TOAs) of bench.build_problem(), built by the port
-    on `dev`: clustered epochs (ntoa/4 clusters of 4 TOAs within 30 min),
-    two bands, simulated onto integer phase with a white draw from
-    default_rng(seed), then the -be/-grp flags set (after the draw, as
-    there)."""
+def clustered_mjds(span, ntoa: int) -> np.ndarray:
+    """ntoa/4 observing epochs of four TOAs within 30 minutes, spread
+    over the span (bench._clustered_mjds)."""
+    centers = np.linspace(span[0] + 1, span[1] - 1, ntoa // 4)
+    return (centers[:, None] + np.linspace(0.0, 0.021, 4)[None, :]).ravel()
+
+
+def sim_toas(par_lines, mjds, freqs, seed: int, dev, flags: bool):
+    """(par text, model, TOAs): bench._make_model_toas's recipe run by the
+    port on `dev`: the model, TOAs simulated onto integer phase with a
+    white draw from default_rng(seed), then (with `flags`) the -be X flag
+    (after the draw, as there)."""
     from pint_tpu_torch.models import get_model
     from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
 
-    span0, span1 = FIT_SPAN
-    centers = np.linspace(span0 + 1, span1 - 1, ntoa // 4)
-    mjds = (centers[:, None] + np.linspace(0.0, 0.021, 4)[None, :]).ravel()
-    freqs = np.tile([1400.0, 1400.0, 820.0, 820.0], ntoa // 4)
-    par = fit_par(ndmx)
+    par = "\n".join(par_lines) + "\n"
     model = get_model(io.StringIO(par), device=dev)
     toas = make_fake_toas_fromMJDs(mjds, model, error_us=1.0,
                                    freq_mhz=freqs, add_noise=True,
                                    rng=np.random.default_rng(seed))
+    if flags:
+        for f in toas.flags:
+            f["be"] = "X"
+    return par, model, toas
+
+
+def fit_build(ntoa: int, ndmx: int, seed: int, dev) -> tuple:
+    """(par text, model, TOAs) of bench.build_problem(), built by the port
+    on `dev`: FIT_PAR with ndmx free DMX windows tiling the span,
+    clustered epochs, two bands, simulated onto integer phase with a
+    white draw from default_rng(seed), then the -be/-grp flags set (after
+    the draw, as there)."""
+    freqs = np.tile([1400.0, 1400.0, 820.0, 820.0], ntoa // 4)
+    par, model, toas = sim_toas(with_dmx(FIT_PAR, FIT_SPAN, ndmx),
+                                clustered_mjds(FIT_SPAN, ntoa), freqs, seed,
+                                dev, flags=True)
     for i, f in enumerate(toas.flags):
-        f["be"] = "X"
         f["grp"] = f"g{i % 5}"
     return par, model, toas
 
@@ -547,10 +655,33 @@ def within_limits(d: dict) -> bool:
             and d["chi2_rel"] <= CHI2_REL and d["resid_s"] <= RESID_S)
 
 
-def fit_step_check(model, toas, dev) -> dict:
+def chi2_of_residuals(model, toas, r) -> float:
+    """The step's chi2 as a function of its residuals alone, on the CPU:
+    r^T C^-1 r less its projection on the design matrix, with the dense
+    noise basis (ECORR columns included), by _gls_kernel."""
+    import torch
+
+    from pint_tpu_torch.gls import _gls_kernel
+
+    M, _, _ = model.designmatrix(toas, device="cpu")
+    nvec, F, phi = model.noise_device(toas, "cpu")
+    return float(_gls_kernel(M, F, phi, torch.as_tensor(r), nvec)[2])
+
+
+def fit_step_check(model, toas, dev, label: str = "fit-step",
+                   hybrid: bool = True, explain_chi2: bool = False) -> dict:
     """The step on the GPU twice (bitwise equal) and on the CPU, held to
-    DP_SIGMA, COV_REL, CHI2_REL and RESID_S; the all-jacfwd step on the
-    GPU against the hybrid_jac=True one, to the same limits."""
+    DP_SIGMA, COV_REL, CHI2_REL and RESID_S; with `hybrid`, the
+    all-jacfwd step on the GPU against the hybrid_jac=True one, to the
+    same limits.
+
+    With `explain_chi2`, CHI2_REL holds the part of the chi2 difference
+    that the two steps' residuals do not explain (`chi2_rel_unexplained`;
+    `chi2_rel` stays the raw relative difference): chi2 is a quadratic
+    form P in the residuals, and the GPU's and the CPU's differ by ~1 ulp
+    of the delays (~1e-13 s) TOA by TOA, which moves a chi2 of thousands
+    by ~1e-9 of itself. P(r_gpu) - P(r_cpu), evaluated in one place (the
+    CPU), is subtracted first."""
     from pint_tpu_torch.parallel import build_fit_step
 
     step, args, names = build_fit_step(model, toas, device=dev)
@@ -558,36 +689,52 @@ def fit_step_check(model, toas, dev) -> dict:
     g2 = [x.cpu().numpy() for x in step(*args)]
     for nm, a, b in zip(("dparams", "cov", "chi2", "resids"), g1, g2):
         if not np.array_equal(a.view(np.int64), b.view(np.int64)):
-            fail(f"fit-step: two GPU steps differ in {nm}")
+            fail(f"{label}: two GPU steps differ in {nm}")
     cstep, cargs, cnames = build_fit_step(model, toas, device="cpu")
     cstep(*cargs)
     t0 = time.perf_counter()
     c = [x.numpy() for x in cstep(*cargs)]
     cpu_ms = (time.perf_counter() - t0) * 1e3
     if cnames != names:
-        fail("fit-step: CPU and GPU steps have other parameters")
+        fail(f"{label}: CPU and GPU steps have other parameters")
     got = {**step_diff(g1, c), "chi2_gpu": float(g1[2]),
            "chi2_cpu": float(c[2]), "cpu_step_ms": cpu_ms}
-    print(f"fit-step: GPU vs CPU max |d dparams| {got['dp_sigma']:.3e} sigma "
+    held = dict(got)
+    if explain_chi2:
+        moved = chi2_of_residuals(model, toas, g1[3]) - \
+            chi2_of_residuals(model, toas, c[3])
+        got["chi2_moved_by_resids"] = moved
+        got["chi2_rel_unexplained"] = held["chi2_rel"] = \
+            abs(float(g1[2]) - float(c[2]) - moved) / abs(float(c[2]))
+        print(f"{label}: the residual difference moves chi2 by {moved:.6e} "
+              f"(GPU - CPU {float(g1[2]) - float(c[2]):.6e}, "
+              f"{got['chi2_rel']:.3e} relative); the rest, "
+              f"{held['chi2_rel']:.3e} relative, is held to {CHI2_REL}")
+    out = {"step": step, "args": args, "names": names,
+           "sigma": dict(zip(names, np.sqrt(np.diag(g1[1])))), **got}
+    print(f"{label}: GPU vs CPU max |d dparams| {got['dp_sigma']:.3e} sigma "
           f"(limit {DP_SIGMA}), cov diagonal {got['cov_rel']:.3e} relative "
           f"(limit {COV_REL}), chi2 {got['chi2_gpu']!r} vs "
-          f"{got['chi2_cpu']!r}: {got['chi2_rel']:.3e} relative (limit "
+          f"{got['chi2_cpu']!r}: {held['chi2_rel']:.3e} relative"
+          f"{' unexplained' if explain_chi2 else ''} (limit "
           f"{CHI2_REL}), residuals {got['resid_s']:.3e} s (limit "
           f"{RESID_S}); two GPU steps bitwise equal; the CPU step took "
           f"{cpu_ms:.1f} ms (second call, host clock)")
-    if not (within_limits(got) and np.all(np.isfinite(g1[0]))):
-        fail("fit-step: the GPU step disagrees with the CPU step")
+    if not (within_limits(held) and np.all(np.isfinite(g1[0]))):
+        fail(f"{label}: the GPU step disagrees with the CPU step")
+    if not hybrid:
+        return out
     hy_step, hy_args, hy_names = build_fit_step(model, toas, device=dev,
                                                 hybrid_jac=True)
     hy = step_diff([x.cpu().numpy() for x in hy_step(*hy_args)], g1)
-    print(f"fit-step: hybrid step vs all-jacfwd step on the GPU: "
+    print(f"{label}: hybrid step vs all-jacfwd step on the GPU: "
           f"|d dparams| {hy['dp_sigma']:.3e} sigma, cov diagonal "
           f"{hy['cov_rel']:.3e}, chi2 {hy['chi2_rel']:.3e} relative, "
           f"residuals {hy['resid_s']:.3e} s (the limits above)")
     if hy_names != names or not within_limits(hy):
-        fail("fit-step: the hybrid step disagrees with the all-jacfwd one")
-    return {"step": step, "args": args, "names": names, "hy_step": hy_step,
-            "hy_args": hy_args, "hybrid_vs_step": hy, **got}
+        fail(f"{label}: the hybrid step disagrees with the all-jacfwd one")
+    return {**out, "hy_step": hy_step, "hy_args": hy_args,
+            "hybrid_vs_step": hy}
 
 
 def fit_time(step, args, label: str, reps: int = 20) -> dict:
@@ -684,7 +831,7 @@ def fit_time(step, args, label: str, reps: int = 20) -> dict:
     return out
 
 
-def fit_downhill(par: str, toas, dev) -> dict:
+def fit_downhill(par: str, toas, dev, label: str = "fit-downhill") -> dict:
     """DownhillGLSFitter to convergence on the GPU and on the CPU from the
     par's values: the same optimum."""
     import torch
@@ -708,7 +855,7 @@ def fit_downhill(par: str, toas, dev) -> dict:
     dr = fg.resids.time_resids.cpu().numpy() - \
         fc.resids.time_resids.numpy()
     tol = chi2_tol(cc, dr, fc.model.scaled_toa_uncertainty(toas), CHI2_REL)
-    print(f"fit-downhill: GPU {fg.stats.iterations} iterations in "
+    print(f"{label}: GPU {fg.stats.iterations} iterations in "
           f"{tg:.3f} s, chi2 {cg!r}; CPU {fc.stats.iterations} iterations "
           f"in {tc:.3f} s, chi2 {cc!r}; parameters within "
           f"{dev_sigma:.3e} sigma (limit {DP_SIGMA}), chi2 "
@@ -717,9 +864,9 @@ def fit_downhill(par: str, toas, dev) -> dict:
     if not (fg.converged and fc.converged and dev_sigma <= DP_SIGMA
             and abs(cg - cc) <= tol
             and fg.stats.iterations == fc.stats.iterations):
-        fail("fit-downhill: the GPU fit does not reach the CPU optimum")
+        fail(f"{label}: the GPU fit does not reach the CPU optimum")
     return {"iterations": fg.stats.iterations, "gpu_s": tg, "cpu_s": tc,
-            "chi2": cg, "dp_sigma": dev_sigma}
+            "chi2": cg, "dp_sigma": dev_sigma, "fitter": fg}
 
 
 def fit_pintempo(tmp: str) -> dict:
@@ -756,6 +903,164 @@ def fit_pintempo(tmp: str) -> dict:
              "with the par file")
     return {"wall_s": wall["cuda"], "cpu_wall_s": wall["cpu"],
             "f0_par_sigma": par_sigma, "f0_cpu_sigma": cpu_sigma}
+
+
+# ------------------------------------------------------ the binary path
+
+
+def b1855_build(ntoa: int, ndmx: int, dev) -> tuple:
+    """bench.config2_b1855like()'s model and TOAs: ntoa/4 four-TOA
+    clusters over the span at 1400/430 MHz, ndmx free DMX windows,
+    seed 2."""
+    freqs = np.tile([1400.0, 1400.0, 430.0, 430.0], ntoa // 4)
+    return sim_toas(with_dmx(B1855_PAR, B1855_SPAN, ndmx),
+                    clustered_mjds(B1855_SPAN, ntoa), freqs, 2, dev,
+                    flags=True)
+
+
+def dd_twin(par: str) -> str:
+    """The config-2 par with its ELL1 orbit rewritten as the DD orbit it
+    approximates (ECC, OM and T0 from EPS1, EPS2 and TASC), for the cost
+    of kepler_E in the step."""
+    lines, keep = {}, []
+    for ln in par.splitlines():
+        key = ln.split()[0] if ln.split() else ""
+        if key in ("BINARY", "TASC", "EPS1", "EPS2"):
+            lines[key] = ln.split()
+        else:
+            keep.append(ln)
+    e1, e2 = float(lines["EPS1"][1]), float(lines["EPS2"][1])
+    om = math.degrees(math.atan2(e1, e2)) % 360.0
+    pb = next(float(ln.split()[1]) for ln in keep if ln.startswith("PB "))
+    t0 = float(lines["TASC"][1]) + om / 360.0 * pb
+    return "\n".join(keep + ["BINARY DD", f"T0 {t0!r} 1",
+                             f"ECC {math.hypot(e1, e2)!r} 1",
+                             f"OM {om!r} 1"]) + "\n"
+
+
+def binary_downhill(par: str, toas, sigma: dict, dev) -> dict:
+    """DownhillGLSFitter from B1855_OFFSET moved 3 sigma (of the step at
+    the truth) away, on the GPU and on the CPU (fit_downhill's limits);
+    every fitted parameter within 3 of its sigma of the simulated
+    truth."""
+    from pint_tpu_torch.models import get_model
+
+    start = get_model(io.StringIO(par), device="cpu")
+    for i, nm in enumerate(B1855_OFFSET):
+        start.get_param(nm).add_delta((3.0 if i % 2 == 0 else -3.0)
+                                      * float(sigma[nm]))
+    out = fit_downhill(start.as_parfile(), toas, dev, "binary-downhill")
+    fitted, truth = out.pop("fitter"), get_model(io.StringIO(par),
+                                                 device="cpu")
+    dev_truth = {nm: abs(fitted.model.get_param(nm).value
+                         - truth.get_param(nm).value) / fitted.errors[nm]
+                 for nm in truth.free_params}
+    worst = max(dev_truth, key=dev_truth.get)
+    print(f"binary-downhill: from {', '.join(B1855_OFFSET)} 3 sigma off; "
+          f"fitted parameters within {dev_truth[worst]:.3f} sigma of the "
+          f"simulated truth ({worst}; limit 3), "
+          + ", ".join(f"{nm} {dev_truth[nm]:.3f}" for nm in B1855_OFFSET))
+    if dev_truth[worst] > 3.0:
+        fail(f"binary-downhill: {worst} fitted {dev_truth[worst]:.3f} sigma "
+             "from the simulated truth")
+    return {**out, "truth_sigma_max": dev_truth[worst],
+            "truth_sigma": {nm: dev_truth[nm] for nm in B1855_OFFSET}}
+
+
+def binary_zoo(ntoa: int, dev) -> dict:
+    """Every registered binary on a J1012+5307-like par at `ntoa` GBT
+    TOAs: the GPU total delay against the CPU's (ZOO_DELAY_S) and the
+    GPU design matrix against the CPU's (ZOO_DESIGN_REL of each column's
+    largest entry). Runs kepler_E on the card for each Keplerian
+    family."""
+    import torch
+
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import get_TOAs_array
+
+    rng = np.random.default_rng(7)
+    mjds = np.sort(rng.uniform(54100.0, 55900.0, ntoa))
+    toas = get_TOAs_array(mjds, obs="gbt",
+                          freqs=np.tile([1400.0, 820.0], ntoa // 2),
+                          errors=1.0, device=dev)
+    worst = {"delay_s": 0.0, "design_rel": 0.0}
+    per = {}
+    for name, orbit in ZOO.items():
+        par = "\n".join(ZOO_BASE + [f"BINARY {name}"] + orbit) + "\n"
+        model = get_model(io.StringIO(par), device=dev)
+        want = f"BINARY{name.replace('_', '')}".upper()
+        if not any(c.upper() == want for c in model.components):
+            fail(f"binary-zoo: BINARY {name} built {list(model.components)}")
+        t0 = time.perf_counter()
+        dg = model.delay(toas)
+        Mg, names, _ = model.designmatrix(toas)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        dc = model.delay(toas, device="cpu")
+        Mc, cnames, _ = model.designmatrix(toas, device="cpu")
+        d_err = float(torch.max(torch.abs(dg.cpu() - dc)))
+        Mc = Mc.numpy()
+        m_err = float(np.max(np.max(np.abs(Mg.cpu().numpy() - Mc), axis=0)
+                             / np.max(np.abs(Mc), axis=0)))
+        ok = (names == cnames and np.all(np.isfinite(Mc))
+              and d_err <= ZOO_DELAY_S and m_err <= ZOO_DESIGN_REL)
+        print(f"binary-zoo {name:12s}: GPU vs CPU delay {d_err:.3e} s (limit "
+              f"{ZOO_DELAY_S}), design matrix {m_err:.3e} of each column's "
+              f"largest (limit {ZOO_DESIGN_REL}), {len(names)} columns; GPU "
+              f"delay + design matrix {gpu_s:.3f} s")
+        if not ok:
+            fail(f"binary-zoo: BINARY {name} differs between GPU and CPU")
+        per[name] = {"delay_s": d_err, "design_rel": m_err, "gpu_s": gpu_s}
+        worst = {"delay_s": max(worst["delay_s"], d_err),
+                 "design_rel": max(worst["design_rel"], m_err)}
+    return {"ntoa": ntoa, "worst": worst, "models": per}
+
+
+def fullcov(dev, n: int = 2000) -> dict:
+    """bench.config4_j0613like_fullcov()'s problem (2,000 TOAs, 15
+    red-noise modes, seed 4): one full_cov solve on the GPU against the
+    same solve on the CPU (FULLCOV_REL of |x| + sigma, chi2 FULLCOV_REL
+    relative), and against the GPU basis-Woodbury solve (the reference's
+    test limits); both solves timed by cuda_ms, one call a sleep."""
+    from pint_tpu_torch.gls import _gls_kernel, _gls_kernel_fullcov
+    from pint_tpu_torch.residuals import Residuals
+
+    rng = np.random.default_rng(4)
+    mjds = np.sort(rng.uniform(53000, 56000, n))
+    _, model, toas = sim_toas(J0613_PAR, mjds, np.tile([1400.0, 820.0],
+                                                       n // 2), 4, dev,
+                              flags=False)
+    M, _, _ = model.designmatrix(toas)
+    r = Residuals(toas, model).time_resids
+    nvec, F, phi = model.noise_device(toas)
+    args = (M, F, phi, r, nvec)
+    g = [x.cpu().numpy() for x in _gls_kernel_fullcov(*args)]
+    c = [x.numpy() for x in _gls_kernel_fullcov(*(x.cpu() for x in args))]
+    sig = np.sqrt(np.diag(c[1]))
+    dx = float(np.max(np.abs(g[0] - c[0]) / (np.abs(c[0]) + sig)))
+    dchi2 = abs(float(g[2]) - float(c[2])) / abs(float(c[2]))
+    w = [x.cpu().numpy() for x in _gls_kernel(*args)]
+    w_ok = bool(w[5]) and np.allclose(g[0], w[0], rtol=WOODBURY_RTOL,
+                                      atol=WOODBURY_ATOL) and \
+        np.isclose(float(g[2]), float(w[2]), rtol=WOODBURY_RTOL, atol=0.0)
+    wx = float(np.max(np.abs(g[0] - w[0]) / (WOODBURY_ATOL
+                                             + WOODBURY_RTOL * np.abs(w[0]))))
+    wchi2 = abs(float(g[2]) - float(w[2])) / abs(float(w[2]))
+    t_full = cuda_ms(lambda: _gls_kernel_fullcov(*args), per_sleep=1)
+    t_wood = cuda_ms(lambda: _gls_kernel(*args), per_sleep=1)
+    print(f"fullcov: N = {n}, p = {M.shape[1]}, q = {F.shape[1]}; GPU vs CPU "
+          f"dense solve |dx| {dx:.3e} of |x| + sigma (limit {FULLCOV_REL}), "
+          f"chi2 {dchi2:.3e} relative (limit {FULLCOV_REL}); dense vs "
+          f"Woodbury on the GPU: dx {wx:.3e} of (atol {WOODBURY_ATOL} + rtol "
+          f"{WOODBURY_RTOL} |x|) (limit 1), chi2 {wchi2:.3e} relative (limit "
+          f"{WOODBURY_RTOL}); dense solve {fmt(t_full)}; Woodbury "
+          f"{fmt(t_wood)} (cuda_ms: device time, host enqueue hidden)")
+    if not (np.all(np.isfinite(g[0])) and dx <= FULLCOV_REL
+            and dchi2 <= FULLCOV_REL and w_ok):
+        fail("fullcov: the dense solve disagrees")
+    return {"ntoa": n, "dx_rel": dx, "chi2_rel": dchi2,
+            "vs_woodbury_dx": wx, "vs_woodbury_chi2_rel": wchi2,
+            "fullcov_ms": t_full, "woodbury_ms": t_wood}
 
 
 def fmt(t: dict) -> str:
@@ -828,6 +1133,45 @@ def main() -> int:
         hytime = fit_time(step["hy_step"], step["hy_args"], "hybrid step")
         downhill = fit_downhill(fit_par_text, toas, dev)
         tempo = fit_pintempo(tmp)
+    fit_phases_s = time.perf_counter() - t0
+
+    # the binary path: BASELINE config 2 (ELL1), its DD twin, the zoo of
+    # every binary model and config 4's dense full-covariance solve
+    t0 = time.perf_counter()
+    b_par, b_model, b_toas = b1855_build(B1855_NTOA, B1855_NDMX, dev)
+    b_build_s = time.perf_counter() - t0
+    print(f"binary-build: {b_build_s:.3f} s on the host (model, simulated "
+          f"TOAs on {dev}); N = {b_toas.ntoas}, {len(b_model.free_params)} "
+          f"free parameters")
+    t1 = time.perf_counter()
+    b_step = fit_step_check(b_model, b_toas, dev, "binary-step",
+                            explain_chi2=True)
+    b_time = fit_time(b_step["step"], b_step["args"], "binary step")
+    b_hytime = fit_time(b_step["hy_step"], b_step["hy_args"],
+                        "binary hybrid step")
+    from pint_tpu_torch.models import get_model
+
+    dd_par = dd_twin(b_par)
+    dd_model = get_model(io.StringIO(dd_par), device=dev)
+    dd_model.OM.frozen = True   # T0 and OM are degenerate at e ~ 2e-5
+    dd_step = fit_step_check(dd_model, b_toas, dev, "binary-step (DD twin)",
+                             hybrid=False, explain_chi2=True)
+    dd_time = fit_time(dd_step["step"], dd_step["args"], "binary DD step")
+    b_step_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    b_downhill = binary_downhill(b_par, b_toas, b_step["sigma"], dev)
+    b_downhill_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    zoo = binary_zoo(ZOO_NTOA, dev)
+    zoo_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    full = fullcov(dev)
+    full_s = time.perf_counter() - t1
+    binary_phases_s = time.perf_counter() - t0
+    print(f"binary path seconds: build {b_build_s:.3f}, step checks and "
+          f"timings {b_step_s:.3f}, downhill {b_downhill_s:.3f}, zoo "
+          f"{zoo_s:.3f}, fullcov {full_s:.3f}; total {binary_phases_s:.3f} "
+          f"(fit path {fit_phases_s:.3f})")
 
     # timings at the main path's shape: float32 inputs (the TPU kernel's
     # contract) and float64 inputs (what the H-test hands the kernel)
@@ -912,7 +1256,38 @@ def main() -> int:
         "gpu_vs_cpu": {k: step[k] for k in (
             "dp_sigma", "cov_rel", "chi2_rel", "resid_s")},
         "hybrid_vs_step": step["hybrid_vs_step"],
-        "downhill": downhill, "pintempo": tempo}}))
+        "downhill": {k: v for k, v in downhill.items() if k != "fitter"},
+        "pintempo": tempo}}))
+    print(f"binary path: N = {b_toas.ntoas}, step "
+          f"{b_time['host_ms'][0]:.3f} ms (host) / "
+          f"{b_time['event_ms'][0]:.3f} ms (events), "
+          f"{b_time['launches_per_step']:.0f} launches a step; DD twin "
+          f"{dd_time['host_ms'][0]:.3f} ms / {dd_time['event_ms'][0]:.3f} ms, "
+          f"{dd_time['launches_per_step']:.0f} launches; downhill "
+          f"{b_downhill['iterations']} iterations in "
+          f"{b_downhill['gpu_s']:.3f} s (CPU {b_downhill['cpu_s']:.3f} s)")
+    timing_keys = ("host_ms", "event_ms", "launches_per_step", "busy_share",
+                   "stages_ms", "stage_spans_ms")
+    check_keys = ("dp_sigma", "cov_rel", "chi2_rel", "chi2_moved_by_resids",
+                  "chi2_rel_unexplained", "resid_s")
+    print(json.dumps({"binary_path": {
+        "ntoa": b_toas.ntoas, "build_s": b_build_s,
+        "step_host_ms": b_time["host_ms"],
+        "step_event_ms": b_time["event_ms"],
+        "launches_per_step": b_time["launches_per_step"],
+        "busy_share": b_time["busy_share"], "stages_ms": b_time["stages_ms"],
+        "stage_spans_ms": b_time["stage_spans_ms"],
+        "cpu_step_ms": b_step["cpu_step_ms"],
+        "top_ops_ms": b_time["top_ops_ms"],
+        "hybrid": {k: b_hytime[k] for k in timing_keys},
+        "dd_twin": {**{k: dd_time[k] for k in timing_keys},
+                    "gpu_vs_cpu": {k: dd_step[k] for k in check_keys}},
+        "gpu_vs_cpu": {k: b_step[k] for k in check_keys},
+        "hybrid_vs_step": b_step["hybrid_vs_step"],
+        "downhill": b_downhill, "zoo": zoo, "fullcov": full,
+        "seconds": {"build": b_build_s, "steps": b_step_s,
+                    "downhill": b_downhill_s, "zoo": zoo_s,
+                    "fullcov": full_s, "total": binary_phases_s}}}))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": [{

@@ -13,7 +13,9 @@ Every solve is float64 torch on the device of its inputs: the Gram is one
 ``torch.matmul``, the factorization ``torch.linalg.cholesky_ex`` (a
 failed factorization gives NaN, as ``jax.scipy`` does, instead of
 raising), so the ``ok`` flag and the eigh fallback behave as in the
-reference.
+reference. ``GLSFitter(full_cov=True)`` solves with the dense N x N
+covariance instead (``_gls_kernel_fullcov``), the reference's
+cross-check of the Woodbury algebra; it is never the default.
 """
 
 from __future__ import annotations
@@ -137,6 +139,30 @@ def _gls_chi2_kernel(F, phi, r, nvec):
     return torch.sum(r * r * w) - bF @ (cho_solve(L, bF / d) / d)
 
 
+def _gls_kernel_fullcov(M, F, phi, r, nvec):
+    """Dense full-covariance GLS (reference: the full_cov=True branch):
+    C = diag(Nvec) + F diag(phi) F^T, solved through a Cholesky factor
+    of C. Returns (dparams, cov, chi2, noise_resid). O(N^2) memory: an
+    accuracy cross-check of the Woodbury solve, not the default."""
+    C = torch.diag(nvec) + (F * phi[None, :]) @ F.T
+    L = cho_factor(C)
+    norm = torch.sqrt(torch.sum(M * M, dim=0))
+    norm = torch.where(norm == 0, torch.ones_like(norm), norm)
+    Mn = M / norm[None, :]
+    CiM = cho_solve(L, Mn)
+    Cir = cho_solve(L, r)
+    Sigma = Mn.T @ CiM
+    b = Mn.T @ Cir
+    L2 = cho_factor(Sigma)
+    xhat = cho_solve(L2, b)
+    eye = torch.eye(Sigma.shape[0], dtype=M.dtype, device=M.device)
+    inv = cho_solve(L2, eye)
+    chi2 = r @ Cir - xhat @ b
+    # conditional mean of the GP: phi F^T C^-1 (r - M dθ) ≈ phi F^T C^-1 r
+    noise_resid = (F * phi[None, :]) @ (F.T @ Cir)
+    return xhat / norm, inv / torch.outer(norm, norm), chi2, noise_resid
+
+
 def gls_chi2(model, toas, resids=None, device=None) -> float:
     """GLS chi2 of current residuals (basis-marginalized), on ``device``
     (the model's by default)."""
@@ -151,11 +177,14 @@ def gls_chi2(model, toas, resids=None, device=None) -> float:
 
 class GLSFitter(Fitter):
     """GLS fit with correlated noise marginalized in basis space
-    (reference: GLSFitter)."""
+    (reference: GLSFitter); with ``full_cov`` every solve uses the dense
+    N x N covariance instead."""
 
-    def __init__(self, toas, model, residuals=None, track_mode=None):
+    def __init__(self, toas, model, residuals=None, track_mode=None,
+                 full_cov=False):
         super().__init__(toas, model, residuals=residuals,
                          track_mode=track_mode)
+        self.full_cov = full_cov
         self.noise_resids: Optional[torch.Tensor] = None
 
     def _solve_once(self, threshold=None):
@@ -166,7 +195,9 @@ class GLSFitter(Fitter):
         r = self.resids.time_resids
         M, names, _ = self.get_designmatrix()
         nvec, Fb, phi = self.model.noise_device(self.toas, self.device)
-        if threshold is not None:
+        if self.full_cov:
+            x, cov, chi2, noise = _gls_kernel_fullcov(M, Fb, phi, r, nvec)
+        elif threshold is not None:
             x, cov, chi2, noise, _ = _gls_kernel_svd(
                 M, Fb, phi, r, nvec, threshold=float(threshold))
         else:

@@ -5,12 +5,15 @@ src/pint/models/model_builder.py get_model).
 Each registered Component contributes its parameter names and aliases to
 an index; prefixed families (F2.., DM2..) and JUMP mask parameters are
 recognized by pattern, as are DMX windows and the noise mask families
-(EFAC, EQUAD, TNEQ, ECORR and their aliases). Keys nobody knows are
-warned about and ignored, as in the reference. Keys of components the
-reference has but this port does not have yet (binaries, DMJUMP, the
-DM-noise and extra component families) raise NotImplementedError naming
-the ROADMAP item: ignoring e.g. a BINARY line would give wrong phases
-silently.
+(EFAC, EQUAD, TNEQ, ECORR and their aliases). The BINARY line is read
+first, whatever its place in the file, and selects the binary component
+that every binary parameter (and the FB series, the BT_piecewise pieces)
+lands on; ``BINARY T2`` picks the family from the parameters present
+(``guess_binary_model``). Keys nobody knows are warned about and
+ignored, as in the reference. Keys of components the reference has but
+this port does not have yet (DMJUMP, the DM-noise and extra component
+families) raise NotImplementedError naming the ROADMAP item: ignoring
+them would give wrong phases silently.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ DEFAULT_COMPONENTS = ["Spindown"]
 _F_RE = re.compile(r"^F(\d+)$")
 _DM_RE = re.compile(r"^DM(\d+)$")
 _DMX_RE = re.compile(r"^(DMX_|DMXR1_|DMXR2_)(\d+)$")
+_BTX_RE = re.compile(r"^(T0X_|A1X_|XR1_|XR2_)(\d+)$")
+_FB_RE = re.compile(r"^FB(\d+)$")
 
 # noise mask families → owning component, canonical name per alias and
 # par-file units (reference: MASK_FAMILIES, MASK_CANONICAL, MASK_UNITS)
@@ -50,13 +55,8 @@ MASK_UNITS = {"EFAC": "", "EQUAD": "us", "TNEQ": "log10(s)", "ECORR": "us"}
 
 # ---- what the reference knows and this port does not have yet ----------
 # component → ROADMAP.md item that ports it
-_BINARIES = "ROADMAP.md queue 1 item 7 (binary models)"
 _ZOO = "ROADMAP.md queue 1 item 7 (rest of the model zoo)"
 UNPORTED_COMPONENTS: Dict[str, str] = {
-    **{c: _BINARIES for c in (
-        "BinaryBT", "BinaryBTPiecewise", "BinaryDD", "BinaryDDGR",
-        "BinaryDDH", "BinaryDDK", "BinaryDDS", "BinaryELL1", "BinaryELL1H",
-        "BinaryELL1k")},
     **{c: _ZOO for c in (
         "DispersionJump", "ScaleDmError", "FDJump", "FD", "Glitch",
         "IFunc", "Wave", "WaveX", "DMWaveX", "CMWaveX", "ChromaticCM",
@@ -69,15 +69,6 @@ UNPORTED_COMPONENTS: Dict[str, str] = {
 # reference's parameter index routes it
 UNPORTED_PARAMS: Dict[str, str] = {}
 for _cls, _keys in {
-    "BinaryBT": "E ECC EDOT GAMMA OM OMDOT T T0",
-    "BinaryDD": "A0 B B0 DR DTH DTHETA",
-    "BinaryDDGR": "MTOT XOMDOT XPBDOT",
-    "BinaryDDK": "K K96 KIN KOM",
-    "BinaryDDS": "SHAPMAX",
-    "BinaryELL1": "A A1 A1DOT EPS EPS1 EPS1DOT EPS2 EPS2DOT M M2 PB PBDOT "
-                  "SINI TASC XDOT",
-    "BinaryELL1H": "H H3 H4 STIG VARSIGMA",
-    "BinaryELL1k": "LNEDOT",
     "CMWaveX": "CMWXCOS CMWXCOS_ CMWXEPOCH CMWXFREQ CMWXFREQ_ CMWXSIN "
                "CMWXSIN_",
     "ChromaticCM": "CM CM1 CMEPOCH CMIDX TNCHROMIDX",
@@ -108,8 +99,6 @@ for _cls, _keys in {
         UNPORTED_PARAMS[_k] = _cls
 # pattern families routed to unported components
 _UNPORTED_RE = (
-    (re.compile(r"^FB\d+$"), "BinaryELL1"),           # orbital-frequency series
-    (re.compile(r"^(T0X_|A1X_|XR1_|XR2_)\d+$"), "BinaryBTPiecewise"),
     (re.compile(r"^FD\d+JUMP$"), "FDJump"),
 )
 
@@ -136,8 +125,75 @@ def _unported_owner(key: str):
         UNPORTED_PARAMS.get(prefix.rstrip("_"))
 
 
+BINARY_COMPONENT_PREFIX = "Binary"
+
+
+def guess_binary_model(keys) -> str:
+    """The binary family a set of UPPERCASE par keys implies (reference:
+    model_builder guess_binary_model; for TEMPO2's ``BINARY T2``, which
+    dispatches on the parameters present). The most specific signature
+    wins."""
+    keys = set(keys)
+    if "KIN" in keys or "KOM" in keys:
+        return "DDK"
+    if "EPS1" in keys or "EPS2" in keys or "TASC" in keys:
+        if "LNEDOT" in keys:
+            return "ELL1k"
+        return "ELL1H" if "H3" in keys else "ELL1"
+    if "MTOT" in keys:
+        return "DDGR"
+    if "SHAPMAX" in keys:
+        return "DDS"
+    if "H3" in keys and "STIG" in keys:
+        return "DDH"
+    if keys & {"SINI", "M2", "OMDOT", "GAMMA"}:
+        return "DD"
+    return "BT"
+
+
+class T2BinaryWarning(UserWarning):
+    """A BINARY T2 par file, loaded through guess_binary_model."""
+
+
 class UnknownParameterWarning(UserWarning):
     pass
+
+
+def _select_binary(lines: List[ParfileLine]):
+    """(component class, model name) of the BINARY line, T2 resolved by
+    guess_binary_model (its IAU KIN/KOM converted to DT92 in place for
+    DDK); (None, None) without a BINARY line. Case and underscores in
+    the name are ignored (``ELL1k``, ``BT_piecewise``)."""
+    cls_name = binary_name = None
+    for ln in lines:
+        if ln.key != "BINARY" or not ln.tokens:
+            continue
+        binary_name = ln.tokens[0]
+        if binary_name.upper() == "T2":
+            binary_name = guess_binary_model({x.key.upper() for x in lines})
+            if binary_name == "DDK":
+                # T2 KIN/KOM are IAU-convention, the DDK model's DT92
+                # (KIN -> 180-KIN, KOM -> 90-KOM, as t2binary2pint):
+                # the raw values would corrupt the Kopeikin terms
+                for x in lines:
+                    k = x.key.upper()
+                    if k in ("KIN", "KOM") and x.tokens:
+                        ref = 180.0 if k == "KIN" else 90.0
+                        x.tokens[0] = repr(ref - float(x.tokens[0]))
+            warnings.warn(
+                f"BINARY T2 interpreted as {binary_name!r} via "
+                f"guess_binary_model"
+                + (" (KIN/KOM converted IAU->DT92)"
+                   if binary_name == "DDK" else ""),
+                T2BinaryWarning, stacklevel=3)
+        by_upper = {c.upper(): c for c in component_types}
+        want = (BINARY_COMPONENT_PREFIX + binary_name).upper()
+        cls_name = by_upper.get(want) or by_upper.get(want.replace("_", ""))
+        if cls_name is None:
+            raise NotImplementedError(
+                f"binary model {binary_name!r} is not implemented (known: "
+                f"{sorted(c for c in component_types if c.startswith('Binary'))})")
+    return cls_name, binary_name
 
 
 def _build_param_index():
@@ -177,6 +233,7 @@ class ModelBuilder:
         import pint_tpu_torch.models.phase_offset  # noqa: F401
         import pint_tpu_torch.models.solar_system_shapiro  # noqa: F401
         import pint_tpu_torch.models.spindown  # noqa: F401
+        import pint_tpu_torch.models.binary  # noqa: F401
         self.param_index = _build_param_index()
 
     def __call__(self, lines: List[ParfileLine], name="",
@@ -194,10 +251,21 @@ class ModelBuilder:
         for cls_name in DEFAULT_COMPONENTS:
             get_comp(cls_name)
 
+        # BINARY first, whatever its place: binary parameters (T0, TASC,
+        # PB...) exist on several Binary* classes and must land on the
+        # one the BINARY line selects
+        binary_cls, binary_name = _select_binary(lines)
+        if binary_cls is not None:
+            get_comp(binary_cls)
+
+        def active_binary():
+            return next((c for c in comps.values() if type(c).__name__
+                         .startswith(BINARY_COMPONENT_PREFIX)), None)
+
         for ln in lines:
             key, toks = ln.key, ln.tokens
             if key == "BINARY":
-                _refuse(key, "BinaryBT")
+                continue
             if key == "UNITS":
                 units = toks[0] if toks else "TDB"
                 if units.upper() == "TCB":
@@ -223,9 +291,38 @@ class ModelBuilder:
             # 1b. exact/alias match against the registry index
             cls_name = self.param_index.get(key)
             if cls_name is not None:
+                if cls_name.startswith(BINARY_COMPONENT_PREFIX) and \
+                        active_binary() is not None:
+                    # a binary parameter the selected model does not
+                    # carry (SINI in a DDK par: DDK takes the
+                    # inclination from KIN) never builds a second binary
+                    warnings.warn(
+                        f"{key} is not used by the selected binary "
+                        f"model; ignoring it",
+                        UnknownParameterWarning, stacklevel=2)
+                    unknown.append(key)
+                    continue
                 p = _param_by_name_or_alias(get_comp(cls_name), key)
                 p.from_tokens(toks)
                 continue
+
+            # 1c. the FB orbital-frequency series → the active binary
+            m = _FB_RE.match(key)
+            if m and active_binary() is not None:
+                p = active_binary().add_fb_term(int(m.group(1)))
+                p.from_tokens(toks)
+                continue
+
+            # 1d. BT_piecewise pieces → the active binary
+            m = _BTX_RE.match(key)
+            if m:
+                binary = next((c for c in comps.values()
+                               if hasattr(c, "add_piece_param")), None)
+                if binary is not None:
+                    p = binary.add_piece_param(m.group(1), int(m.group(2)),
+                                               index_str=m.group(2))
+                    p.from_tokens(toks)
+                    continue
 
             # 2. prefix families
             m = _F_RE.match(key)
@@ -293,6 +390,8 @@ class ModelBuilder:
             get_comp("SolarSystemShapiro")
 
         model = TimingModel(list(comps.values()), name=name, device=device)
+        if binary_name:
+            model.BINARY = binary_name
         if unknown:
             warnings.warn(
                 f"ignoring unrecognized par parameters: {sorted(set(unknown))}",

@@ -94,6 +94,9 @@ class Component:
         self.params[p.name] = p
         return p
 
+    def remove_param(self, name: str):
+        del self.params[name]
+
     def __getattr__(self, name):
         params = self.__dict__.get("params")
         if params and name in params:
@@ -718,6 +721,12 @@ class TimingModel:
 
     def as_parfile(self) -> str:
         lines = []
+        # the BINARY line names the binary component that is present
+        binary = next(
+            (name[len("Binary"):] for name in self.components
+             if name.startswith("Binary")), None)
+        if binary:
+            lines.append(f"{'BINARY':<15} {binary:>25}\n")
         for c in self._ordered_components():
             for p in c.params.values():
                 line = p.as_parfile_line()

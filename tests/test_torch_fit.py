@@ -1,16 +1,23 @@
 """The GLS-fit slice of the port (pint_tpu_torch) against the reference
 pint_tpu on the CPU: .tim ingestion, noise models, the design matrix
 (torch.func.jacfwd, and the hybrid closed-form columns), simulated TOAs,
-the fit step with ECORR segments, and the fitters, on
-``__graft_entry__._flagship`` and on ``bench.build_problem``'s model cut
-to 400 TOAs and 4 DMX windows.
+the fit step with ECORR segments, the fitters and the dense
+full-covariance solve, on ``__graft_entry__._flagship``, on
+``bench.build_problem``'s model cut to 400 TOAs and 4 DMX windows, and
+(the step, hybrid step and downhill tests) on the B1855+09-like ELL1
+binary of ``bench.config2_b1855like`` cut to 200 TOAs and 4 DMX windows.
 
 The port's delay chain is the reference's op for op, but XLA's fused CPU
 code, and the trigonometric functions of the two libraries, round some
 delays 1 ulp (~3e-14 s) apart. Where a test needs the phase to the last
 bit (simulated TOAs) the reference runs under ``jax.disable_jit()``;
 elsewhere a chi2 is held to its relative tolerance plus the change that
-the measured residual difference alone explains (``chi2_tol``)."""
+the measured residual difference alone explains (``chi2_tol``). The
+reference's compiled CPU code of a binary model rounds its double-double
+phase ~1e-6 turns away from exact (test_torch_binary.py), so on the
+binary fixture the reference always runs eagerly."""
+
+import contextlib
 
 import io
 import re
@@ -27,6 +34,8 @@ from __graft_entry__ import _flagship
 from pint_tpu.fitter import DownhillWLSFitter as RDownhillWLS
 from pint_tpu.fitter import WLSFitter as RWLS
 from pint_tpu.gls import DownhillGLSFitter as RDownhillGLS
+from pint_tpu.gls import GLSFitter as RGLS
+from pint_tpu.gls import _gls_kernel_fullcov as r_fullcov
 from pint_tpu.models import get_model as r_get_model
 from pint_tpu.parallel import build_fit_step as r_build_fit_step
 from pint_tpu.simulation import make_fake_toas_fromMJDs as r_fake
@@ -35,7 +44,7 @@ from pint_tpu.toa import merge_TOAs as r_merge
 
 from pint_tpu_torch.fitter import DownhillWLSFitter, Fitter, WLSFitter
 from pint_tpu_torch.gls import DownhillGLSFitter, GLSFitter, _gls_kernel, \
-    gls_chi2
+    _gls_kernel_fullcov, gls_chi2
 from pint_tpu_torch.models import get_model
 from pint_tpu_torch.models.convert import fit_args_from_numpy, \
     toas_from_columns
@@ -78,17 +87,64 @@ def _reduced_problem():
         bench.NTOA, bench.NDMX = saved
 
 
+def _b1855_problem(ntoa=200, ndmx=4):
+    """bench.config2_b1855like()'s model and TOAs (B1855+09-like ELL1
+    binary, EFAC/EQUAD/ECORR, 20 red-noise modes, clustered TOAs at
+    1400/430 MHz, seed 2) at ``ntoa`` TOAs and ``ndmx`` DMX windows."""
+    span0, span1 = 53000.0, 56000.0
+    par = [
+        "PSR B1855+09x", "RAJ 18:57:36.39 1", "DECJ 09:43:17.2 1",
+        "PMRA -2.9 1", "PMDEC -5.5 1", "PX 0.3 1",
+        "F0 186.49408156698235 1", "F1 -6.2049e-16 1",
+        "DM 13.29", "PEPOCH 54500", "POSEPOCH 54500", "DMEPOCH 54500",
+        "TZRMJD 54500.1", "TZRSITE @", "TZRFRQ 1400", "UNITS TDB",
+        "BINARY ELL1", "PB 12.32717 1", "A1 9.2307805 1",
+        "TASC 54500.03 1", "EPS1 -2.15e-5 1", "EPS2 -3.1e-7 1",
+        "SINI 0.999 1", "M2 0.25 1",
+        "EFAC -be X 1.1", "EQUAD -be X 0.2", "ECORR -be X 0.9",
+        "TNREDAMP -14.1", "TNREDGAM 4.1", "TNREDC 20",
+    ]
+    bench._add_dmx(par, span0, span1, ndmx)
+    mjds = bench._clustered_mjds(span0, span1, ntoa)
+    freqs = np.tile([1400.0, 1400.0, 430.0, 430.0], ntoa // 4)
+    return bench._make_model_toas(par, mjds, freqs, seed=2,
+                                  flag_sets={"be": lambda i: "X"})
+
+
+_BUILDERS = {"flagship": lambda: _flagship(ntoa=64, ndmx=4),
+             "problem": _reduced_problem, "b1855": _b1855_problem}
+_BUILT: dict = {}
+
+
+def _problem(name):
+    """(reference model, reference TOAs, port model, port TOAs), built
+    once per module: the port model from the reference's par output, the
+    port TOAs holding the reference TOAs' host columns."""
+    if name not in _BUILT:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            rm, rt = _BUILDERS[name]()
+            tm = get_model(io.StringIO(rm.as_parfile()), device=CPU)
+        _BUILT[name] = (rm, rt, tm, toas_from_columns(rt, CPU))
+    return _BUILT[name]
+
+
+def _reference_mode(name):
+    """How the reference runs on a fixture: eagerly on the binary one
+    (see the module docstring), compiled otherwise."""
+    return jax.disable_jit() if name == "b1855" else contextlib.nullcontext()
+
+
 @pytest.fixture(scope="module", params=["flagship", "problem"])
 def problem(request):
-    """(reference model, reference TOAs, port model, port TOAs): the port
-    model from the reference's par output, the port TOAs holding the
-    reference TOAs' host columns."""
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        rm, rt = (_flagship(ntoa=64, ndmx=4) if request.param == "flagship"
-                  else _reduced_problem())
-        tm = get_model(io.StringIO(rm.as_parfile()), device=CPU)
-    return rm, rt, tm, toas_from_columns(rt, CPU)
+    return _problem(request.param)
+
+
+@pytest.fixture(scope="module", params=["flagship", "problem", "b1855"])
+def fit_problem(request):
+    """``problem``'s cases and the binary one, with the reference's
+    evaluation mode."""
+    return _problem(request.param) + (request.param,)
 
 
 def _same(a, b) -> bool:
@@ -104,8 +160,13 @@ def _np(x):
 # --------------------------------------------------------------- model
 
 
-def test_model_components_and_packed_params_match(problem):
-    rm, _, tm, _ = problem
+def test_model_components_and_packed_params_match(fit_problem):
+    """The port model against the reference model; on the binary fixture
+    against the reference rebuilt from the same par text, since the
+    reference's as_parfile rounds the last bit of TASC's low word."""
+    rm, _, tm, _, name = fit_problem
+    if name == "b1855":
+        rm = _quiet(r_get_model, io.StringIO(rm.as_parfile()))
     assert sorted(tm.components) == sorted(rm.components)
     rp, tp = rm._pack(), tm._pack()
     assert rp[:2] == tp[:2]
@@ -114,8 +175,8 @@ def test_model_components_and_packed_params_match(problem):
     assert tm.linear_design_names() == rm.linear_design_names()
 
 
-def test_noise_model_bitwise(problem):
-    rm, rt, tm, tt = problem
+def test_noise_model_bitwise(fit_problem):
+    rm, rt, tm, tt, _ = fit_problem
     assert _same(rm.scaled_toa_uncertainty(rt),
                  tm.scaled_toa_uncertainty(tt))
     assert _same(rm.noise_model_designmatrix(rt),
@@ -140,10 +201,11 @@ def test_designmatrix_matches_reference(problem):
     assert np.max(err) <= 1e-12, np.max(err)
 
 
-def test_hybrid_columns_match_pure_ad(problem):
+def test_hybrid_columns_match_pure_ad(fit_problem):
     """Every closed-form column equals the jacfwd column to rounding,
-    TZR-row subtraction included (tests/test_hybrid_jac.py's rule)."""
-    _, _, m, toas = problem
+    TZR-row subtraction included (tests/test_hybrid_jac.py's rule); on
+    the binary fixture the stage sensitivity runs through the binary."""
+    _, _, m, toas, _ = fit_problem
     phase_fn, (free, frozen) = m._build_phase_fn()
     cache = m.get_cache(toas, CPU)
     th, tl, fh, fl = (torch.as_tensor(x, dtype=torch.float64)
@@ -226,12 +288,17 @@ def _check_step(ref, got, nvec, what=""):
     assert np.max(np.abs(r - rr)) <= RESID_S, what
 
 
-def test_step_matches_reference(problem):
+def _ref_step(name, rstep, rargs):
+    with _reference_mode(name):
+        return jax.jit(rstep)(*rargs)
+
+
+def test_step_matches_reference(fit_problem):
     """step_fn fed the reference's converted build_fit_step arguments,
     and the port's own build_fit_step, against the reference step."""
-    rm, rt, tm, tt = problem
+    rm, rt, tm, tt, name = fit_problem
     rstep, rargs, rnames = r_build_fit_step(rm, rt)
-    ref = jax.jit(rstep)(*rargs)
+    ref = _ref_step(name, rstep, rargs)
     step, args, names = build_fit_step(tm, tt, device=CPU)
     assert names == rnames
     assert len(args) == 12 and args[10].dtype == torch.int64
@@ -241,22 +308,22 @@ def test_step_matches_reference(problem):
     _check_step(ref, step(*args), nvec, "own args")
 
 
-def test_hybrid_step_matches_reference(problem):
+def test_hybrid_step_matches_reference(fit_problem):
     """The hybrid Jacobian split (the reference's default, an option of
     the port's step) on both sides."""
-    rm, rt, tm, tt = problem
+    rm, rt, tm, tt, name = fit_problem
     rstep, rargs, rnames = r_build_fit_step(rm, rt, hybrid_jac=True)
-    ref = jax.jit(rstep)(*rargs)
+    ref = _ref_step(name, rstep, rargs)
     step, args, names = build_fit_step(tm, tt, device=CPU, hybrid_jac=True)
     assert names == rnames
     _check_step(ref, step(*args), np.asarray(rargs[8]), "hybrid")
 
 
-def test_step_repeats_bitwise_and_segments_match_dense(problem):
+def test_step_repeats_bitwise_and_segments_match_dense(fit_problem):
     """Two calls give bitwise-equal outputs; the ECORR segment path
     agrees with the dense quantization-basis solve, its chi2 with the
     dense marginalized chi2 (tests/test_fit_step_ecorr.py)."""
-    _, _, m, toas = problem
+    _, _, m, toas, _ = fit_problem
     step, args, names = build_fit_step(m, toas, device=CPU)
     a, b = step(*args), step(*args)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
@@ -342,15 +409,65 @@ def _check_fit(rf, tf, rchi2, tchi2):
         assert tp.uncertainty == pytest.approx(rp.uncertainty, rel=1e-6)
 
 
-def test_downhill_gls_reaches_reference_optimum(problem):
-    rm, rt, _, tt = problem
+def test_downhill_gls_reaches_reference_optimum(fit_problem):
+    rm, rt, _, tt, name = fit_problem
     tm = get_model(io.StringIO(rm.as_parfile()), device=CPU)
     rm = r_get_model(io.StringIO(rm.as_parfile()))
-    rf, tf, rchi2, tchi2 = _fit_pair(RDownhillGLS, DownhillGLSFitter, rm,
-                                     rt, tm, tt)
+    with _reference_mode(name):
+        rf, tf, rchi2, tchi2 = _fit_pair(RDownhillGLS, DownhillGLSFitter,
+                                         rm, rt, tm, tt)
     assert tf.converged and tf.stats.iterations == rf.stats.iterations
     _check_fit(rf, tf, rchi2, tchi2)
     assert tf.noise_resids.shape == (tt.ntoas,)
+
+
+def test_full_covariance_solve_matches_reference_and_woodbury():
+    """The dense full-covariance solve against the reference's
+    ``_gls_kernel_fullcov`` and against the port's basis-Woodbury
+    ``_gls_kernel`` on the same inputs (the binary fixture's design
+    matrix, residuals and dense noise basis), to the reference's limits
+    (tests/test_gls.py: x rtol 1e-6 atol 1e-13, chi2 rtol 1e-6)."""
+    _, _, m, toas = _problem("b1855")
+    M, _, _ = m.designmatrix(toas)
+    r = Residuals(toas, m).time_resids
+    nvec, F, phi = m.noise_device(toas)
+    x, cov, chi2, noise = _gls_kernel_fullcov(M, F, phi, r, nvec)
+    rx, rcov, rchi2, rnoise = (np.asarray(v) for v in r_fullcov(
+        *(jax.numpy.asarray(_np(v)) for v in (M, F, phi, r, nvec))))
+    np.testing.assert_allclose(x.numpy(), rx, rtol=1e-6, atol=1e-13)
+    np.testing.assert_allclose(float(chi2), float(rchi2), rtol=1e-6)
+    np.testing.assert_allclose(np.diag(cov.numpy()), np.diag(rcov),
+                               rtol=1e-6)
+    np.testing.assert_allclose(noise.numpy(), rnoise, rtol=1e-6,
+                               atol=1e-13)
+    wx, _, wchi2, _, _, ok = _gls_kernel(M, F, phi, r, nvec)
+    assert bool(ok)
+    np.testing.assert_allclose(x.numpy(), wx.numpy(), rtol=1e-6, atol=1e-13)
+    np.testing.assert_allclose(float(chi2), float(wchi2), rtol=1e-6)
+    # a failed factorization gives NaN, not an exception
+    bad = _gls_kernel_fullcov(M, F, phi, r, -nvec)
+    assert not bool(torch.isfinite(bad[2]))
+
+
+def test_full_cov_fitter_matches_reference(problem):
+    """GLSFitter(full_cov=True): one fit step on both sides reaches the
+    same point, and the Woodbury fitter's."""
+    rm, rt, _, tt = problem
+    par = rm.as_parfile()
+    tm = get_model(io.StringIO(par), device=CPU)
+    rm = r_get_model(io.StringIO(par))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        rf, tf = RGLS(rt, rm, full_cov=True), GLSFitter(tt, tm, full_cov=True)
+        rchi2, tchi2 = rf.fit_toas(), tf.fit_toas()
+    _check_fit(rf, tf, rchi2, tchi2)
+    assert tf.noise_resids.shape == (tt.ntoas,)
+    wf = GLSFitter(tt, get_model(io.StringIO(par), device=CPU))
+    wchi2 = _quiet(wf.fit_toas)
+    assert wchi2 == pytest.approx(tchi2, rel=1e-6)
+    for nm in tf.model.free_params:
+        assert abs(wf.model.get_param(nm).value - tf.model.get_param(
+            nm).value) <= 1e-6 * tf.errors[nm], nm
 
 
 @pytest.mark.parametrize("kind", ["wls", "downhill_wls"])
@@ -370,6 +487,31 @@ def test_fitter_auto_routes_and_refuses_unported(problem):
                dict(serve=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Fitter.auto(tt, tm, **kw)
+
+
+def test_pintempo_fits_a_binary(tmp_path, capsys):
+    """The pintempo CLI on the binary fixture's par and its TOAs written
+    as a .tim file: the output par keeps the BINARY line, and the
+    port's fit of the orbit is the one DownhillGLSFitter reaches on the
+    same TOAs, within 3 sigma of the simulated truth."""
+    from pint_tpu_torch.scripts.pintempo import main as t_main
+
+    rm, rt, _, _ = _problem("b1855")
+    par, tim, out = (tmp_path / n for n in ("b.par", "b.tim", "post.par"))
+    par.write_text(rm.as_parfile())
+    rt.write_TOA_file(str(tim))
+    assert _quiet(t_main, [str(par), str(tim), "--outfile", str(out),
+                           "--device", "cpu"]) == 0
+    assert "on cpu" in capsys.readouterr().out
+    post = get_model(str(out), device=CPU)
+    assert post.BINARY == "ELL1" and "BinaryELL1" in post.components
+    tt = _quiet(get_TOAs, str(tim), device=CPU)
+    tf = DownhillGLSFitter(tt, get_model(str(par), device=CPU))
+    _quiet(tf.fit_toas)
+    for nm in ("PB", "A1", "TASC", "EPS1", "EPS2", "SINI", "M2"):
+        p, q = post.get_param(nm), tf.model.get_param(nm)
+        assert abs(p.value - q.value) <= 1e-6 * q.uncertainty, nm
+        assert abs(p.value - rm.get_param(nm).value) <= 3 * p.uncertainty
 
 
 def test_pintempo_cli_matches_reference(tmp_path, capsys):

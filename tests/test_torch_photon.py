@@ -148,9 +148,9 @@ def test_packed_params_bitwise(models):
 
 
 @pytest.mark.parametrize("line,owner", [
-    ("BINARY ELL1", "BinaryBT"), ("PB 1.5", "BinaryELL1"),
+    ("FD1 1e-5", "FD"), ("WXSIN_0001 1e-6", "WaveX"),
     ("DMEFAC -f L 1.1", "ScaleDmError"), ("TNDMAMP -14", "PLDMNoise"),
-    ("GLF0_1 1e-7", "Glitch"), ("FB0 1e-4", "BinaryELL1"),
+    ("GLF0_1 1e-7", "Glitch"), ("NE_SW 7.9", "SolarWindDispersion"),
     ("DMJUMP -f L 0.1", "DispersionJump"), ("UNITS TCB", "TCB")])
 def test_unported_components_refuse(line, owner):
     with pytest.raises(NotImplementedError, match=owner):
@@ -163,11 +163,17 @@ def test_unported_components_refuse(line, owner):
     "\nTNEQ -f L -6.5",
     "ECORR -f L 1.2\nTNECORR -f S 0.7",
     "TNREDAMP -14\nTNREDGAM 3.1\nTNREDC 12",
-    "RNAMP 0.02\nRNIDX -3.3"])
+    "RNAMP 0.02\nRNIDX -3.3",
+    # binaries, with the BINARY line after its parameters once
+    "BINARY ELL1\nPB 1.5 1\nA1 2.1 1\nTASC 56500.2 1\nEPS1 1e-5 1"
+    "\nEPS2 -2e-6\nM2 0.2\nSINI 0.9 1",
+    "FB0 7.7e-6 1\nFB1 -1e-19\nA1 2.1 1\nTASC 56500.2 1\nEPS1 1e-5"
+    "\nEPS2 -2e-6\nBINARY ELL1"])
 def test_lifted_keys_build_the_reference_components(lines):
-    """DMX windows and the EFAC/EQUAD/ECORR/red-noise families, which
-    the port used to refuse, build the reference's components with
-    bitwise the same packed values and the same TOA selections."""
+    """DMX windows, the EFAC/EQUAD/ECORR/red-noise families and the
+    binaries (PB and FB-series orbits), which the port used to refuse,
+    build the reference's components with bitwise the same packed values
+    and the same TOA selections."""
     par = PAR + lines + "\n"
     ref = _quiet(r_get_model, io.StringIO(par))
     port = _quiet(get_model, io.StringIO(par), device=CPU)
@@ -372,11 +378,12 @@ def _port_sources():
 def test_port_never_imports_jax_or_the_reference():
     bad = []
     names = {str(f.relative_to(REPO)) for f in _port_sources()}
-    # the fit slice's modules are among those checked
+    # the fit and binary slices' modules are among those checked
     assert {"pint_tpu_torch/parallel/fit_step.py", "pint_tpu_torch/gls.py",
             "pint_tpu_torch/fitter.py", "pint_tpu_torch/residuals.py",
             "pint_tpu_torch/simulation.py", "pint_tpu_torch/models/noise.py",
-            "pint_tpu_torch/scripts/pintempo.py", "chip_smoke.py"} <= names
+            "pint_tpu_torch/scripts/pintempo.py", "chip_smoke.py",
+            "pint_tpu_torch/models/binary.py"} <= names
     for f in _port_sources():
         for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
             if isinstance(node, ast.Import):
