@@ -71,7 +71,27 @@ Phases, each fatal on failure:
      TOAs, 15 red-noise modes, seed 4): the dense full-covariance solve
      on the GPU against the CPU's (1e-8) and against the GPU Woodbury
      solve (rtol 1e-6), both timed as cuda_ms times the kernel;
-8. print the card's name and power limit, and one JSON line of kernel
+8. the wideband path (no hand-written kernel either):
+   wideband-config3: BASELINE config 3 (bench.config3_j1713like_wideband,
+     recipe copied), a J1713+0747-like ELL1 binary, 2,000 TOAs at
+     1400/2100 MHz over MJD 53000-56000, 10 free DMX windows, DMEFAC and
+     DMEQUAD on backend X, -pp_dm measurements (sigma 1e-4) drawn from
+     default_rng(3) after the MJDs, F0 moved by 5e-11 Hz: the stacked
+     [time; DM] step (build_fit_step(wideband=True)) on the GPU against
+     the CPU (fit-step's limits, chi2 held as the binary steps hold it),
+     two GPU steps bitwise equal, the hybrid step against it, timed and
+     profiled as fit-time (the DM rows' jacfwd is the
+     fit_step.dm_jacobian span); WidebandDownhillFitter to convergence on
+     the GPU and the CPU, one optimum;
+   wideband-twin: the fit path's problem (10,000 TOAs, ECORR on 2,500
+     epochs, 30 red-noise modes) plus DMEFAC/DMEQUAD, a free DMJUMP, FD1
+     and an FD jump free, PLDMNoise (30 modes) and -pp_dm measurements
+     drawn from the model DM and the scaled sigma (2e-4, default_rng(17),
+     bench_stress.attach_wideband_dm): its step on the GPU against the
+     CPU, timed and profiled;
+   dd-sum: ops.dd.dd_sum on the card, on tests/test_torch_dd.py's 400
+     values of +-1e10, within 1e-28 of sum |x| of the exact sum;
+9. print the card's name and power limit, and one JSON line of kernel
    measurements.
 
 The last line of standard output is {"ok": true, "device": {...}}. The
@@ -207,6 +227,28 @@ ZOO = {
              "OM 30.0 1", "MTOT 2.8 1", "M2 1.3 1"],
     "DDK": _DD_ORBIT + ["M2 0.3 1", "KIN 71.0 1", "KOM 35.0 1"],
 }
+# The wideband path's configurations: config 3
+# (bench.config3_j1713like_wideband, bench.py:1175), copied like FIT_PAR,
+# and the wideband twin of the fit path's problem. The twin's two bands
+# leave FD1, FD2 and the Offset spanning a two-point space (exactly
+# singular, bench_stress.py:98-103), so FD2 stays frozen.
+CONFIG3_SPAN = (53000.0, 56000.0)
+CONFIG3_NTOA, CONFIG3_NDMX = 2_000, 10
+CONFIG3_PAR = [
+    "PSR J1713+0747x", "RAJ 17:13:49.53 1", "DECJ 07:47:37.5 1",
+    "PMRA 4.9 1", "PMDEC -3.9 1", "PX 0.85 1", "F0 218.8118437960826 1",
+    "F1 -4.08e-16 1", "DM 15.99", "PEPOCH 54500", "POSEPOCH 54500",
+    "DMEPOCH 54500", "TZRMJD 54500.1", "TZRSITE @", "TZRFRQ 1400",
+    "UNITS TDB", "BINARY ELL1", "PB 67.8251 1", "A1 32.34242 1",
+    "TASC 54500.2 1", "EPS1 3.9e-5 1", "EPS2 -7.4e-5 1",
+    "DMEFAC -be X 1.1", "DMEQUAD -be X 1e-5",
+]
+WB_TWIN_EXTRA = [
+    "DMEFAC -be X 1.1", "DMEQUAD -be X 1e-5", "DMJUMP -grp g1 0 1",
+    "FD1 1e-6 1", "FD2 -3e-7", "FDJUMP -grp g2 1e-7 1", "TNDMAMP -13.5",
+    "TNDMGAM 3.0", "TNDMC 30",
+]
+DD_SUM_REL = 1e-28     # tests/test_torch_dd.py::test_dd_sum_is_compensated
 NGC = tuple(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tests", "datafile", f"NGC6440E.{ext}")
             for ext in ("par", "tim"))
@@ -611,14 +653,15 @@ def sim_toas(par_lines, mjds, freqs, seed: int, dev, flags: bool):
     return par, model, toas
 
 
-def fit_build(ntoa: int, ndmx: int, seed: int, dev) -> tuple:
+def fit_build(ntoa: int, ndmx: int, seed: int, dev, extra=()) -> tuple:
     """(par text, model, TOAs) of bench.build_problem(), built by the port
-    on `dev`: FIT_PAR with ndmx free DMX windows tiling the span,
-    clustered epochs, two bands, simulated onto integer phase with a
-    white draw from default_rng(seed), then the -be/-grp flags set (after
-    the draw, as there)."""
+    on `dev`: FIT_PAR (and the `extra` lines) with ndmx free DMX windows
+    tiling the span, clustered epochs, two bands, simulated onto integer
+    phase with a white draw from default_rng(seed), then the -be/-grp
+    flags set (after the draw, as there)."""
     freqs = np.tile([1400.0, 1400.0, 820.0, 820.0], ntoa // 4)
-    par, model, toas = sim_toas(with_dmx(FIT_PAR, FIT_SPAN, ndmx),
+    par, model, toas = sim_toas(with_dmx(FIT_PAR + list(extra), FIT_SPAN,
+                                         ndmx),
                                 clustered_mjds(FIT_SPAN, ntoa), freqs, seed,
                                 dev, flags=True)
     for i, f in enumerate(toas.flags):
@@ -668,12 +711,33 @@ def chi2_of_residuals(model, toas, r) -> float:
     return float(_gls_kernel(M, F, phi, torch.as_tensor(r), nvec)[2])
 
 
+def wideband_chi2_of_residuals(model, toas, rs) -> list:
+    """The wideband step's chi2 as a function of its time residuals
+    alone, on the CPU, for each vector in `rs`: the stacked rows of
+    build_fit_parts(wideband=True) with those time residuals over the
+    CPU's DM residuals, solved by the step's _gls_core."""
+    import torch
+
+    from pint_tpu_torch.parallel import build_fit_parts
+    from pint_tpu_torch.parallel.fit_step import SegmentSum, _gls_core
+
+    parts_fn, args, _, meta = build_fit_parts(model, toas, device="cpu",
+                                              wideband=True)
+    M, Fv, r0, nvec, valid, eid, _ = parts_fn(*args)
+    n = toas.ntoas
+    plan = SegmentSum(eid, meta["nseg"]) if meta["nseg"] > 1 else None
+    return [float(_gls_core(M, Fv, args[7],
+                            torch.cat([torch.as_tensor(r), r0[n:]]), nvec,
+                            valid, args[11], plan)[2]) for r in rs]
+
+
 def fit_step_check(model, toas, dev, label: str = "fit-step",
-                   hybrid: bool = True, explain_chi2: bool = False) -> dict:
+                   hybrid: bool = True, explain_chi2: bool = False,
+                   wideband: bool = False) -> dict:
     """The step on the GPU twice (bitwise equal) and on the CPU, held to
     DP_SIGMA, COV_REL, CHI2_REL and RESID_S; with `hybrid`, the
     all-jacfwd step on the GPU against the hybrid_jac=True one, to the
-    same limits.
+    same limits. `wideband` checks build_fit_step(wideband=True).
 
     With `explain_chi2`, CHI2_REL holds the part of the chi2 difference
     that the two steps' residuals do not explain (`chi2_rel_unexplained`;
@@ -684,13 +748,15 @@ def fit_step_check(model, toas, dev, label: str = "fit-step",
     CPU), is subtracted first."""
     from pint_tpu_torch.parallel import build_fit_step
 
-    step, args, names = build_fit_step(model, toas, device=dev)
+    step, args, names = build_fit_step(model, toas, device=dev,
+                                       wideband=wideband)
     g1 = [x.cpu().numpy() for x in step(*args)]
     g2 = [x.cpu().numpy() for x in step(*args)]
     for nm, a, b in zip(("dparams", "cov", "chi2", "resids"), g1, g2):
         if not np.array_equal(a.view(np.int64), b.view(np.int64)):
             fail(f"{label}: two GPU steps differ in {nm}")
-    cstep, cargs, cnames = build_fit_step(model, toas, device="cpu")
+    cstep, cargs, cnames = build_fit_step(model, toas, device="cpu",
+                                          wideband=wideband)
     cstep(*cargs)
     t0 = time.perf_counter()
     c = [x.numpy() for x in cstep(*cargs)]
@@ -701,8 +767,12 @@ def fit_step_check(model, toas, dev, label: str = "fit-step",
            "chi2_cpu": float(c[2]), "cpu_step_ms": cpu_ms}
     held = dict(got)
     if explain_chi2:
-        moved = chi2_of_residuals(model, toas, g1[3]) - \
-            chi2_of_residuals(model, toas, c[3])
+        if wideband:
+            pg, pc = wideband_chi2_of_residuals(model, toas, (g1[3], c[3]))
+            moved = pg - pc
+        else:
+            moved = chi2_of_residuals(model, toas, g1[3]) - \
+                chi2_of_residuals(model, toas, c[3])
         got["chi2_moved_by_resids"] = moved
         got["chi2_rel_unexplained"] = held["chi2_rel"] = \
             abs(float(g1[2]) - float(c[2]) - moved) / abs(float(c[2]))
@@ -725,7 +795,8 @@ def fit_step_check(model, toas, dev, label: str = "fit-step",
     if not hybrid:
         return out
     hy_step, hy_args, hy_names = build_fit_step(model, toas, device=dev,
-                                                hybrid_jac=True)
+                                                hybrid_jac=True,
+                                                wideband=wideband)
     hy = step_diff([x.cpu().numpy() for x in hy_step(*hy_args)], g1)
     print(f"{label}: hybrid step vs all-jacfwd step on the GPU: "
           f"|d dparams| {hy['dp_sigma']:.3e} sigma, cov diagonal "
@@ -831,9 +902,10 @@ def fit_time(step, args, label: str, reps: int = 20) -> dict:
     return out
 
 
-def fit_downhill(par: str, toas, dev, label: str = "fit-downhill") -> dict:
-    """DownhillGLSFitter to convergence on the GPU and on the CPU from the
-    par's values: the same optimum."""
+def fit_downhill(par: str, toas, dev, label: str = "fit-downhill",
+                 fitter=None) -> dict:
+    """`fitter` (DownhillGLSFitter by default) to convergence on the GPU
+    and on the CPU from the par's values: the same optimum."""
     import torch
 
     from pint_tpu_torch.gls import DownhillGLSFitter
@@ -842,7 +914,7 @@ def fit_downhill(par: str, toas, dev, label: str = "fit-downhill") -> dict:
     res = {}
     for tag, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
         m = get_model(io.StringIO(par), device=d)
-        f = DownhillGLSFitter(toas, m)
+        f = (fitter or DownhillGLSFitter)(toas, m)
         t0 = time.perf_counter()
         chi2 = f.fit_toas()
         if d.type == "cuda":
@@ -1063,6 +1135,84 @@ def fullcov(dev, n: int = 2000) -> dict:
             "fullcov_ms": t_full, "woodbury_ms": t_wood}
 
 
+# ------------------------------------------------------ the wideband path
+
+
+def set_dm_flags(toas, dm, dme) -> None:
+    """-pp_dm/-pp_dme on every TOA, from per-TOA values."""
+    for f, v, e in zip(toas.flags, dm, dme):
+        # repr(float(...)): numpy's scalar repr does not parse back
+        f["pp_dm"], f["pp_dme"] = repr(float(v)), repr(float(e))
+
+
+def config3_build(ntoa: int, ndmx: int, dev) -> tuple:
+    """(truth par text, model, TOAs) of bench.config3_j1713like_wideband()
+    on `dev`: MJDs drawn from default_rng(3), 1400/2100 MHz, TOAs
+    simulated from seed 3 with -be X, then -pp_dm drawn from the same
+    generator after the MJDs (15.99 + N(0, 1e-4), -pp_dme 1e-4), and F0
+    moved by 5e-11 Hz, as there."""
+    rng = np.random.default_rng(3)
+    mjds = np.sort(rng.uniform(*CONFIG3_SPAN, ntoa))
+    par, model, toas = sim_toas(with_dmx(CONFIG3_PAR, CONFIG3_SPAN, ndmx),
+                                mjds, np.tile([1400.0, 2100.0], ntoa // 2),
+                                3, dev, flags=True)
+    set_dm_flags(toas, [15.99 + rng.normal(0, 1e-4) for _ in range(ntoa)],
+                 [1e-4] * ntoa)
+    model.F0.value += 5e-11
+    model.invalidate_cache(params_only=True)
+    return par, model, toas
+
+
+def wideband_twin_build(ntoa: int, ndmx: int, dev) -> tuple:
+    """(par text, model, TOAs): the fit path's problem with WB_TWIN_EXTRA
+    and bench_stress.attach_wideband_dm's DM measurements: quoted sigma
+    2e-4, drawn from default_rng(17) around the model DM with the
+    DMEFAC/DMEQUAD-scaled sigma."""
+    par, model, toas = fit_build(ntoa, ndmx, 1, dev, extra=WB_TWIN_EXTRA)
+    dm = model.total_dm(toas).cpu().numpy()
+    set_dm_flags(toas, np.zeros(ntoa), np.full(ntoa, 2e-4))
+    sig = model.scaled_dm_uncertainty(toas)
+    rng = np.random.default_rng(17)
+    set_dm_flags(toas, [dm[i] + rng.normal(0.0, sig[i]) for i in range(ntoa)],
+                 np.full(ntoa, 2e-4))
+    return par, model, toas
+
+
+def dd_sum_check(dev) -> dict:
+    """ops.dd.dd_sum on the card on tests/test_torch_dd.py's inputs (400
+    values of +-1e10 with their low words, whole and along each axis of
+    a 20 x 20 view) against the exact sum, within DD_SUM_REL of sum |hi|."""
+    from fractions import Fraction
+
+    import torch
+
+    from pint_tpu_torch.ops import dd as tdd
+
+    rng = np.random.default_rng(52)
+    hi = rng.uniform(-1e10, 1e10, 400)
+    lo = hi * rng.uniform(-1e-17, 1e-17, 400)
+    m = (hi.reshape(20, 20), lo.reshape(20, 20))
+    worst = 0.0
+    for axis in (None, 0, 1):
+        t = tdd.dd_sum(tdd.DD(*(torch.as_tensor(x, device=dev) for x in m)),
+                       axis=axis)
+        got_hi, got_lo = (np.atleast_1d(v.cpu().numpy()) for v in t)
+        cols = [(m[0].ravel(), m[1].ravel())] if axis is None else \
+            [(np.take(m[0], j, axis=1 - axis),
+              np.take(m[1], j, axis=1 - axis)) for j in range(20)]
+        for j, (h, low) in enumerate(cols):
+            exact = sum(Fraction(float(v)) for v in np.concatenate([h, low]))
+            err = abs(float(Fraction(float(got_hi[j]))
+                            + Fraction(float(got_lo[j])) - exact))
+            worst = max(worst, err / float(np.sum(np.abs(h))))
+    print(f"dd-sum: dd_sum on {dev} within {worst:.3e} of sum |x| of the "
+          f"exact sum (limit {DD_SUM_REL})")
+    if not worst <= DD_SUM_REL:
+        fail(f"dd-sum: dd_sum on the card is {worst:.3e} of sum |x| from "
+             "the exact sum")
+    return {"rel_err": worst}
+
+
 def fmt(t: dict) -> str:
     return (f"{t['median']:.4f} ms median of 20 (min {t['min']:.4f}, "
             f"max {t['max']:.4f})")
@@ -1172,6 +1322,42 @@ def main() -> int:
           f"timings {b_step_s:.3f}, downhill {b_downhill_s:.3f}, zoo "
           f"{zoo_s:.3f}, fullcov {full_s:.3f}; total {binary_phases_s:.3f} "
           f"(fit path {fit_phases_s:.3f})")
+
+    # the wideband path: BASELINE config 3 and the twin of the fit path
+    t0 = time.perf_counter()
+    from pint_tpu_torch.wideband_fitter import WidebandDownhillFitter
+
+    w_par, w_model, w_toas = config3_build(CONFIG3_NTOA, CONFIG3_NDMX, dev)
+    w_build_s = time.perf_counter() - t0
+    print(f"wideband-config3 build: {w_build_s:.3f} s on the host; N = "
+          f"{w_toas.ntoas} TOAs + {w_toas.ntoas} DM measurements, "
+          f"{len(w_model.free_params)} free parameters")
+    w_step = fit_step_check(w_model, w_toas, dev, "wideband-config3 step",
+                            explain_chi2=True, wideband=True)
+    w_time = fit_time(w_step["step"], w_step["args"], "wideband config-3 step")
+    w_downhill = fit_downhill(w_model.as_parfile(), w_toas, dev,
+                              "wideband-config3 downhill",
+                              fitter=WidebandDownhillFitter)
+    w_downhill.pop("fitter")
+    w3_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, tw_model, tw_toas = wideband_twin_build(args.fit_ntoa, args.fit_ndmx,
+                                               dev)
+    tw_build_s = time.perf_counter() - t0
+    tw_seg = tw_model.noise_model_ecorr_segments(tw_toas)
+    print(f"wideband-twin build: {tw_build_s:.3f} s on the host; N = "
+          f"{tw_toas.ntoas} TOAs + {tw_toas.ntoas} DM measurements, "
+          f"{len(tw_model.free_params)} free parameters, nseg = "
+          f"{len(tw_seg[1])}, noise columns "
+          f"{tw_model.noise_model_dimensions(tw_toas)}")
+    tw_step = fit_step_check(tw_model, tw_toas, dev, "wideband-twin step",
+                             hybrid=False, explain_chi2=True, wideband=True)
+    tw_time = fit_time(tw_step["step"], tw_step["args"], "wideband twin step")
+    tw_s = time.perf_counter() - t0
+    ddsum = dd_sum_check(dev)
+    print(f"wideband path seconds: config 3 {w3_s:.3f} (downhill "
+          f"{w_downhill['gpu_s']:.3f} GPU, {w_downhill['iterations']} "
+          f"iterations), twin {tw_s:.3f}")
 
     # timings at the main path's shape: float32 inputs (the TPU kernel's
     # contract) and float64 inputs (what the H-test hands the kernel)
@@ -1288,6 +1474,31 @@ def main() -> int:
         "seconds": {"build": b_build_s, "steps": b_step_s,
                     "downhill": b_downhill_s, "zoo": zoo_s,
                     "fullcov": full_s, "total": binary_phases_s}}}))
+    print(f"wideband path: config 3 step {w_time['host_ms'][0]:.3f} ms "
+          f"(host) / {w_time['event_ms'][0]:.3f} ms (events), "
+          f"{w_time['launches_per_step']:.0f} launches a step; twin "
+          f"{tw_time['host_ms'][0]:.3f} ms / {tw_time['event_ms'][0]:.3f} ms, "
+          f"{tw_time['launches_per_step']:.0f} launches; config-3 downhill "
+          f"{w_downhill['iterations']} iterations in {w_downhill['gpu_s']:.3f}"
+          f" s (CPU {w_downhill['cpu_s']:.3f} s)")
+
+    def wb_cell(ntoa, build_s, tm, st, secs):
+        return {"ntoa": ntoa, "build_s": build_s,
+                "step_host_ms": tm["host_ms"], "step_event_ms": tm["event_ms"],
+                "launches_per_step": tm["launches_per_step"],
+                "busy_share": tm["busy_share"], "stages_ms": tm["stages_ms"],
+                "stage_spans_ms": tm["stage_spans_ms"],
+                "top_ops_ms": tm["top_ops_ms"],
+                "cpu_step_ms": st["cpu_step_ms"],
+                "gpu_vs_cpu": {k: st[k] for k in check_keys},
+                "seconds": secs}
+
+    print(json.dumps({"wideband_path": {
+        "config3": {**wb_cell(w_toas.ntoas, w_build_s, w_time, w_step, w3_s),
+                    "hybrid_vs_step": w_step["hybrid_vs_step"],
+                    "downhill": w_downhill},
+        "twin": wb_cell(tw_toas.ntoas, tw_build_s, tw_time, tw_step, tw_s),
+        "dd_sum": ddsum}}))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": [{

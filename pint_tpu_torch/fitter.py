@@ -142,15 +142,31 @@ class Fitter:
     def auto(toas, model, downhill=True, device=None, serve=None,
              streaming=None, **kw):
         """Pick a fitter from model contents (reference: Fitter.auto):
-        GLS when correlated-noise components are present, WLS otherwise;
-        downhill wrappers by default. The wideband, streaming, serve and
+        the wideband fitters when the TOAs carry -pp_dm DM channels, GLS
+        when correlated-noise components are present, WLS otherwise;
+        downhill wrappers by default. The streaming, serve and
         whole-fit-on-device routes of the reference are not ported yet
-        and raise NotImplementedError."""
+        and raise NotImplementedError (ValueError for wideband TOAs,
+        which the reference refuses on those routes)."""
+        from pint_tpu_torch.wideband import has_wideband_dm
+
         todo = "pint_tpu_torch does not have it yet: ROADMAP.md queue 1"
+        wideband = has_wideband_dm(toas)
         if serve is not None:
+            if wideband:
+                raise ValueError(
+                    "serve= cannot fit wideband TOAs: the batched "
+                    "serve solve has no [time; DM] stacked system — "
+                    "dropping the DM channels silently would corrupt "
+                    "the fit. Use Fitter.auto without serve=")
             raise NotImplementedError(f"Fitter.auto(serve=): the serve "
                                       f"path; {todo} item 11")
         if streaming:
+            if wideband:
+                raise ValueError(
+                    "streaming=True cannot fit wideband TOAs (the "
+                    "streaming accumulator has no stacked [time; DM] "
+                    "system); use the dense wideband fitters")
             raise NotImplementedError(
                 f"Fitter.auto(streaming=True): StreamingGLSFitter; "
                 f"{todo} item 8")
@@ -158,11 +174,14 @@ class Fitter:
             raise NotImplementedError(
                 f"Fitter.auto(device=True): DeviceDownhillGLSFitter; "
                 f"{todo} item 5")
-        if toas.flags and all("pp_dm" in f for f in toas.flags):
-            raise NotImplementedError(
-                f"wideband TOAs (-pp_dm flags): the wideband fitters; "
-                f"{todo} item 7")
-        if model.has_correlated_errors:
+        if wideband:
+            from pint_tpu_torch.wideband_fitter import (
+                WidebandDownhillFitter,
+                WidebandTOAFitter,
+            )
+
+            cls = WidebandDownhillFitter if downhill else WidebandTOAFitter
+        elif model.has_correlated_errors:
             from pint_tpu_torch.gls import DownhillGLSFitter, GLSFitter
 
             cls = DownhillGLSFitter if downhill else GLSFitter

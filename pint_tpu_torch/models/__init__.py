@@ -19,6 +19,8 @@ from pint_tpu_torch.models import solar_system_shapiro  # noqa: F401
 from pint_tpu_torch.models import spindown  # noqa: F401
 # binaries register after the core components, as in the reference
 from pint_tpu_torch.models import binary  # noqa: F401
+from pint_tpu_torch.models import components_extra  # noqa: F401
+from pint_tpu_torch.models import components_tail  # noqa: F401
 from pint_tpu_torch.models.model_builder import (  # noqa: F401
     ModelBuilder,
     get_model,

@@ -6,8 +6,11 @@ double-double (hi, lo) values of the free and frozen parameters) and the
 TOA batch (the ``ToaBatch`` leaves). Both arrive as numpy arrays, so the
 same inputs can be fed to both phase chains without either parser.
 ``fit_args_from_numpy`` carries a whole fit-step argument tuple across
-(parameters, batch, per-TOA cache, noise bases, ECORR segments), and
-``toas_from_columns`` a processed TOA table (its host columns).
+(parameters, batch, per-TOA cache with its mask leaves — JUMP, DMJUMP,
+FDJUMP, DMX — and a wideband step's ``wb_dm``/``wb_dme``/``wb_Fdm``
+leaves, noise bases, ECORR segments), and ``toas_from_columns`` a
+processed TOA table (its host columns, the -pp_dm/-pp_dme flags
+among them).
 """
 
 from __future__ import annotations

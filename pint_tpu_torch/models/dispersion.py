@@ -4,8 +4,10 @@ src/pint/models/dispersion_model.py DispersionDM).
 
 Delay = DMconst · DM(t) / ν² with ν the Doppler-corrected barycentric
 frequency (ctx["bfreq"] from astrometry). DispersionDMX (piecewise DM
-windows, DispersionDMX in the reference) is here too; DMJUMP is not
-ported yet (ROADMAP.md).
+windows) and DispersionJump (DMJUMP, which moves only the wideband DM
+channel) are here too. Every component's ``dm_value_device`` is its DM
+contribution, which TimingModel.dm_total_device sums for the wideband
+DM channel.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from pint_tpu_torch import DMconst
 from pint_tpu_torch.models.parameter import (
     MJDParameter,
     floatParameter,
+    maskParameter,
     prefixParameter,
     split_prefixed_name,
 )
@@ -34,6 +37,12 @@ class Dispersion(DelayComponent):
     def _bfreq(self, batch, ctx):
         return ctx.get("bfreq", batch.freq_mhz)
 
+    def dm_value_device(self, pv, batch, cache, ctx):
+        """This component's DM contribution [pc/cm^3] (N,), the hook the
+        wideband DM channel sums over (reference: TimingModel.total_dm
+        summing Dispersion dm_value)."""
+        return torch.zeros_like(batch.freq_mhz)
+
     def param_dimensions(self):
         from pint_tpu_torch.units import parse_unit
 
@@ -45,7 +54,7 @@ class Dispersion(DelayComponent):
 
         return {"DM": ne, "DM*": dm_dim, "DMEPOCH": parse_unit("d"),
                 "DMX": ne, "DMX_*": ne, "DMXR1_*": parse_unit("d"),
-                "DMXR2_*": parse_unit("d")}
+                "DMXR2_*": parse_unit("d"), "DMJUMP": ne}
 
 
 class DispersionDM(Dispersion):
@@ -93,6 +102,9 @@ class DispersionDM(Dispersion):
         dt_yr = (tdb - dmep) / 365.25
         coeffs = [pv[nm].hi + pv[nm].lo for nm in terms]
         return taylor_horner(dt_yr, coeffs)
+
+    def dm_value_device(self, pv, batch, cache, ctx):
+        return self.dm_value(pv, batch)
 
     def delay(self, pv, batch, cache, ctx, delay_so_far):
         bf = self._bfreq(batch, ctx)
@@ -216,3 +228,46 @@ class DispersionDMX(Dispersion):
         bf = self._bfreq(batch, ctx)
         return DMconst * self.dm_value_device(pv, batch, cache, ctx) \
             / (bf * bf)
+
+
+class DispersionJump(Dispersion):
+    """DMJUMP: a constant DM offset per TOA subset that moves only the
+    wideband DM measurements; its TOA delay is zero (reference:
+    DispersionJump)."""
+
+    register = True
+
+    def __init__(self):
+        super().__init__()
+        self.dmjumps: list = []
+
+    def add_dmjump(self, index, key, key_value, value=0.0, frozen=True):
+        p = maskParameter("DMJUMP", index=index, key=key,
+                          key_value=key_value, value=value, frozen=frozen,
+                          units="pc cm^-3")
+        self.add_param(p)
+        self.dmjumps.append(p.name)
+        return p
+
+    def setup(self):
+        self.dmjumps = [n for n in self.params if n.startswith("DMJUMP")]
+
+    def prepare(self, toas, cache, prefix=""):
+        for name in self.dmjumps:
+            cache[f"mask_{name}"] = self.params[name].select_mask(
+                toas).astype(np.float64)
+
+    def delay(self, pv, batch, cache, ctx, delay_so_far):
+        return torch.zeros_like(batch.freq_mhz)
+
+    def dm_value_device(self, pv, batch, cache, ctx):
+        """-Σ DMJUMPi·maski: the reference applies -DMJUMP to the model
+        side of the selected subset (src/pint/models/dispersion_model.py
+        DispersionJump.jump_dm), so a positive published DMJUMP means
+        that the subset's measured DM reads low."""
+        out = torch.zeros_like(batch.freq_mhz)
+        for name in self.dmjumps:
+            if name in pv:
+                out = out - (pv[name].hi + pv[name].lo) * \
+                    cache[f"mask_{name}"]
+        return out

@@ -4,16 +4,19 @@ src/pint/models/model_builder.py get_model).
 
 Each registered Component contributes its parameter names and aliases to
 an index; prefixed families (F2.., DM2..) and JUMP mask parameters are
-recognized by pattern, as are DMX windows and the noise mask families
-(EFAC, EQUAD, TNEQ, ECORR and their aliases). The BINARY line is read
+recognized by pattern, as are DMX windows and the mask families (EFAC,
+EQUAD, TNEQ, ECORR and their aliases, DMEFAC, DMEQUAD, DMJUMP, FDJUMP
+and FD<n>JUMP); other members of a ported prefix family (FD2, FD3...)
+land on the family's component. The BINARY line is read
 first, whatever its place in the file, and selects the binary component
 that every binary parameter (and the FB series, the BT_piecewise pieces)
 lands on; ``BINARY T2`` picks the family from the parameters present
 (``guess_binary_model``). Keys nobody knows are warned about and
 ignored, as in the reference. Keys of components the reference has but
-this port does not have yet (DMJUMP, the DM-noise and extra component
-families) raise NotImplementedError naming the ROADMAP item: ignoring
-them would give wrong phases silently.
+this port does not have yet (glitches, waves, chromatic and solar-wind
+terms, the chromatic and solar-wind noise) raise NotImplementedError
+naming the ROADMAP item: ignoring them would give wrong phases
+silently.
 """
 
 from __future__ import annotations
@@ -49,19 +52,24 @@ MASK_FAMILIES: Dict[str, str] = {
     "EFAC": "ScaleToaError", "T2EFAC": "ScaleToaError",
     "EQUAD": "ScaleToaError", "T2EQUAD": "ScaleToaError",
     "TNEQ": "ScaleToaError", "ECORR": "EcorrNoise", "TNECORR": "EcorrNoise",
+    "DMJUMP": "DispersionJump", "DMEFAC": "ScaleDmError",
+    "DMEQUAD": "ScaleDmError", "FDJUMP": "FDJump",
 }
+# FD jumps of any order (FD1JUMP, FD2JUMP, ...)
+_FDJUMP_RE = re.compile(r"^FD(\d+)JUMP$")
 MASK_CANONICAL = {"T2EFAC": "EFAC", "T2EQUAD": "EQUAD", "TNECORR": "ECORR"}
-MASK_UNITS = {"EFAC": "", "EQUAD": "us", "TNEQ": "log10(s)", "ECORR": "us"}
+MASK_UNITS = {"EFAC": "", "EQUAD": "us", "TNEQ": "log10(s)", "ECORR": "us",
+              "DMEFAC": "", "DMEQUAD": "pc cm^-3", "DMJUMP": "pc cm^-3",
+              "FDJUMP": "s"}
 
 # ---- what the reference knows and this port does not have yet ----------
 # component → ROADMAP.md item that ports it
 _ZOO = "ROADMAP.md queue 1 item 7 (rest of the model zoo)"
 UNPORTED_COMPONENTS: Dict[str, str] = {
     **{c: _ZOO for c in (
-        "DispersionJump", "ScaleDmError", "FDJump", "FD", "Glitch",
-        "IFunc", "Wave", "WaveX", "DMWaveX", "CMWaveX", "ChromaticCM",
-        "ChromaticCMX", "PiecewiseSpindown", "SolarWindDispersion",
-        "SolarWindDispersionX", "TroposphereDelay", "PLDMNoise",
+        "Glitch", "IFunc", "Wave", "WaveX", "DMWaveX", "CMWaveX",
+        "ChromaticCM", "ChromaticCMX", "PiecewiseSpindown",
+        "SolarWindDispersion", "SolarWindDispersionX", "TroposphereDelay",
         "PLChromNoise", "PLSWNoise")},
 }
 
@@ -75,13 +83,11 @@ for _cls, _keys in {
     "ChromaticCMX": "CMX CMXR1 CMXR1_ CMXR2 CMXR2_ CMX_",
     "DMWaveX": "DMWXCOS DMWXCOS_ DMWXEPOCH DMWXFREQ DMWXFREQ_ DMWXSIN "
                "DMWXSIN_",
-    "FD": "FD FD1",
     "Glitch": "GLEP GLEP_ GLF0 GLF0D GLF0D_ GLF0_ GLF1 GLF1_ GLF2 GLF2_ "
               "GLPH GLPH_ GLTD GLTD_",
     "IFunc": "IFUNC SIFUNC",
     "PLChromNoise": "TNCHROMAMP TNCHROMC TNCHROMGAM TNChromAmp TNChromC "
                     "TNChromGam",
-    "PLDMNoise": "TNDMAMP TNDMAmp TNDMC TNDMGAM TNDMGam",
     "PLSWNoise": "TNSWAMP TNSWAmp TNSWC TNSWGAM TNSWGam",
     "PiecewiseSpindown": "PWEP PWEP_ PWF0 PWF0_ PWF1 PWF1_ PWF2 PWF2_ PWPH "
                          "PWPH_ PWSTART PWSTART_ PWSTOP PWSTOP_",
@@ -90,17 +96,9 @@ for _cls, _keys in {
     "TroposphereDelay": "CORRECT_TROPOSPHERE",
     "Wave": "WAVE WAVEEPOCH WAVEOM WAVE_OM",
     "WaveX": "WXCOS WXCOS_ WXEPOCH WXFREQ WXFREQ_ WXSIN WXSIN_",
-    # mask-parameter families
-    "DispersionJump": "DMJUMP",
-    "ScaleDmError": "DMEFAC DMEQUAD",
-    "FDJump": "FDJUMP",
 }.items():
     for _k in _keys.split():
         UNPORTED_PARAMS[_k] = _cls
-# pattern families routed to unported components
-_UNPORTED_RE = (
-    (re.compile(r"^FD\d+JUMP$"), "FDJump"),
-)
 
 
 def _refuse(key: str, cls: str):
@@ -114,9 +112,6 @@ def _unported_owner(key: str):
     None."""
     if key in UNPORTED_PARAMS:
         return UNPORTED_PARAMS[key]
-    for pat, cls in _UNPORTED_RE:
-        if pat.match(key):
-            return cls
     try:
         prefix, _, _ = split_prefixed_name(key)
     except ValueError:
@@ -234,6 +229,8 @@ class ModelBuilder:
         import pint_tpu_torch.models.solar_system_shapiro  # noqa: F401
         import pint_tpu_torch.models.spindown  # noqa: F401
         import pint_tpu_torch.models.binary  # noqa: F401
+        import pint_tpu_torch.models.components_extra  # noqa: F401
+        import pint_tpu_torch.models.components_tail  # noqa: F401
         self.param_index = _build_param_index()
 
     def __call__(self, lines: List[ParfileLine], name="",
@@ -351,14 +348,14 @@ class ModelBuilder:
                 get_comp("PhaseJump").add_param(p)
                 p.from_tokens(toks)
                 continue
-            if key in MASK_FAMILIES:
+            if key in MASK_FAMILIES or _FDJUMP_RE.match(key):
                 canonical = MASK_CANONICAL.get(key, key)
                 mask_counters[canonical] = mask_counters.get(canonical,
                                                              0) + 1
                 p = maskParameter(canonical,
                                   index=mask_counters[canonical],
-                                  units=MASK_UNITS[canonical])
-                get_comp(MASK_FAMILIES[key]).add_param(p)
+                                  units=MASK_UNITS.get(canonical, "s"))
+                get_comp(MASK_FAMILIES.get(key, "FDJump")).add_param(p)
                 p.from_tokens(toks)
                 continue
 
@@ -366,6 +363,13 @@ class ModelBuilder:
             owner = _unported_owner(key)
             if owner is not None:
                 _refuse(key, owner)
+
+            # 5. other members of a ported prefix family (FD2, FD3...):
+            #    a new parameter of the template member's units
+            p = _family_member(key, self.param_index, get_comp)
+            if p is not None:
+                p.from_tokens(toks)
+                continue
 
             unknown.append(key)
 
@@ -401,6 +405,26 @@ class ModelBuilder:
             c.setup()
         model.validate()
         return model
+
+
+def _family_member(key: str, index: Dict[str, str], get_comp):
+    """A new prefixParameter ``key`` on the component owning its prefix
+    family (reference: ModelBuilder step 4), or None when no ported
+    component owns the prefix."""
+    try:
+        prefix, _, _ = split_prefixed_name(key)
+    except ValueError:
+        return None
+    owner = index.get(prefix.rstrip("_")) or index.get(prefix)
+    if owner is None:
+        return None
+    comp = get_comp(owner)
+    tmpl = next((q for qn, q in comp.params.items()
+                 if qn != key and qn.startswith(prefix)
+                 and qn[len(prefix):].isdigit()), None)
+    p = prefixParameter(name=key, units=getattr(tmpl, "units", ""))
+    comp.add_param(p)
+    return p
 
 
 def _param_by_name_or_alias(comp: Component, key: str):

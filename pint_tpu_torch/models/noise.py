@@ -1,7 +1,8 @@
 """Noise models: white-noise scaling and correlated-noise bases (a port
 of pint_tpu/models/noise.py; reference: src/pint/models/noise_model.py
-NoiseComponent, ScaleToaError, EcorrNoise, PLRedNoise,
-create_quantization_matrix, create_fourier_design_matrix, powerlaw).
+NoiseComponent, ScaleToaError, ScaleDmError, EcorrNoise, PLRedNoise,
+PLDMNoise, create_quantization_matrix, create_fourier_design_matrix,
+powerlaw).
 
 Host numpy, copied: every noise component reduces to static arrays — a
 scaled per-TOA sigma vector, a dense (N, q) basis matrix and a (q,)
@@ -18,8 +19,10 @@ Conventions:
   per pair P(f_j) * Delta_f with
   P(f) = A^2/(12 pi^2) f_yr^(gamma-3) f^(-gamma)  [s^2].
 
-ScaleDmError, PLDMNoise, PLChromNoise and PLSWNoise are not ported yet
-(ROADMAP.md).
+Wideband DM channel: ScaleDmError scales the DM uncertainties
+(DMEQUAD added first, then DMEFAC multiplies), and PLDMNoise's basis
+couples into the DM rows through ``noise_dm_basis``. PLChromNoise and
+PLSWNoise are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from pint_tpu_torch import DMconst
 from pint_tpu_torch.models.parameter import (
     floatParameter,
     intParameter,
@@ -36,7 +40,8 @@ from pint_tpu_torch.models.parameter import (
 from pint_tpu_torch.models.timing_model import Component
 
 __all__ = [
-    "NoiseComponent", "ScaleToaError", "EcorrNoise", "PLRedNoise",
+    "NoiseComponent", "ScaleToaError", "ScaleDmError", "EcorrNoise",
+    "PLRedNoise", "PLDMNoise",
     "create_quantization_matrix", "quantization_buckets",
     "create_fourier_design_matrix", "powerlaw", "EcorrOverlapError",
 ]
@@ -139,6 +144,10 @@ class NoiseComponent(Component):
         """Transform per-TOA variance [s^2] (white components only)."""
         return sigma2_s2
 
+    def scale_dm_sigma2(self, toas, sigma2: np.ndarray) -> np.ndarray:
+        """Transform per-TOA wideband-DM variance [(pc/cm^3)^2]."""
+        return sigma2
+
     def noise_basis_weight(self, toas, tspan=None,
                            tref_day=None):
         """(F (N,q), phi (q,)) for basis components, else None.
@@ -205,6 +214,46 @@ class ScaleToaError(NoiseComponent):
             m = p.select_mask(toas)
             out[m] = out[m] + (10.0 ** p.value) ** 2
         for name in self.efacs:
+            p = self.params[name]
+            if p.value is None:
+                continue
+            m = p.select_mask(toas)
+            out[m] = out[m] * p.value ** 2
+        return out
+
+
+class ScaleDmError(NoiseComponent):
+    """DMEFAC/DMEQUAD scaling of wideband DM-channel uncertainties
+    (reference: ScaleDmError.scale_dm_sigma)."""
+
+    register = True
+
+    def param_dimensions(self):
+        return _spec({"DMEFAC*": "", "DMEQUAD*": "pc cm^-3"})
+
+    def __init__(self):
+        super().__init__()
+        self.dmefacs: list = []
+        self.dmequads: list = []
+
+    def setup(self):
+        self.dmefacs = sorted((n for n in self.params
+                               if n.startswith("DMEFAC")),
+                              key=lambda n: self.params[n].index)
+        self.dmequads = sorted((n for n in self.params
+                                if n.startswith("DMEQUAD")),
+                               key=lambda n: self.params[n].index)
+
+    def scale_dm_sigma2(self, toas, sigma2):
+        """sigma^2 -> DMEFAC^2 (sigma^2 + DMEQUAD^2), per mask group."""
+        out = np.array(sigma2, dtype=np.float64)
+        for name in self.dmequads:
+            p = self.params[name]
+            if p.value is None:
+                continue
+            m = p.select_mask(toas)
+            out[m] = out[m] + p.value ** 2
+        for name in self.dmefacs:
             p = self.params[name]
             if p.value is None:
                 continue
@@ -355,3 +404,63 @@ class PLRedNoise(NoiseComponent):
         df = freqs[0]
         phi = powerlaw(freqs, A, gamma) * df
         return F, phi
+
+
+def _dm_rows_from_time_basis(toas, F_time):
+    """Wideband DM-channel block [pc/cm^3 per coefficient] of a pure
+    nu^-2 (DM-perturbation) noise process, from its time-channel block:
+    delay rows are DMconst * DM / nu^2, so DM rows = F_time * nu^2 /
+    DMconst, on the same modes and time grid. Rows at infinite frequency
+    (barycentred TOAs) carry F_time = 0 and would be 0 * inf: they are
+    set to 0, so the process does not inform the DM channel there."""
+    nu = np.asarray(toas.get_freqs())
+    fin = np.isfinite(nu)
+    scale = np.zeros_like(nu)
+    scale[fin] = nu[fin] * nu[fin] / DMconst
+    return np.asarray(F_time) * scale[:, None]
+
+
+class PLDMNoise(NoiseComponent):
+    """Power-law DM (chromatic nu^-2) noise: the red-noise Fourier basis
+    with each row scaled by (1400 MHz / nu)^2
+    (reference: PLDMNoise.pl_dm_basis_weight_pair)."""
+
+    register = True
+
+    def param_dimensions(self):
+        return _spec({"TNDMAMP": "", "TNDMGAM": ""})
+
+    is_basis_noise = True
+
+    REF_FREQ_MHZ = 1400.0
+
+    def __init__(self):
+        super().__init__()
+        self.add_param(floatParameter(
+            "TNDMAMP", units="log10", aliases=["TNDMAmp"],
+            description="log10 DM-noise amplitude"))
+        self.add_param(floatParameter(
+            "TNDMGAM", units="", aliases=["TNDMGam"],
+            description="DM-noise spectral index"))
+        self.add_param(intParameter(
+            "TNDMC", value=30, aliases=["TNDMC"],
+            description="number of DM Fourier modes"))
+
+    def noise_basis_weight(self, toas, tspan=None,
+                           tref_day=None):
+        if self.TNDMAMP.value is None:
+            return None
+        A = 10.0 ** self.TNDMAMP.value
+        gamma = self.TNDMGAM.value
+        nmodes = int(self.TNDMC.value or 30)
+        t = _tdb_seconds(toas, ref_day=tref_day)
+        F, freqs = create_fourier_design_matrix(t, nmodes, Tspan=tspan)
+        scale = (self.REF_FREQ_MHZ / toas.get_freqs()) ** 2
+        F = F * scale[:, None]
+        df = freqs[0]
+        phi = powerlaw(freqs, A, gamma) * df
+        return F, phi
+
+    def noise_dm_basis(self, toas, F_time):
+        """Wideband DM-channel block (see _dm_rows_from_time_basis)."""
+        return _dm_rows_from_time_basis(toas, F_time)

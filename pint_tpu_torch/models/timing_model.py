@@ -502,6 +502,70 @@ class TimingModel:
             if incoffset else [self.get_param(n).units for n in free]
         return M, names, units
 
+    # ---------------- wideband DM channel ------------------------------
+
+    def dm_total_device(self, pv, batch, cache_sub):
+        """Total model DM [pc/cm^3] per TOA, summed over every component
+        with a ``dm_value_device`` (DM polynomial, DMX, DMJUMP).
+        Astrometry's delay runs first to fill ctx with the geometry a
+        DM term may read. Shared by build_dm_fn and the wideband fit
+        step, so the two channels cannot disagree."""
+        ctx: dict = {}
+        zero = torch.zeros_like(batch.freq_mhz)
+        for c in self.delay_components:
+            if c.category == "astrometry":
+                c.delay(pv, batch, cache_sub, ctx, zero)
+        dm = zero
+        for c in self._ordered_components():
+            if hasattr(c, "dm_value_device"):
+                dm = dm + c.dm_value_device(pv, batch, cache_sub, ctx)
+        return dm
+
+    def dm_affecting_free_params(self) -> set:
+        """Names whose tangents can move dm_total_device: the parameters
+        of every component with a ``dm_value_device``, plus astrometry's
+        when a solar-wind component (which reads the pulsar direction
+        from ctx) is present. The wideband step's hybrid route restricts
+        the DM-row Jacobian to these columns; every other one is
+        structurally zero."""
+        names: set = set()
+        has_sw = False
+        for c in self.components.values():
+            if hasattr(c, "dm_value_device"):
+                names.update(c.params)
+                if getattr(c, "category", "") == "solar_wind":
+                    has_sw = True
+        if has_sw:
+            for c in self.components.values():
+                if getattr(c, "category", "") == "astrometry":
+                    names.update(c.params)
+        return names
+
+    def build_dm_fn(self, toas, device=None):
+        """(dm_fn, (free_names, th)): dm_fn(th) -> model DM per TOA
+        [pc/cm^3] as a float64 tensor on ``device`` (the model's by
+        default), a function of the free parameters' high words that
+        ``torch.func.jacfwd`` can differentiate; ``th`` is their value."""
+        dev = self.device if device is None else resolve_device(device)
+        cache = self.get_cache(toas, dev)
+        batch, main = cache["batch"], cache["main"]
+        free, frozen, th, tl, fh, fl = self._pack()
+        th, tl, fh, fl = (torch.as_tensor(np.asarray(x, np.float64),
+                                          device=dev)
+                          for x in (th, tl, fh, fl))
+
+        def dm_fn(thx):
+            return self.dm_total_device(
+                make_pv(free, frozen, thx, tl, fh, fl), batch, main)
+
+        return dm_fn, (free, th)
+
+    def total_dm(self, toas, device=None) -> torch.Tensor:
+        """Model DM at each TOA [pc/cm^3] (reference:
+        TimingModel.total_dm)."""
+        dm_fn, (_, th) = self.build_dm_fn(toas, device)
+        return dm_fn(th)
+
     def invalidate_cache(self, params_only=False):
         """Drop the per-TOAs cache and the derived reference day.
         params_only=True (a parameter VALUE changed) keeps the per-TOAs
@@ -606,6 +670,16 @@ class TimingModel:
             sigma2 = c.scale_toa_sigma_s2(toas, sigma2)
         return np.sqrt(sigma2)
 
+    def scaled_dm_uncertainty(self, toas) -> np.ndarray:
+        """Per-TOA wideband-DM sigma [pc/cm^3] after DMEFAC/DMEQUAD."""
+        from pint_tpu_torch.wideband import get_wideband_dm
+
+        _, dmerr = get_wideband_dm(toas)
+        sigma2 = dmerr ** 2
+        for c in self.noise_components:
+            sigma2 = c.scale_dm_sigma2(toas, sigma2)
+        return np.sqrt(sigma2)
+
     def noise_model_basis_weight_pairs(self, toas, exclude=(),
                                        tspan=None, tref_day=None):
         """[(component name, F, phi), ...] for every active basis,
@@ -651,6 +725,26 @@ class TimingModel:
         if not pairs:
             return None
         return np.concatenate([phi for _, _, phi in pairs])
+
+    def noise_model_dm_designmatrix(self, toas, exclude=()):
+        """(N, q) DM-channel block of the noise basis, column-aligned
+        with ``noise_model_designmatrix(toas, exclude=exclude)``:
+        components whose process is a DM perturbation (PLDMNoise) have a
+        ``noise_dm_basis`` and couple into the wideband DM rows; all
+        others contribute zeros. None when no basis is active."""
+        pairs = self.noise_model_basis_weight_pairs(toas, exclude=exclude)
+        if not pairs:
+            return None
+        comps = {type(c).__name__: c for c in self.noise_components}
+        blocks = []
+        for name, F, _ in pairs:
+            comp = comps.get(name)
+            if comp is not None and hasattr(comp, "noise_dm_basis"):
+                blocks.append(np.asarray(comp.noise_dm_basis(toas,
+                                                             F_time=F)))
+            else:
+                blocks.append(np.zeros_like(np.asarray(F)))
+        return np.concatenate(blocks, axis=1)
 
     def noise_model_ecorr_segments(self, toas):
         """ECORR epoch-segment structure for the Sherman-Morrison GLS

@@ -12,13 +12,18 @@ red-noise Fourier basis and ECORR's per-epoch Sherman-Morrison
 downdates, the Jacobi-scaled Cholesky and the noise-marginalized chi2.
 The signature and output order are the reference's, so one function's
 arguments can be fed to the other (models.convert.fit_args_from_numpy).
+With ``wideband=True`` the step solves the stacked [time; DM] system of
+wideband TOAs (reference: WidebandTOAFitter's joint solve): the DM
+channel's residuals (-pp_dm/-pp_dme flags, DMEFAC/DMEQUAD-scaled) and
+its ``jacfwd`` rows ride below the time rows, DM-process bases
+(PLDMNoise) couple into them, and ``resids`` stays the N time residuals.
 
 This is the route the reference takes on its CPU backend, where float64
 is IEEE, as it is on the GPU: the direct dd phase chain, the float64
 Jacobian and the float64 Gram, with the reference's hybrid Jacobian
-split an option (off by default, see ``_build_fit_core``). The anchored, f32-Jacobian and f32-Gram
-routes, wideband rows, TOA padding, health taps and the on-device
-downhill loop are not ported yet (ROADMAP.md).
+split an option (off by default, see ``_build_fit_core``). The
+anchored, f32-Jacobian and f32-Gram routes, TOA padding, health taps and
+the on-device downhill loop are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -66,11 +71,14 @@ class SegmentSum:
         return torch.cat([head, tail])
 
 
-def _build_fit_core(model, toas, device=None, hybrid_jac=False):
+def _build_fit_core(model, toas, device=None, hybrid_jac=False,
+                    wideband=False):
     """(step_fn, parts_fn, args, names, meta) on ``device`` (the model's
     by default). ``dparams`` is aligned with ``names``: an implicit
     Offset column leads unless the model has a PhaseOffset, and then
     the residuals are not mean-subtracted either (check names[0]).
+    ``wideband`` stacks the DM channel's rows below the time rows
+    (module docstring).
 
     Every design column comes from one vmapped jacfwd over all free
     parameters. ``hybrid_jac=True`` takes the reference's default
@@ -108,6 +116,22 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False):
     nl_idx_list = [i for i, nm in enumerate(free) if nm not in lin_set]
     nl_idx = torch.as_tensor(nl_idx_list, dtype=torch.long, device=dev)
 
+    if wideband:
+        from pint_tpu_torch.wideband import get_wideband_dm
+
+        dm_meas_np, _ = get_wideband_dm(toas)
+        # DMEFAC/DMEQUAD-scaled DM sigmas, as DMResiduals has them
+        sc = {**sc, "wb_dm": tensor(dm_meas_np),
+              "wb_dme": tensor(model.scaled_dm_uncertainty(toas))}
+        # with hybrid_jac, tangents for the DM-affecting columns only
+        # (every other column of the DM rows is structurally zero)
+        dm_idx = None
+        if hybrid_jac:
+            dm_set = model.dm_affecting_free_params()
+            idx = [i for i, nm in enumerate(free) if nm in dm_set]
+            if len(idx) < len(free):
+                dm_idx = torch.as_tensor(idx, dtype=torch.long, device=dev)
+
     nvec_np = model.scaled_toa_uncertainty(toas) ** 2
     # ECORR rides the Sherman-Morrison segment path (one rank-1
     # downdate per observing epoch); only the Fourier bases stay dense
@@ -122,7 +146,29 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False):
         F_np, phi_np = np.zeros((n, 0)), np.ones(0)
     nseg = len(jvar_np)
     eid_t = tensor(eid_np, torch.long)
-    built_plan = SegmentSum(eid_t, nseg) if nseg > 1 else None
+    if wideband:
+        Fdm_np = model.noise_model_dm_designmatrix(toas, exclude=exclude)
+        sc = {**sc, "wb_Fdm": tensor(np.zeros((n, 0)) if Fdm_np is None
+                                     else Fdm_np)}
+
+    def stack_eid(eid):
+        """The epoch ids of the step's rows: the DM rows of a wideband
+        stack ride ECORR's zero-variance 'no epoch' slot nseg - 1."""
+        if not wideband:
+            return eid
+        return torch.cat([eid, torch.full_like(eid, nseg - 1)])
+
+    # the segment plan of the built eid, made once here; an eid argument
+    # of its own (converted arguments) gets its plan once, on first use
+    plans = {"eid": eid_t,
+             "plan": SegmentSum(stack_eid(eid_t), nseg) if nseg > 1
+             else None}
+
+    def segment_plan(eid):
+        if nseg > 1 and eid is not plans["eid"]:
+            plans["eid"], plans["plan"] = eid, SegmentSum(stack_eid(eid),
+                                                          nseg)
+        return plans["plan"]
 
     def parts_fn(th, tl, fh, fl, batch, cache, F, phi, nvec, valid,
                  eid, jvar):
@@ -170,11 +216,53 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False):
         if incoffset:
             cols.insert(0, (valid / f0)[:, None])
         M = torch.cat(cols, dim=1)
-        return M, F * valid[:, None], r, nvec, valid, eid, valid
+        Fv = F * valid[:, None]
+        tmask = valid
+        if wideband:
+            with record_function("fit_step.dm_jacobian"):
+                M, r, nvec, Fv = _dm_rows(th, tl, fh, fl, batch, cache, M, r,
+                                          nvec, Fv, valid)
+            tmask = torch.cat([valid, torch.zeros_like(valid)])
+            valid = torch.cat([valid, valid])
+            eid = stack_eid(eid)
+        return M, Fv, r, nvec, valid, eid, tmask
+
+    def _dm_rows(th, tl, fh, fl, batch, cache, M, r, nvec, Fv, valid):
+        """The stacked [time; DM] rows: the DM residuals in float64, the
+        DM Jacobian (columns negated, r_dm = measured - model; zero in
+        the Offset column), the DM variances and the DM-channel noise
+        basis below the time rows."""
+        def dm_of(thx):
+            return model.dm_total_device(
+                make_pv(free, frozen, thx, tl, fh, fl), batch,
+                cache["main"])
+
+        if dm_idx is None:
+            def full(thx):
+                out = dm_of(thx)
+                return out, out
+
+            jac_dm, dm = torch.func.jacfwd(full, has_aux=True)(th)
+        else:
+            def sub(th_dm):
+                out = dm_of(th.index_put((dm_idx,), th_dm))
+                return out, out
+
+            jac_sub, dm = torch.func.jacfwd(sub, has_aux=True)(th[dm_idx])
+            jac_dm = jac_sub.new_zeros((jac_sub.shape[0], th.shape[0]))
+            jac_dm[:, dm_idx] = jac_sub
+        dm_cols = [-jac_dm * valid[:, None]]
+        if incoffset:
+            dm_cols.insert(0, jac_dm.new_zeros((jac_dm.shape[0], 1)))
+        r_dm = (cache["wb_dm"] - dm) * valid
+        return (torch.cat([M, torch.cat(dm_cols, dim=1)]),
+                torch.cat([r, r_dm]),
+                torch.cat([nvec, cache["wb_dme"] ** 2]),
+                torch.cat([Fv, cache["wb_Fdm"] * valid[:, None]]))
 
     def step_fn(th, tl, fh, fl, batch, cache, F, phi, nvec, valid,
                 eid, jvar):
-        M, Fv, r0, nvec2, valid2, eid2, tmask = parts_fn(
+        M, Fv, r0, nvec2, valid2, _, tmask = parts_fn(
             th, tl, fh, fl, batch, cache, F, phi, nvec, valid, eid, jvar)
         if incoffset:
             # weighted-mean subtraction over the valid time rows
@@ -182,35 +270,35 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False):
             r = r0 - (torch.sum(r0 * wt) / torch.sum(wt)) * tmask
         else:
             r = r0
-        plan = None
-        if nseg > 1:
-            plan = built_plan if eid2 is eid_t else SegmentSum(eid2, nseg)
         dp, cov, chi2 = _gls_core(M, Fv, phi, r, nvec2, valid2, jvar,
-                                  plan)
-        return dp, cov, chi2, r
+                                  segment_plan(eid))
+        # the time residuals only (the first N rows of a wideband stack)
+        return dp, cov, chi2, r[:valid.shape[0]]
 
     args = (tensor(th), tensor(tl), tensor(fh), tensor(fl), batch, sc,
             tensor(F_np), tensor(phi_np), tensor(nvec_np), tensor(np.ones(n)),
             eid_t, tensor(jvar_np))
-    meta = {"incoffset": incoffset, "nseg": nseg,
+    meta = {"incoffset": incoffset, "nseg": nseg, "wideband": wideband,
             "has_ecorr": seg is not None}
     return (step_fn, parts_fn, args,
             (["Offset"] if incoffset else []) + free, meta)
 
 
-def build_fit_step(model, toas, device=None, hybrid_jac=False):
+def build_fit_step(model, toas, device=None, hybrid_jac=False,
+                   wideband=False):
     """(step_fn, args, names): one fit iteration and its arguments on
     ``device`` (the model's by default); see ``_build_fit_core``."""
     step_fn, _, args, names, _ = _build_fit_core(model, toas, device,
-                                                 hybrid_jac)
+                                                 hybrid_jac, wideband)
     return step_fn, args, names
 
 
-def build_fit_parts(model, toas, device=None, hybrid_jac=False):
+def build_fit_parts(model, toas, device=None, hybrid_jac=False,
+                    wideband=False):
     """(parts_fn, args, names, meta): the design/residual assembly half
     of the step, taking the same 12 arguments as ``step_fn``."""
     _, parts_fn, args, names, meta = _build_fit_core(model, toas, device,
-                                                     hybrid_jac)
+                                                     hybrid_jac, wideband)
     return parts_fn, args, names, meta
 
 

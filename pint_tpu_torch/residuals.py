@@ -133,3 +133,22 @@ class Residuals:
     @property
     def reduced_chi2(self) -> float:
         return self.chi2 / self.dof
+
+
+_WIDEBAND_REEXPORTS = ("WidebandTOAResiduals", "CombinedResiduals",
+                       "DMResiduals")
+
+
+def __getattr__(name):
+    """The reference exposes the wideband residual classes from its
+    residuals module too; they live in pint_tpu_torch.wideband (imported
+    lazily here: a top-level import would be circular)."""
+    if name in _WIDEBAND_REEXPORTS:
+        from pint_tpu_torch import wideband
+
+        return getattr(wideband, name)
+    raise AttributeError(name)
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_WIDEBAND_REEXPORTS))

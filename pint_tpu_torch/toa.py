@@ -150,6 +150,9 @@ class TOAs:
     def get_errors(self):
         return self.error_us
 
+    def get_freqs(self):
+        return self.freq_mhz
+
     def get_flag_value(self, flag, fill_value=None, as_type=None):
         out = []
         for f in self.flags:
