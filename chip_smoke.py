@@ -81,8 +81,10 @@ Phases, each fatal on failure:
      the CPU (fit-step's limits, chi2 held as the binary steps hold it),
      two GPU steps bitwise equal, the hybrid step against it, timed and
      profiled as fit-time (the DM rows' jacfwd is the
-     fit_step.dm_jacobian span); WidebandDownhillFitter to convergence on
-     the GPU and the CPU, one optimum;
+     fit_step.dm_jacobian span); then the model's par and the TOAs as a
+     .tim, read back by get_model_and_toas (on the default device, the
+     GPU, and on the CPU), Fitter.auto's WidebandDownhillFitter to
+     convergence on each, one optimum;
    wideband-twin: the fit path's problem (10,000 TOAs, ECORR on 2,500
      epochs, 30 red-noise modes) plus DMEFAC/DMEQUAD, a free DMJUMP, FD1
      and an FD jump free, PLDMNoise (30 modes) and -pp_dm measurements
@@ -903,18 +905,30 @@ def fit_time(step, args, label: str, reps: int = 20) -> dict:
 
 
 def fit_downhill(par: str, toas, dev, label: str = "fit-downhill",
-                 fitter=None) -> dict:
+                 fitter=None, tim: str = None) -> dict:
     """`fitter` (DownhillGLSFitter by default) to convergence on the GPU
-    and on the CPU from the par's values: the same optimum."""
+    and on the CPU from the par's values: the same optimum. With `tim`,
+    `par` and `tim` are files read by get_model_and_toas (the GPU side
+    with no device given: the default) and the fitter is Fitter.auto's,
+    which must be a `fitter` on the device asked for."""
     import torch
 
+    from pint_tpu_torch.fitter import Fitter
     from pint_tpu_torch.gls import DownhillGLSFitter
-    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.models import get_model, get_model_and_toas
 
     res = {}
     for tag, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
-        m = get_model(io.StringIO(par), device=d)
-        f = (fitter or DownhillGLSFitter)(toas, m)
+        if tim is None:
+            m = get_model(io.StringIO(par), device=d)
+            f = (fitter or DownhillGLSFitter)(toas, m)
+        else:
+            m, t = get_model_and_toas(par, tim,
+                                      device=None if tag == "gpu" else d)
+            f = Fitter.auto(t, m)
+            if type(f) is not fitter or f.device.type != d.type:
+                fail(f"{label}: Fitter.auto gave a {type(f).__name__} on "
+                     f"{f.device}, not a {fitter.__name__} on {d.type}")
         t0 = time.perf_counter()
         chi2 = f.fit_toas()
         if d.type == "cuda":
@@ -926,8 +940,10 @@ def fit_downhill(par: str, toas, dev, label: str = "fit-downhill",
                     for n in fc.model.free_params)
     dr = fg.resids.time_resids.cpu().numpy() - \
         fc.resids.time_resids.numpy()
-    tol = chi2_tol(cc, dr, fc.model.scaled_toa_uncertainty(toas), CHI2_REL)
-    print(f"{label}: GPU {fg.stats.iterations} iterations in "
+    tol = chi2_tol(cc, dr, fc.model.scaled_toa_uncertainty(fc.toas),
+                   CHI2_REL)
+    print(f"{label}: {type(fg).__name__} on {fg.device}: "
+          f"{fg.stats.iterations} iterations in "
           f"{tg:.3f} s, chi2 {cg!r}; CPU {fc.stats.iterations} iterations "
           f"in {tc:.3f} s, chi2 {cc!r}; parameters within "
           f"{dev_sigma:.3e} sigma (limit {DP_SIGMA}), chi2 "
@@ -1178,6 +1194,26 @@ def wideband_twin_build(ntoa: int, ndmx: int, dev) -> tuple:
     return par, model, toas
 
 
+def write_toas_tim(toas, path: str) -> None:
+    """`toas` as a .tim file: each TOA's site-clock MJD (the clock
+    correction taken back out, as the reference's write_TOA_file does) to
+    20 digits of its day fraction (1e-20 d), its frequency, error, site
+    and flags."""
+    from pint_tpu_torch.io import TimTOA, write_tim
+    from pint_tpu_torch.ops import dd_np
+    from pint_tpu_torch.time.mjd import mjd_to_str
+
+    corr = np.array([float(f.get("clkcorr", 0.0)) for f in toas.flags])
+    fhi, flo = dd_np.sub(toas.mjd_frac,
+                         dd_np.div_f(dd_np.dd(corr), 86400.0))
+    write_tim(path, [
+        TimTOA(mjd_to_str(toas.mjd_day[i], (fhi[i], flo[i]), 20),
+               float(toas.freq_mhz[i]), float(toas.error_us[i]),
+               toas.obs[i], toas.names[i],
+               {k: v for k, v in toas.flags[i].items() if k != "clkcorr"})
+        for i in range(toas.ntoas)])
+
+
 def dd_sum_check(dev) -> dict:
     """ops.dd.dd_sum on the card on tests/test_torch_dd.py's inputs (400
     values of +-1e10 with their low words, whole and along each axis of
@@ -1335,9 +1371,18 @@ def main() -> int:
     w_step = fit_step_check(w_model, w_toas, dev, "wideband-config3 step",
                             explain_chi2=True, wideband=True)
     w_time = fit_time(w_step["step"], w_step["args"], "wideband config-3 step")
-    w_downhill = fit_downhill(w_model.as_parfile(), w_toas, dev,
-                              "wideband-config3 downhill",
-                              fitter=WidebandDownhillFitter)
+    # the fit as a user runs it: the par and the .tim (its -pp_dm/-pp_dme
+    # flags) read by get_model_and_toas, the fitter Fitter.auto's
+    with tempfile.TemporaryDirectory() as tmp:
+        w_par_path = os.path.join(tmp, "config3.par")
+        w_tim_path = os.path.join(tmp, "config3.tim")
+        with open(w_par_path, "w") as f:
+            f.write(w_model.as_parfile())
+        write_toas_tim(w_toas, w_tim_path)
+        w_downhill = fit_downhill(w_par_path, None, dev,
+                                  "wideband-config3 downhill",
+                                  fitter=WidebandDownhillFitter,
+                                  tim=w_tim_path)
     w_downhill.pop("fitter")
     w3_s = time.perf_counter() - t0
     t0 = time.perf_counter()

@@ -121,13 +121,15 @@ class Fitter:
         return torch.as_tensor(self.toas.get_errors() * 1e-6,
                                dtype=torch.float64, device=self.device)
 
-    def _record_stats(self, chi2: float, iterations: int, t0: float,
-                      dof=None):
+    def _dof(self) -> int:
+        """Degrees of freedom of the fit's chi2."""
+        return getattr(self.resids, "dof",
+                       self.toas.ntoas - len(self.model.free_params))
+
+    def _record_stats(self, chi2: float, iterations: int, t0: float):
         wall = time.perf_counter() - t0
         n = self.toas.ntoas
-        if dof is None:
-            dof = getattr(self.resids, "dof",
-                          n - len(self.model.free_params))
+        dof = self._dof()
         self.stats = FitStats(
             fitter=type(self).__name__, ntoa=n,
             nfree=len(self.model.free_params), dof=dof,

@@ -187,14 +187,19 @@ class GLSFitter(Fitter):
         self.full_cov = full_cov
         self.noise_resids: Optional[torch.Tensor] = None
 
-    def _solve_once(self, threshold=None):
-        """One linearized solve at the current parameters: (x, cov,
-        chi2, noise_resid, names), x and cov as numpy for the host's
-        parameter update."""
+    def _system(self):
+        """(M, r, nvec, F, phi, names) of the linearized problem at the
+        current parameters, float64 tensors on the model's device."""
         self.resids = self._residuals()
-        r = self.resids.time_resids
         M, names, _ = self.get_designmatrix()
         nvec, Fb, phi = self.model.noise_device(self.toas, self.device)
+        return M, self.resids.time_resids, nvec, Fb, phi, names
+
+    def _solve_once(self, threshold=None):
+        """One linearized solve of ``_system`` at the current parameters:
+        (x, cov, chi2, noise_resid, names), x and cov as numpy for the
+        host's parameter update, noise_resid the N time-channel rows."""
+        M, r, nvec, Fb, phi, names = self._system()
         if self.full_cov:
             x, cov, chi2, noise = _gls_kernel_fullcov(M, Fb, phi, r, nvec)
         elif threshold is not None:
@@ -207,8 +212,8 @@ class GLSFitter(Fitter):
                 x, cov, chi2, noise, _ = _gls_kernel_svd(M, Fb, phi, r,
                                                          nvec)
         # r ≈ M (θ − θ_true): the correction is −x
-        return ((-x).cpu().numpy(), cov.cpu().numpy(), float(chi2), noise,
-                names)
+        return ((-x).cpu().numpy(), cov.cpu().numpy(), float(chi2),
+                noise[:self.toas.ntoas], names)
 
     def fit_toas(self, maxiter=1, threshold=None):
         t0 = time.perf_counter()

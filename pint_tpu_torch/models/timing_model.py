@@ -506,16 +506,13 @@ class TimingModel:
 
     def dm_total_device(self, pv, batch, cache_sub):
         """Total model DM [pc/cm^3] per TOA, summed over every component
-        with a ``dm_value_device`` (DM polynomial, DMX, DMJUMP).
-        Astrometry's delay runs first to fill ctx with the geometry a
-        DM term may read. Shared by build_dm_fn and the wideband fit
-        step, so the two channels cannot disagree."""
+        with a ``dm_value_device`` (DM polynomial, DMX, DMJUMP). None of
+        these reads ctx, so no delay runs first (the reference runs
+        astrometry's for the solar-wind DM, not ported). Shared by
+        build_dm_fn and the wideband fit step, so the two channels
+        cannot disagree."""
         ctx: dict = {}
-        zero = torch.zeros_like(batch.freq_mhz)
-        for c in self.delay_components:
-            if c.category == "astrometry":
-                c.delay(pv, batch, cache_sub, ctx, zero)
-        dm = zero
+        dm = torch.zeros_like(batch.freq_mhz)
         for c in self._ordered_components():
             if hasattr(c, "dm_value_device"):
                 dm = dm + c.dm_value_device(pv, batch, cache_sub, ctx)
@@ -523,22 +520,13 @@ class TimingModel:
 
     def dm_affecting_free_params(self) -> set:
         """Names whose tangents can move dm_total_device: the parameters
-        of every component with a ``dm_value_device``, plus astrometry's
-        when a solar-wind component (which reads the pulsar direction
-        from ctx) is present. The wideband step's hybrid route restricts
-        the DM-row Jacobian to these columns; every other one is
-        structurally zero."""
+        of every component with a ``dm_value_device``. The wideband step
+        restricts the DM-row Jacobian to these columns; every other one
+        is structurally zero."""
         names: set = set()
-        has_sw = False
         for c in self.components.values():
             if hasattr(c, "dm_value_device"):
                 names.update(c.params)
-                if getattr(c, "category", "") == "solar_wind":
-                    has_sw = True
-        if has_sw:
-            for c in self.components.values():
-                if getattr(c, "category", "") == "astrometry":
-                    names.update(c.params)
         return names
 
     def build_dm_fn(self, toas, device=None):

@@ -123,14 +123,11 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,
         # DMEFAC/DMEQUAD-scaled DM sigmas, as DMResiduals has them
         sc = {**sc, "wb_dm": tensor(dm_meas_np),
               "wb_dme": tensor(model.scaled_dm_uncertainty(toas))}
-        # with hybrid_jac, tangents for the DM-affecting columns only
-        # (every other column of the DM rows is structurally zero)
-        dm_idx = None
-        if hybrid_jac:
-            dm_set = model.dm_affecting_free_params()
-            idx = [i for i, nm in enumerate(free) if nm in dm_set]
-            if len(idx) < len(free):
-                dm_idx = torch.as_tensor(idx, dtype=torch.long, device=dev)
+        # tangents for the DM-affecting columns only: every other column
+        # of the DM rows is structurally zero
+        dm_set = model.dm_affecting_free_params()
+        dm_idx_list = [i for i, nm in enumerate(free) if nm in dm_set]
+        dm_idx = torch.as_tensor(dm_idx_list, dtype=torch.long, device=dev)
 
     nvec_np = model.scaled_toa_uncertainty(toas) ** 2
     # ECORR rides the Sherman-Morrison segment path (one rank-1
@@ -230,20 +227,15 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,
     def _dm_rows(th, tl, fh, fl, batch, cache, M, r, nvec, Fv, valid):
         """The stacked [time; DM] rows: the DM residuals in float64, the
         DM Jacobian (columns negated, r_dm = measured - model; zero in
-        the Offset column), the DM variances and the DM-channel noise
+        the Offset column; jacfwd over the DM-affecting parameters, the
+        other columns zero), the DM variances and the DM-channel noise
         basis below the time rows."""
         def dm_of(thx):
             return model.dm_total_device(
                 make_pv(free, frozen, thx, tl, fh, fl), batch,
                 cache["main"])
 
-        if dm_idx is None:
-            def full(thx):
-                out = dm_of(thx)
-                return out, out
-
-            jac_dm, dm = torch.func.jacfwd(full, has_aux=True)(th)
-        else:
+        if dm_idx_list:
             def sub(th_dm):
                 out = dm_of(th.index_put((dm_idx,), th_dm))
                 return out, out
@@ -251,6 +243,9 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,
             jac_sub, dm = torch.func.jacfwd(sub, has_aux=True)(th[dm_idx])
             jac_dm = jac_sub.new_zeros((jac_sub.shape[0], th.shape[0]))
             jac_dm[:, dm_idx] = jac_sub
+        else:
+            dm = dm_of(th)
+            jac_dm = dm.new_zeros((dm.shape[0], th.shape[0]))
         dm_cols = [-jac_dm * valid[:, None]]
         if incoffset:
             dm_cols.insert(0, jac_dm.new_zeros((jac_dm.shape[0], 1)))

@@ -24,14 +24,12 @@ are not ported: a failed solve raises, and nothing takes its place.
 
 from __future__ import annotations
 
-import time
 from typing import List
 
 import numpy as np
 import torch
 
-from pint_tpu_torch.fitter import Fitter, MaxiterReached, warn_degenerate
-from pint_tpu_torch.gls import _gls_kernel, _gls_kernel_svd, gls_chi2
+from pint_tpu_torch.gls import DownhillGLSFitter, GLSFitter, gls_chi2
 from pint_tpu_torch.residuals import Residuals
 from pint_tpu_torch.wideband import DMResiduals, get_wideband_dm
 
@@ -55,15 +53,15 @@ def build_dm_designmatrix(model, toas, names: List[str],
     return out
 
 
-class WidebandTOAFitter(Fitter):
-    """Joint TOA+DM GLS fit (reference: WidebandTOAFitter)."""
+class WidebandTOAFitter(GLSFitter):
+    """Joint TOA+DM GLS fit (reference: WidebandTOAFitter): GLSFitter's
+    solve and loop over the stacked system of ``_system``."""
 
     def __init__(self, toas, model, residuals=None, track_mode=None):
         get_wideband_dm(toas)  # validate the flags up front
         super().__init__(toas, model, residuals=residuals,
                          track_mode=track_mode)
         self.dm_resids = DMResiduals(toas, model)
-        self.noise_resids = None
         self._noise_stack = None
 
     def _stacked_noise(self):
@@ -95,56 +93,30 @@ class WidebandTOAFitter(Fitter):
         self._noise_stack = (pairs, nvec, out)
         return out
 
-    def _solve_once(self, threshold=None):
-        """One linearized solve of the stacked system at the current
-        parameters: (x, cov, chi2, noise_resid, names), x and cov as
-        numpy for the host's parameter update, noise_resid the N
-        time-channel rows."""
+    def _system(self):
+        """The stacked [time; DM] problem at the current parameters."""
         self.resids = self._residuals()
         self.dm_resids = DMResiduals(self.toas, self.model)
-        n = self.toas.ntoas
         M_t, names, _ = self.get_designmatrix()
         M_dm = -build_dm_designmatrix(self.model, self.toas, names)
-        M = torch.cat([M_t, M_dm])
         r = torch.cat([self.resids.time_resids, self.dm_resids.resids])
         nvec, F, phi = self._stacked_noise()
-        if threshold is not None:
-            x, cov, chi2, noise, _ = _gls_kernel_svd(
-                M, F, phi, r, nvec, threshold=float(threshold))
-        else:
-            x, cov, chi2, noise, _, ok = _gls_kernel(M, F, phi, r, nvec)
-            if not bool(ok):
-                warn_degenerate("wideband normal matrix")
-                x, cov, chi2, noise, _ = _gls_kernel_svd(M, F, phi, r,
-                                                         nvec)
-        return ((-x).cpu().numpy(), cov.cpu().numpy(), float(chi2),
-                noise[:n], names)
-
-    def fit_toas(self, maxiter=1, threshold=None):
-        t0 = time.perf_counter()
-        for _ in range(max(1, maxiter)):
-            x, cov, chi2, noise, names = self._solve_once(threshold)
-            self.update_model(x, names)
-        x, cov, chi2, noise, names = self._solve_once(threshold)
-        self.set_uncertainties(cov, names)
-        self.noise_resids = noise
-        self.converged = True
-        self._record_stats(chi2, max(1, maxiter), t0,
-                           dof=self._wb_dof())
-        return chi2
+        return torch.cat([M_t, M_dm]), r, nvec, F, phi, names
 
     @property
     def chi2_dm(self) -> float:
         return self.dm_resids.chi2
 
-    def _wb_dof(self) -> int:
-        """chi2 sums over 2N stacked TOA+DM measurements."""
+    def _dof(self) -> int:
+        """chi2 sums over 2N stacked TOA+DM measurements (reference:
+        _wb_dof)."""
         return 2 * self.toas.ntoas - len(self.model.free_params) - 1
 
 
-class WidebandDownhillFitter(WidebandTOAFitter):
+class WidebandDownhillFitter(WidebandTOAFitter, DownhillGLSFitter):
     """Step-halving downhill wrapper over the wideband step (reference:
-    WidebandDownhillFitter)."""
+    WidebandDownhillFitter): DownhillGLSFitter's loop over the stacked
+    system."""
 
     def _chi2_here(self) -> float:
         """The time channel's GLS chi2 plus the DM channel's white chi2,
@@ -153,40 +125,3 @@ class WidebandDownhillFitter(WidebandTOAFitter):
                       track_mode=self.track_mode).time_resids
         return gls_chi2(self.model, self.toas, resids=r) + \
             DMResiduals(self.toas, self.model).chi2
-
-    def fit_toas(self, maxiter=20, threshold=None, min_lambda=1e-3,
-                 required_chi2_decrease=1e-2):
-        t0 = time.perf_counter()
-        iterations = 0
-        best_chi2 = self._chi2_here()
-        converged = False
-        for _ in range(maxiter):
-            iterations += 1
-            x, cov, _, noise, names = self._solve_once(threshold)
-            lam, accepted = 1.0, False
-            while lam >= min_lambda:
-                self.update_model(lam * x, names)
-                new_chi2 = self._chi2_here()
-                if new_chi2 <= best_chi2 + 1e-12:
-                    accepted = True
-                    break
-                self.update_model(-lam * x, names)
-                lam /= 2.0
-            if not accepted:
-                converged = True
-                break
-            improved = best_chi2 - new_chi2
-            best_chi2 = new_chi2
-            if improved < required_chi2_decrease:
-                converged = True
-                break
-        else:
-            raise MaxiterReached(
-                f"no convergence in {maxiter} wideband iterations")
-        self.converged = converged
-        x, cov, _, noise, names = self._solve_once(threshold)
-        self.set_uncertainties(cov, names)
-        self.noise_resids = noise
-        self._record_stats(best_chi2, iterations, t0,
-                           dof=self._wb_dof())
-        return best_chi2
