@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (pint_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed S] [--n N] [--path-n N] [--m M]
-                          [--fit-ntoa N] [--fit-ndmx K] [--baseline-src CU]
+                          [--fit-ntoa N] [--fit-ndmx K] [--stream-ntoa N]
+                          [--baseline-src CU]
 
 Phases, each fatal on failure:
 
@@ -92,8 +93,43 @@ Phases, each fatal on failure:
      bench_stress.attach_wideband_dm): its step on the GPU against the
      CPU, timed and profiled;
    dd-sum: ops.dd.dd_sum on the card, on tests/test_torch_dd.py's 400
-     values of +-1e10, within 1e-28 of sum |x| of the exact sum;
-9. print the card's name and power limit, and one JSON line of kernel
+     values of +-1e10 and on 1,048,576 such values, within 1e-28 of
+     sum |x| of the exact sum;
+9. the device downhill fit and the streaming GLS (no hand-written kernel
+   either):
+   nu-inf: tests/datafile/NGC6440E.par without its TZRFRQ line (the TZR
+     TOA at an infinite frequency) with NGC6440E.tim: the design matrix on
+     the GPU is finite and Fitter.auto's fit on the GPU reaches the CPU
+     fit's F0 (1e-6 sigma);
+   device-fit: BASELINE's stress problem (bench_stress.build_stress_
+     problem, recipe copied): 10,000 TOAs in four-TOA clusters over 5
+     receivers with their own EFAC/EQUAD/ECORR, JUMPs and FD jumps, an
+     ELL1 binary, 100 DMX, 30 red-noise and 30 DM-noise modes, 124 free
+     parameters, F0 moved 3e-11 Hz and JUMP1 2e-7 s; after a warm-up fit
+     on a copy, DeviceDownhillGLSFitter.fit_toas(maxiter=12) one step a
+     trial and with whole_fit=True, each against DownhillGLSFitter on the
+     GPU (parameters within 1e-6 sigma, chi2 within 1e-6 relative of the
+     step's chi2 at the host optimum), F0 within 5 sigma of the truth;
+   device-fit-wideband: the same without DM noise and with bench_stress.
+     attach_wideband_dm's DM measurements, DeviceDownhillGLSFitter(
+     wideband=True) against WidebandDownhillFitter, the same limits;
+   graph-step: the fit cell's step and config 3's wideband step each
+     captured into a torch.cuda.CUDAGraph ((th, tl) copied into static
+     buffers before each replay): replayed outputs bitwise equal to the
+     eager step's at the entry point and one step on; replay and eager
+     step timed on the host clock and between CUDA events;
+   stream-ecorr: the fit cell streamed in chunks of 4,096 (boundaries
+     between epochs) and of 4,094 (boundaries inside epochs): each pass
+     on the GPU against the dense GPU step and against the same pass on
+     the CPU (1e-6 sigma, chi2 1e-8 relative);
+   stream: bench.build_problem_streaming's model (no ECORR, 15 red-noise
+     modes, 28 DMX) at --stream-ntoa TOAs (default 200,000, where
+     Fitter.auto streams on its own): Fitter.auto's StreamingGLSFitter on
+     the GPU, one accumulate + solve pass in chunks of
+     config.stream_chunk(N) timed twice, held to the dense GPU step
+     (1e-6 sigma, chi2 1e-8 relative, CG ok; bench.py:1520's limits), the
+     peak device memory of each, then a fit to convergence;
+10. print the card's name and power limit, and one JSON line of kernel
    measurements.
 
 The last line of standard output is {"ok": true, "device": {...}}. The
@@ -251,6 +287,53 @@ WB_TWIN_EXTRA = [
     "TNDMGAM 3.0", "TNDMC 30",
 ]
 DD_SUM_REL = 1e-28     # tests/test_torch_dd.py::test_dd_sum_is_compensated
+DD_SUM_BIG = 1 << 20   # values of the large dd_sum check
+
+# BASELINE's stress problem (bench_stress.build_stress_problem,
+# bench_stress.py:27, recipe copied): a NANOGrav-like pulsar, 10,000 TOAs
+# in four-TOA clusters over 12 years, 5 receivers each with its own
+# EFAC/EQUAD/ECORR, JUMPs and FD jumps, an ELL1 binary, 100 free DMX
+# windows, 30 red-noise and 30 DM-noise modes.
+STRESS_SPAN = (53000.0, 57383.0)
+STRESS_NTOA, STRESS_NDMX = 10_000, 100
+RECEIVERS = ("rcvr800", "rcvr1400", "rcvr2100", "guppi", "puppi")
+STRESS_PAR = [
+    "PSR J1600-3053x", "RAJ 16:00:51.90 1", "DECJ -30:53:49.3 1",
+    "PMRA -0.95 1", "PMDEC -6.9 1", "PX 0.5 1", "F0 277.9377112429746 1",
+    "F1 -7.3387e-16 1", "DM 52.33", "DM1 0", "DM2 0", "PEPOCH 55000",
+    "POSEPOCH 55000", "DMEPOCH 55000", "TZRMJD 55000.1", "TZRSITE @",
+    "TZRFRQ 1400", "UNITS TDB", "BINARY ELL1", "PB 14.348466 1",
+    "A1 8.8016531 1", "TASC 55000.2 1", "EPS1 2.0e-4 1", "EPS2 -1.7e-4 1",
+    "M2 0.27 1", "SINI 0.87 1",
+] + [f"{k} -be {r} {v}" for i, r in enumerate(RECEIVERS)
+     for k, v in (("EFAC", 1.0 + 0.05 * i), ("EQUAD", 0.1 + 0.05 * i),
+                  ("ECORR", 0.4 + 0.1 * i))] + [
+    "DMEFAC -be rcvr1400 1.1", "DMEQUAD -be guppi 1e-4",
+] + [f"JUMP -be {r} 1e-6 1" for r in RECEIVERS[1:]] + [
+    line for r in RECEIVERS[3:]
+    for line in (f"FDJUMP -be {r} 1e-6 1", f"FD2JUMP -be {r} 5e-7 1")] + [
+    "FD1 1e-5 1", "FD2 -4e-6 1", "TNREDAMP -14.2", "TNREDGAM 3.8",
+    "TNREDC 30",
+]
+STRESS_DM_NOISE = ["TNDMAMP -13.6", "TNDMGAM 2.9", "TNDMC 30"]
+DEVICE_FIT_CHI2_REL = 1e-6    # tests/test_device_fitter.py:56
+STRESS_TRUTH_SIGMA = 5.0      # bench_stress.py's ok: F0 within 5 sigma
+
+# bench.build_problem_streaming (bench.py:1395, recipe copied): the
+# north-star model without ECORR and its JUMPs, 15 red-noise modes,
+# EFAC/EQUAD, 28 DMX, at 200,000 TOAs: Fitter.auto's streaming threshold
+STREAM_PAR = [
+    "PSR J0000+0001", "RAJ 12:00:00.0 1", "DECJ 30:00:00.0 1",
+    "PMRA 2.0 1", "PMDEC -3.0 1", "PX 1.2 1", "F0 300.123456789 1",
+    "F1 -1.0e-15 1", "F2 1e-26 1", "DM 20.0", "DM1 1e-4", "DM2 1e-6",
+    "PEPOCH 55000", "POSEPOCH 55000", "DMEPOCH 55000", "TZRMJD 55000.1",
+    "TZRSITE @", "TZRFRQ 1400", "UNITS TDB", "EFAC -be X 1.1",
+    "EQUAD -be X 0.3", "TNREDAMP -13.7", "TNREDGAM 3.5", "TNREDC 15",
+]
+STREAM_SIGMA, STREAM_CHI2_REL = 1e-6, 1e-8   # bench.py:1520
+# the fit cell's streamed chunk lengths: a power of two (its boundaries
+# fall between the four-TOA epochs) and one whose boundaries split epochs
+STREAM_ECORR_CHUNKS = (4096, 4094)
 NGC = tuple(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tests", "datafile", f"NGC6440E.{ext}")
             for ext in ("par", "tim"))
@@ -810,6 +893,55 @@ def fit_step_check(model, toas, dev, label: str = "fit-step",
             "hybrid_vs_step": hy}
 
 
+def profile_window(fn, n: int) -> tuple:
+    """(profiler, wall ms, spans, work, launches) of `n` calls of `fn`
+    ending in a synchronize: the device events split into the spans of
+    annotations ({name: [(start, end)]}, the fit_step.* ranges) and work
+    ([(start, end, name)]: kernels, copies and sets), and the kernel
+    launches counted on the host."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, work, launches = {}, [], 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            tr = e.time_range
+            if e.name.startswith("fit_step.") or \
+                    getattr(e, "is_user_annotation", False):
+                spans.setdefault(e.name, []).append((tr.start, tr.end))
+            else:
+                work.append((tr.start, tr.end, e.name))
+        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                        "cuLaunchKernel", "cuLaunchKernelEx"):
+            launches += 1
+    return prof, wall_ms, spans, work, launches
+
+
+def device_busy(fn, label: str) -> dict:
+    """One call of `fn` under the profiler: its wall, device busy time
+    (kernels, copies and sets), idle share and kernel launches."""
+    _, wall_ms, _, work, launches = profile_window(fn, 1)
+    out = {"wall_ms": wall_ms, "busy_ms": None, "idle_share": None,
+           "launches": launches}
+    if not work:
+        print(f"{label}: {launches} kernel launches; device busy not "
+              "measured (the profiler recorded no device time)")
+        return out
+    busy = sum(b - a for a, b, _ in work) / 1e3
+    out.update(busy_ms=busy, idle_share=1 - busy / wall_ms)
+    print(f"{label}: profiled call {wall_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms (idle share {out['idle_share']:.4f}), "
+          f"{launches} kernel launches")
+    return out
+
+
 def fit_time(step, args, label: str, reps: int = 20) -> dict:
     """Host-clock and CUDA-event times of `reps` steps, then a profiler
     window of 3 steps: device-busy share, launches per step, device time
@@ -840,28 +972,8 @@ def fit_time(step, args, label: str, reps: int = 20) -> dict:
           f"between CUDA events (min {out['event_ms'][1]:.3f}, max "
           f"{out['event_ms'][2]:.3f})")
     nsteps = 3
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(nsteps):
-            step(*args)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device events: kernels, copies and sets, plus the device-side
-    # ranges of the fit_step.* annotations, which are spans, not work
-    spans, work, launches = {}, [], 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            tr = e.time_range
-            if e.name.startswith("fit_step.") or \
-                    getattr(e, "is_user_annotation", False):
-                spans.setdefault(e.name, []).append((tr.start, tr.end))
-            else:
-                work.append((tr.start, tr.end, e.name))
-        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                        "cuLaunchKernel", "cuLaunchKernelEx"):
-            launches += 1
+    prof, wall_ms, spans, work, launches = profile_window(
+        lambda: step(*args), nsteps)
     busy_us = sum(b - a for a, b, _ in work)
     out["busy_share"] = busy_us / 1e3 / wall_ms if work else None
     out["launches_per_step"] = launches / nsteps
@@ -1217,7 +1329,8 @@ def write_toas_tim(toas, path: str) -> None:
 def dd_sum_check(dev) -> dict:
     """ops.dd.dd_sum on the card on tests/test_torch_dd.py's inputs (400
     values of +-1e10 with their low words, whole and along each axis of
-    a 20 x 20 view) against the exact sum, within DD_SUM_REL of sum |hi|."""
+    a 20 x 20 view), and on DD_SUM_BIG such values whole, against the
+    exact sum, within DD_SUM_REL of sum |hi|."""
     from fractions import Fraction
 
     import torch
@@ -1241,13 +1354,460 @@ def dd_sum_check(dev) -> dict:
             err = abs(float(Fraction(float(got_hi[j]))
                             + Fraction(float(got_lo[j])) - exact))
             worst = max(worst, err / float(np.sum(np.abs(h))))
-    print(f"dd-sum: dd_sum on {dev} within {worst:.3e} of sum |x| of the "
-          f"exact sum (limit {DD_SUM_REL})")
-    if not worst <= DD_SUM_REL:
-        fail(f"dd-sum: dd_sum on the card is {worst:.3e} of sum |x| from "
-             "the exact sum")
-    return {"rel_err": worst}
+    # the whole-array sum of DD_SUM_BIG values, where the card's scan
+    # spans many blocks; exact in integers of 2^-1074
+    def exact(values):
+        total = 0
+        for v in values:
+            num, den = float(v).as_integer_ratio()
+            total += num << (1074 - (den.bit_length() - 1))
+        return total
 
+    hi = rng.uniform(-1e10, 1e10, DD_SUM_BIG)
+    lo = hi * rng.uniform(-1e-17, 1e-17, DD_SUM_BIG)
+    t = tdd.dd_sum(tdd.DD(*(torch.as_tensor(x, device=dev)
+                            for x in (hi, lo))))
+    got = exact([float(t.hi), float(t.lo)])
+    big = float(Fraction(abs(got - exact(np.concatenate([hi, lo]).tolist())),
+                         1 << 1074)) / float(np.sum(np.abs(hi)))
+    print(f"dd-sum: dd_sum on {dev} within {worst:.3e} of sum |x| of the "
+          f"exact sum at 400 values, {big:.3e} at {DD_SUM_BIG} (limit "
+          f"{DD_SUM_REL})")
+    if not max(worst, big) <= DD_SUM_REL:
+        fail(f"dd-sum: dd_sum on the card is {max(worst, big):.3e} of "
+             "sum |x| from the exact sum")
+    return {"rel_err": worst, "rel_err_big": big, "n_big": DD_SUM_BIG}
+
+
+# ------------------------------------- the device fit and the streaming GLS
+
+
+def nu_inf_check(dev, tmp: str) -> dict:
+    """NGC6440E's par without TZRFRQ (the TZR TOA at nu = inf) with its
+    .tim: the design matrix on the card is finite, and Fitter.auto's fit
+    on the card reaches the CPU's F0 (DP_SIGMA)."""
+    import torch
+
+    from pint_tpu_torch.fitter import Fitter
+    from pint_tpu_torch.models import get_model_and_toas
+
+    with open(NGC[0]) as f:
+        text = re.sub(r"(?m)^TZRFRQ.*\n", "", f.read())
+    par = os.path.join(tmp, "ngc6440e_no_tzrfrq.par")
+    with open(par, "w") as f:
+        f.write(text)
+    res = {}
+    for tag, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        m, t = get_model_and_toas(par, NGC[1], device=d)
+        M = m.designmatrix(t)[0]
+        finite = bool(torch.all(torch.isfinite(M)))
+        fit = Fitter.auto(t, m)
+        t0 = time.perf_counter()
+        chi2 = fit.fit_toas()
+        res[tag] = (finite, fit, chi2, time.perf_counter() - t0)
+    (fin_g, fg, cg, tg), (fin_c, fc, cc, _) = res["gpu"], res["cpu"]
+    f0_sigma = abs(fg.model.F0.value - fc.model.F0.value) / \
+        fc.model.F0.uncertainty
+    print(f"nu-inf: NGC6440E without TZRFRQ: design matrix finite on the "
+          f"GPU {fin_g} (CPU {fin_c}); {type(fg).__name__} on {fg.device} "
+          f"in {tg:.3f} s, chi2 {cg!r} (CPU {cc!r}); F0 {fg.model.F0.value!r}"
+          f", {f0_sigma:.3e} sigma from the CPU fit's (limit {DP_SIGMA})")
+    if not (fin_g and fin_c and fg.converged and fc.converged
+            and fg.device.type == dev.type and f0_sigma <= DP_SIGMA):
+        fail("nu-inf: the fit without TZRFRQ is not finite or disagrees "
+             "with the CPU")
+    return {"finite": fin_g, "gpu_s": tg, "chi2": cg, "f0_sigma": f0_sigma}
+
+
+def stress_build(ntoa: int, ndmx: int, dev, dm_noise: bool = True) -> tuple:
+    """(model, TOAs, truth) of bench_stress.build_stress_problem() on
+    `dev`: clustered epochs over STRESS_SPAN, four sub-bands per cluster
+    with +-6 % channel jitter and the receiver flags set before the draw,
+    0.3 us errors, white and correlated noise from default_rng(7); then F0
+    moved 3e-11 Hz and JUMP1 2e-7 s, as there."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
+
+    par = STRESS_PAR + (STRESS_DM_NOISE if dm_noise else [])
+    par = "\n".join(with_dmx(par, STRESS_SPAN, ndmx)) + "\n"
+    model = get_model(io.StringIO(par), device=dev)
+    rng = np.random.default_rng(7)
+    mjds = clustered_mjds(STRESS_SPAN, ntoa)
+    freqs = (np.tile([430.0, 820.0, 1400.0, 2100.0], ntoa // 4)
+             * (1.0 + rng.uniform(-0.06, 0.06, ntoa)))
+    flags = [{"be": RECEIVERS[(i // 4) % len(RECEIVERS)]}
+             for i in range(ntoa)]
+    toas = make_fake_toas_fromMJDs(mjds, model, error_us=0.3,
+                                   freq_mhz=freqs, add_noise=True,
+                                   add_correlated_noise=True, rng=rng,
+                                   flags=flags)
+    truth = {"F0": model.F0.value, "PB": model.PB.value}
+    model.F0.add_delta(3e-11)
+    model.get_param("JUMP1").value += 2e-7
+    model.invalidate_cache(params_only=True)
+    return model, toas, truth
+
+
+def attach_wideband_dm(model, toas) -> None:
+    """bench_stress.attach_wideband_dm: -pp_dme 2e-4 on every TOA and
+    -pp_dm the model DM plus a draw at the DMEFAC/DMEQUAD-scaled sigma
+    from default_rng(17)."""
+    dm = model.total_dm(toas).cpu().numpy()
+    set_dm_flags(toas, np.zeros(toas.ntoas), np.full(toas.ntoas, 2e-4))
+    sig = model.scaled_dm_uncertainty(toas)
+    rng = np.random.default_rng(17)
+    set_dm_flags(toas, [dm[i] + rng.normal(0.0, sig[i])
+                        for i in range(toas.ntoas)],
+                 np.full(toas.ntoas, 2e-4))
+
+
+def step_ms(model, toas, dev, wideband: bool, label: str,
+            reps: int = 5) -> tuple:
+    """(median host ms of the eager fit step to synchronize, its
+    device_busy record)."""
+    import torch
+
+    from pint_tpu_torch.parallel import build_fit_step
+
+    step, args, _ = build_fit_step(model, toas, device=dev,
+                                   wideband=wideband)
+    step(*args)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms)), device_busy(lambda: step(*args),
+                                             f"{label}, one eager step")
+
+
+def device_fit_check(model, toas, truth, dev, label: str,
+                     wideband: bool = False, maxiter: int = 12) -> dict:
+    """DeviceDownhillGLSFitter.fit_toas(maxiter) on the card, one step a
+    trial and whole_fit=True, after a warm-up fit on a copy of the model
+    (as bench_stress runs it), each held to the host downhill fitter
+    (DownhillGLSFitter, or WidebandDownhillFitter with `wideband`) on the
+    card: parameters within DP_SIGMA, chi2 within DEVICE_FIT_CHI2_REL of
+    the step's chi2 at the host optimum; F0 within STRESS_TRUTH_SIGMA of
+    the truth."""
+    import copy
+
+    import torch
+
+    from pint_tpu_torch.gls import DeviceDownhillGLSFitter, DownhillGLSFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.parallel import build_fit_step
+    from pint_tpu_torch.wideband_fitter import WidebandDownhillFitter, \
+        WidebandTOAFitter
+
+    start = model.as_parfile()
+    warm = get_model(io.StringIO(start), device=dev)
+    t0 = time.perf_counter()
+    DeviceDownhillGLSFitter(toas, warm, wideband=wideband).fit_toas(
+        maxiter=maxiter)
+    warm_s = time.perf_counter() - t0
+    models = {k: copy.deepcopy(model) for k in ("whole", "host")}
+    runs = {}
+    for tag, m, kw in (("step", model, {}),
+                       ("whole", models["whole"], {"whole_fit": True})):
+        fit = DeviceDownhillGLSFitter(toas, m, wideband=wideband)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chi2 = fit.fit_toas(maxiter=maxiter, **kw)
+        torch.cuda.synchronize()
+        runs[tag] = (fit, chi2, time.perf_counter() - t0)
+    host_cls = WidebandDownhillFitter if wideband else DownhillGLSFitter
+    hfit = host_cls(toas, models["host"])
+    t0 = time.perf_counter()
+    hchi2 = hfit.fit_toas(maxiter=maxiter)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    eager_ms, eager_busy = step_ms(model, toas, dev, wideband, label)
+    # the host fitter's chi2 weighs the residuals' mean by the raw TOA
+    # errors (Residuals), the step's by the EFAC/EQUAD-scaled ones, as in
+    # the reference; with a white-noise model per receiver they differ,
+    # so the device fit's chi2 is held to the step's at the host optimum
+    hstep, hargs, _ = build_fit_step(models["host"], toas, device=dev,
+                                     wideband=wideband)
+    h_step_chi2 = float(hstep(*hargs)[2])
+    out = {"ntoa": toas.ntoas, "nfree": len(model.free_params),
+           "warmup_s": warm_s, "eager_step_ms": eager_ms,
+           "eager_step_profile": eager_busy,
+           "host_fitter": host_cls.__name__, "host_s": host_s,
+           "host_iterations": hfit.stats.iterations, "host_chi2": hchi2,
+           "host_step_chi2": h_step_chi2}
+    ok = True
+    for tag, (fit, chi2, wall) in runs.items():
+        # the fit's last stage, the host refresh of residuals and noise
+        # at the optimum (a design matrix and a solve), timed alone so
+        # that the trials' share of the wall can be read
+        t0 = time.perf_counter()
+        (WidebandTOAFitter(toas, fit.model) if wideband
+         else fit)._solve_once()
+        torch.cuda.synchronize()
+        refresh = time.perf_counter() - t0
+        dp_sigma = max(abs(fit.model.get_param(n).value
+                           - hfit.model.get_param(n).value)
+                       / hfit.errors[n] for n in model.free_params)
+        chi2_rel = abs(chi2 - h_step_chi2) / abs(h_step_chi2)
+        # the gap the two chi2 weightings leave, recorded, not gated
+        host_chi2_rel = abs(chi2 - hchi2) / abs(hchi2)
+        truth_sigma = abs(fit.model.F0.value - truth["F0"]) / \
+            fit.model.F0.uncertainty
+        per_eval = (wall - refresh) * 1e3 / fit.step_evals
+        out[tag] = {"wall_s": wall, "iterations": fit.stats.iterations,
+                    "step_evals": fit.step_evals, "refresh_s": refresh,
+                    "ms_per_eval": per_eval,
+                    "chi2": chi2, "dof": fit.stats.dof,
+                    "dp_sigma_vs_host": dp_sigma, "chi2_rel_vs_host": chi2_rel,
+                    "host_chi2_rel": host_chi2_rel,
+                    "f0_truth_sigma": truth_sigma,
+                    "converged": fit.converged}
+        print(f"{label}, {tag}: {fit.stats.iterations} iterations, "
+              f"{fit.step_evals} step evaluations in {wall:.3f} s, of "
+              f"which the final host refresh {refresh:.3f} s "
+              f"({per_eval:.1f} ms an evaluation without it; eager step "
+              f"{eager_ms:.1f} ms), chi2 {chi2!r} (dof {fit.stats.dof}); "
+              f"against {host_cls.__name__} on {hfit.device} "
+              f"({hfit.stats.iterations} iterations, {host_s:.3f} s): "
+              f"parameters {dp_sigma:.3e} sigma (limit {DP_SIGMA}), chi2 "
+              f"{chi2_rel:.3e} relative to the step's at the host optimum "
+              f"(limit {DEVICE_FIT_CHI2_REL}; the host fitter's own chi2 "
+              f"{hchi2!r}, {host_chi2_rel:.3e} relative); F0 "
+              f"{truth_sigma:.3f} sigma from the truth (limit "
+              f"{STRESS_TRUTH_SIGMA})")
+        ok = ok and (fit.converged and dp_sigma <= DP_SIGMA
+                     and chi2_rel <= DEVICE_FIT_CHI2_REL
+                     and truth_sigma <= STRESS_TRUTH_SIGMA
+                     and fit.device.type == torch.device(dev).type)
+    print(f"{label}: warm-up fit {warm_s:.3f} s; N = {toas.ntoas}, "
+          f"{len(model.free_params)} free parameters")
+    if not (ok and hfit.converged):
+        fail(f"{label}: the device fit does not reach the host fit or the "
+             "truth")
+    return out
+
+
+def graph_step_check(step, args, names, label: str, reps: int = 20) -> dict:
+    """One step captured into a torch.cuda.CUDAGraph with (th, tl) in
+    static buffers copied in before each replay: the replayed outputs
+    bitwise equal to the eager step's at the entry point and at a second
+    point (the step's own correction applied); replay timed on the host
+    clock (copies, replay, synchronize) and between CUDA events, and the
+    eager step the same way in the same run."""
+    import torch
+
+    from pint_tpu_torch.ops.dd import dd, dd_add
+
+    th, tl = args[0].clone(), args[1].clone()
+    rest = args[2:]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step(th, tl, *rest)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = step(th, tl, *rest)
+
+    def replay(a, b):
+        th.copy_(a)
+        tl.copy_(b)
+        graph.replay()
+
+    noff = 1 if names and names[0] == "Offset" else 0
+    eager = [x.clone() for x in step(*args)]
+    s = dd_add(dd(args[0], args[1]), dd(eager[0][noff:]))
+    points = [(args[0], args[1]), (s.hi, s.lo)]
+    for i, (a, b) in enumerate(points):
+        want = [x.cpu().numpy() for x in step(a, b, *rest)]
+        replay(a, b)
+        torch.cuda.synchronize()
+        got = [x.cpu().numpy() for x in static_out]
+        for nm, x, y in zip(("dparams", "cov", "chi2", "resids"), got, want):
+            if not np.array_equal(x.view(np.int64), y.view(np.int64)):
+                fail(f"{label}: the replayed step differs from the eager "
+                     f"step in {nm} at point {i}")
+
+    def timed(fn):
+        host, ev = [], []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            ev.append(a.elapsed_time(b))
+        return ([float(np.median(host)), min(host), max(host)],
+                [float(np.median(ev)), min(ev), max(ev)])
+
+    r_host, r_ev = timed(lambda: replay(args[0], args[1]))
+    e_host, e_ev = timed(lambda: step(*args))
+    out = {"replay_host_ms": r_host, "replay_event_ms": r_ev,
+           "eager_host_ms": e_host, "eager_event_ms": e_ev,
+           "speedup_host": e_host[0] / r_host[0]}
+    print(f"{label}: one step captured in a CUDA graph, replay bitwise "
+          f"equal to the eager step at 2 points; replay {r_host[0]:.3f} ms "
+          f"median of {reps} on the host clock (min {r_host[1]:.3f}, max "
+          f"{r_host[2]:.3f}), {r_ev[0]:.3f} ms between CUDA events; eager "
+          f"{e_host[0]:.3f} ms (min {e_host[1]:.3f}, max {e_host[2]:.3f}), "
+          f"{e_ev[0]:.3f} ms between events: {out['speedup_host']:.1f}x")
+    del graph
+    return out
+
+
+def stream_check(ntoa: int, dev) -> dict:
+    """bench.build_problem_streaming's model at `ntoa` TOAs on `dev`:
+    Fitter.auto must pick StreamingGLSFitter on the card (with no
+    streaming= argument from config.solve_streaming() TOAs on); one
+    accumulate + solve pass at config.stream_chunk(ntoa), timed twice
+    (the second kept), held to the dense step on the card at the same
+    point (STREAM_SIGMA, STREAM_CHI2_REL, ok: bench.py:1520's limits),
+    with the peak device memory of each; then a StreamingGLSFitter fit to
+    convergence."""
+    import copy
+
+    import torch
+
+    from pint_tpu_torch.config import solve_streaming, stream_chunk
+    from pint_tpu_torch.fitter import Fitter
+    from pint_tpu_torch.gls import StreamingGLSFitter
+    from pint_tpu_torch.parallel import build_fit_step
+    from pint_tpu_torch.parallel.streaming import StreamingGLS
+
+    t0 = time.perf_counter()
+    _, model, toas = sim_toas(
+        with_dmx(STREAM_PAR, FIT_SPAN, 28), clustered_mjds(FIT_SPAN, ntoa),
+        np.tile([1400.0, 1400.0, 820.0, 820.0], ntoa // 4), 1, dev,
+        flags=True)
+    build_s = time.perf_counter() - t0
+    auto = ntoa >= solve_streaming()
+    fit = Fitter.auto(toas, copy.deepcopy(model),
+                      **({} if auto else {"streaming": True}))
+    if type(fit) is not StreamingGLSFitter or \
+            fit.device.type != torch.device(dev).type:
+        fail(f"stream: Fitter.auto gave a {type(fit).__name__} on "
+             f"{fit.device}, not a StreamingGLSFitter on {dev}")
+    sg = StreamingGLS(model, toas, device=dev)
+    if sg.chunk != stream_chunk(ntoa):
+        fail("stream: the chunk is not config.stream_chunk's")
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        dp, cov, chi2, chi2r, xf, ok, iters, resid = sg.solve(
+            sg.accumulate(sg.th0, sg.tl0))
+        walls.append(time.perf_counter() - t0)
+        stream_peak = torch.cuda.max_memory_allocated() - base
+    pass_profile = device_busy(
+        lambda: sg.solve(sg.accumulate(sg.th0, sg.tl0)), "stream pass")
+    step, args, names = build_fit_step(model, toas, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    dpD, covD, chi2D, _ = (x.cpu().numpy() for x in step(*args))
+    dense_s = time.perf_counter() - t0
+    dense_peak = torch.cuda.max_memory_allocated() - base
+    del step, args
+    if names != sg.names:
+        fail("stream: the streaming and dense steps have other parameters")
+    sig = np.sqrt(np.abs(np.diag(covD)))
+    worst = float(np.max(np.abs(dp - dpD) / sig))
+    chi_rel = abs(chi2r - float(chi2D)) / abs(float(chi2D))
+    t0 = time.perf_counter()
+    fchi2 = fit.fit_toas(maxiter=8)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    out = {"ntoa": toas.ntoas, "build_s": build_s, "auto_route": auto,
+           "chunk": sg.chunk, "nchunks": sg.nchunks, "p": sg.p, "q": sg.q,
+           "pass_ms": walls[1] * 1e3, "first_pass_ms": walls[0] * 1e3,
+           "toa_per_s": toas.ntoas / walls[1], "cg_iters": iters,
+           "cg_budget": sg.default_budget, "cg_rel_residual": resid,
+           "cg_ok": ok, "worst_sigma": worst, "chi2_rel": chi_rel,
+           "pass_profile": pass_profile,
+           "stream_peak_bytes": stream_peak, "dense_peak_bytes": dense_peak,
+           "dense_step_ms": dense_s * 1e3, "fit_s": fit_s,
+           "fit_passes": fit.passes, "fit_iterations": fit.stats.iterations,
+           "fit_chi2": fchi2, "fit_converged": fit.converged}
+    print(f"stream: N = {toas.ntoas} (host build {build_s:.3f} s), p = "
+          f"{sg.p}, q = {sg.q}; Fitter.auto "
+          f"{'with no streaming= argument' if auto else 'streaming=True'} "
+          f"gave StreamingGLSFitter on {fit.device}; {sg.nchunks} chunks of "
+          f"{sg.chunk}: pass {walls[1] * 1e3:.1f} ms (first "
+          f"{walls[0] * 1e3:.1f} ms), {toas.ntoas / walls[1]:.0f} TOA/s; CG "
+          f"{iters} iterations (budget {sg.default_budget}), relative "
+          f"residual {resid:.3e}, ok {ok}; against the dense step on the card"
+          f" ({dense_s * 1e3:.1f} ms): {worst:.3e} sigma (limit "
+          f"{STREAM_SIGMA}), chi2 {chi_rel:.3e} relative (limit "
+          f"{STREAM_CHI2_REL}); peak device memory above the inputs: pass "
+          f"{stream_peak / 2**20:.1f} MiB, dense step "
+          f"{dense_peak / 2**20:.1f} MiB; StreamingGLSFitter fit "
+          f"{fit.stats.iterations} iterations, {fit.passes} passes in "
+          f"{fit_s:.3f} s, converged {fit.converged}")
+    if not (ok and worst < STREAM_SIGMA and chi_rel < STREAM_CHI2_REL
+            and fit.converged):
+        fail("stream: the streaming pass disagrees with the dense step or "
+             "the fit did not converge")
+    return out
+
+
+def stream_ecorr_check(model, toas, dense, dev) -> dict:
+    """The fit cell (ECORR on 2,500 four-TOA epochs) streamed in chunks of
+    each of STREAM_ECORR_CHUNKS (fatal unless some boundary splits an
+    epoch): the pass on the card against the dense step on the card
+    (`dense`: its dparams, cov, chi2) and against the same pass on the
+    CPU, each to STREAM_SIGMA and STREAM_CHI2_REL."""
+    import torch
+
+    from pint_tpu_torch.parallel.streaming import StreamingGLS
+
+    sig = np.sqrt(np.abs(np.diag(dense[1])))
+    res, ok, splits = {}, True, 0
+    for chunk in STREAM_ECORR_CHUNKS:
+        outs, walls = {}, {}
+        for tag, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
+            sg = StreamingGLS(model, toas, chunk=chunk, device=d)
+            t0 = time.perf_counter()
+            outs[tag] = sg.solve(sg.accumulate(sg.th0, sg.tl0))
+            walls[tag] = time.perf_counter() - t0
+        # chunk boundaries inside an epoch (the boundary carry's work)
+        cuts = np.arange(chunk, sg.ntoa, chunk)
+        split = int(np.sum(sg._eid[cuts - 1] == sg._eid[cuts]))
+        splits += split
+        g, c = outs["gpu"], outs["cpu"]
+        vs_dense = (float(np.max(np.abs(g[0] - dense[0]) / sig)),
+                    abs(g[3] - float(dense[2])) / abs(float(dense[2])))
+        vs_cpu = (float(np.max(np.abs(g[0] - c[0]) / sig)),
+                  abs(g[3] - c[3]) / abs(c[3]))
+        print(f"stream-ecorr: N = {toas.ntoas} in chunks of {chunk} ({split}"
+              f" of {len(cuts)} boundaries inside an epoch): GPU pass "
+              f"{walls['gpu']:.3f} s, CPU pass {walls['cpu']:.3f} s, CG "
+              f"{g[6]} iterations; against the dense GPU step "
+              f"{vs_dense[0]:.3e} sigma, chi2 {vs_dense[1]:.3e} relative; "
+              f"GPU against CPU {vs_cpu[0]:.3e} sigma, chi2 {vs_cpu[1]:.3e}"
+              f" relative (limits {STREAM_SIGMA}, {STREAM_CHI2_REL})")
+        ok = ok and (g[5] and c[5]
+                     and max(vs_dense[0], vs_cpu[0]) < STREAM_SIGMA
+                     and max(vs_dense[1], vs_cpu[1]) < STREAM_CHI2_REL)
+        res[str(chunk)] = {
+            "split_epochs": split, "gpu_pass_s": walls["gpu"],
+            "cpu_pass_s": walls["cpu"], "cg_iters": g[6],
+            "vs_dense_sigma": vs_dense[0], "vs_dense_chi2_rel": vs_dense[1],
+            "vs_cpu_sigma": vs_cpu[0], "vs_cpu_chi2_rel": vs_cpu[1]}
+    if not (ok and splits):
+        fail("stream-ecorr: no epoch split, or a streamed ECORR pass "
+             "disagrees")
+    return res
 
 def fmt(t: dict) -> str:
     return (f"{t['median']:.4f} ms median of 20 (min {t['min']:.4f}, "
@@ -1267,6 +1827,10 @@ def main() -> int:
                     help="TOAs of the fit path (default 10,000)")
     ap.add_argument("--fit-ndmx", type=int, default=28,
                     help="free DMX windows of the fit path (default 28)")
+    ap.add_argument("--stream-ntoa", type=int, default=200_000,
+                    help="TOAs of the streaming GLS phase (default "
+                         "200,000, Fitter.auto's streaming threshold; "
+                         "below it the phase asks for streaming=True)")
     ap.add_argument("--m", type=int, default=20, help="harmonics")
     ap.add_argument("--baseline-src", default=None,
                     help="also time a kernel built from this .cu source "
@@ -1403,6 +1967,43 @@ def main() -> int:
     print(f"wideband path seconds: config 3 {w3_s:.3f} (downhill "
           f"{w_downhill['gpu_s']:.3f} GPU, {w_downhill['iterations']} "
           f"iterations), twin {tw_s:.3f}")
+
+    # the device downhill fit, CUDA-graph replay of the step, and the
+    # matrix-free streaming GLS
+    secs = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        nu_inf = nu_inf_check(dev, tmp)
+    secs["nu_inf"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_model, s_toas, s_truth = stress_build(STRESS_NTOA, STRESS_NDMX, dev)
+    secs["stress_build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dfit = device_fit_check(s_model, s_toas, s_truth, dev, "device-fit")
+    secs["device_fit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sw_model, sw_toas, sw_truth = stress_build(STRESS_NTOA, STRESS_NDMX, dev,
+                                               dm_noise=False)
+    attach_wideband_dm(sw_model, sw_toas)
+    dfit_wb = device_fit_check(sw_model, sw_toas, sw_truth, dev,
+                               "device-fit-wideband", wideband=True)
+    secs["device_fit_wideband"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = {"fit": graph_step_check(step["step"], step["args"],
+                                     step["names"], "graph-step, fit cell"),
+             "config3": graph_step_check(w_step["step"], w_step["args"],
+                                         w_step["names"],
+                                         "graph-step, config 3")}
+    secs["graph_step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense = [x.cpu().numpy() for x in step["step"](*step["args"])]
+    secorr = stream_ecorr_check(model, toas, dense, dev)
+    secs["stream_ecorr"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stream = stream_check(args.stream_ntoa, dev)
+    secs["stream"] = time.perf_counter() - t0
+    print("device-fit and streaming seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items()))
 
     # timings at the main path's shape: float32 inputs (the TPU kernel's
     # contract) and float64 inputs (what the H-test hands the kernel)
@@ -1544,6 +2145,13 @@ def main() -> int:
                     "downhill": w_downhill},
         "twin": wb_cell(tw_toas.ntoas, tw_build_s, tw_time, tw_step, tw_s),
         "dd_sum": ddsum}}))
+    print(json.dumps({"nu_inf": nu_inf}))
+    print(json.dumps({"device_fit": {"stress": dfit,
+                                     "stress_wideband": dfit_wb,
+                                     "seconds": secs}}))
+    print(json.dumps({"graph_step": graph}))
+    print(json.dumps({"streaming": stream}))
+    print(json.dumps({"stream_ecorr": secorr}))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": [{

@@ -143,16 +143,31 @@ class Fitter:
     @staticmethod
     def auto(toas, model, downhill=True, device=None, serve=None,
              streaming=None, **kw):
-        """Pick a fitter from model contents (reference: Fitter.auto):
-        the wideband fitters when the TOAs carry -pp_dm DM channels, GLS
-        when correlated-noise components are present, WLS otherwise;
-        downhill wrappers by default. The streaming, serve and
-        whole-fit-on-device routes of the reference are not ported yet
-        and raise NotImplementedError (ValueError for wideband TOAs,
-        which the reference refuses on those routes)."""
+        """Pick a fitter from model contents and data (reference:
+        Fitter.auto): the wideband fitters when the TOAs carry -pp_dm DM
+        channels, GLS when correlated-noise components are present, WLS
+        otherwise; downhill wrappers by default.
+
+        ``streaming`` picks the matrix-free ``StreamingGLSFitter``
+        (chunked normal equations and preconditioned CG, peak device
+        memory O(chunk + (p+q)^2)). Default: on for narrowband downhill
+        fits of at least ``config.solve_streaming()`` TOAs
+        ($PINT_TPU_STREAM_MIN_TOA, default 200,000; 0 turns it off)
+        unless ``device=True``; True or False overrides. Wideband TOAs
+        on this route raise ValueError.
+
+        ``device=True`` picks ``DeviceDownhillGLSFitter``: each downhill
+        trial is one fit step on the model's device (wideband TOAs get
+        the stacked step); it requires ``downhill``. ``device=None``
+        means False: the reference turns it on only on a TPU backend.
+        Pass ``whole_fit=``/``pipeline=`` through ``kw``.
+
+        The ``serve=`` route is not ported yet and raises
+        NotImplementedError (ValueError for wideband TOAs, which the
+        reference refuses there)."""
+        from pint_tpu_torch.config import solve_streaming
         from pint_tpu_torch.wideband import has_wideband_dm
 
-        todo = "pint_tpu_torch does not have it yet: ROADMAP.md queue 1"
         wideband = has_wideband_dm(toas)
         if serve is not None:
             if wideband:
@@ -161,21 +176,32 @@ class Fitter:
                     "serve solve has no [time; DM] stacked system — "
                     "dropping the DM channels silently would corrupt "
                     "the fit. Use Fitter.auto without serve=")
-            raise NotImplementedError(f"Fitter.auto(serve=): the serve "
-                                      f"path; {todo} item 11")
+            raise NotImplementedError(
+                "Fitter.auto(serve=): the serve path; pint_tpu_torch does "
+                "not have it yet: ROADMAP.md queue 1 item 11")
+        if streaming is None:
+            thresh = solve_streaming()
+            streaming = (downhill and not wideband and device is not True
+                         and thresh > 0 and toas.ntoas >= thresh)
         if streaming:
             if wideband:
                 raise ValueError(
                     "streaming=True cannot fit wideband TOAs (the "
                     "streaming accumulator has no stacked [time; DM] "
                     "system); use the dense wideband fitters")
-            raise NotImplementedError(
-                f"Fitter.auto(streaming=True): StreamingGLSFitter; "
-                f"{todo} item 8")
+            from pint_tpu_torch.gls import StreamingGLSFitter
+
+            return StreamingGLSFitter(toas, model, **kw)
+        if device and not downhill:
+            raise ValueError(
+                "device=True requires downhill=True: the device fit "
+                "path IS a downhill loop (use build_fit_step directly "
+                "for single linearized solves)")
         if device:
-            raise NotImplementedError(
-                f"Fitter.auto(device=True): DeviceDownhillGLSFitter; "
-                f"{todo} item 5")
+            from pint_tpu_torch.gls import DeviceDownhillGLSFitter
+
+            return DeviceDownhillGLSFitter(toas, model, wideband=wideband,
+                                           **kw)
         if wideband:
             from pint_tpu_torch.wideband_fitter import (
                 WidebandDownhillFitter,

@@ -16,19 +16,37 @@ raising), so the ``ok`` flag and the eigh fallback behave as in the
 reference. ``GLSFitter(full_cov=True)`` solves with the dense N x N
 covariance instead (``_gls_kernel_fullcov``), the reference's
 cross-check of the Woodbury algebra; it is never the default.
+
+``DeviceDownhillGLSFitter`` runs each downhill trial as one fit step
+(``parallel.build_fit_step``, iterated by ``build_fit_loop``), and
+``StreamingGLSFitter`` each trial as one pass of the matrix-free
+streaming GLS (``parallel.streaming``); both search with ``downhill_dd``
+and keep the parameter state on the host in exact dd.
 """
 
 from __future__ import annotations
 
+import math
 import time
+import warnings
 from typing import Optional
 
+import numpy as np
 import torch
 
 from pint_tpu_torch.fitter import Fitter, MaxiterReached, warn_degenerate
+from pint_tpu_torch.ops import dd_np
 from pint_tpu_torch.residuals import Residuals
 
-__all__ = ["GLSFitter", "DownhillGLSFitter", "gls_chi2"]
+__all__ = ["GLSFitter", "DownhillGLSFitter", "DeviceDownhillGLSFitter",
+           "StreamingGLSFitter", "NonFiniteStepError", "gls_chi2"]
+
+
+class NonFiniteStepError(ValueError):
+    """The Cholesky-only device step (or the streaming CG solve) gave
+    non-finite values: a singular or degenerate system. The device
+    fitter catches it and falls back to the host fitters, which carry
+    the SVD fallback."""
 
 
 def equilibrate(M, w):
@@ -280,3 +298,344 @@ class DownhillGLSFitter(GLSFitter):
         self._record_stats(best_chi2, iterations, t0)
         return best_chi2
 
+
+
+def _bump(th, tl, d):
+    """(th, tl) + d in exact dd, the low part carrying the rounding
+    remainder (the host replay of ``build_fit_loop``'s advance)."""
+    s = dd_np.add(dd_np.dd(th, tl), dd_np.dd(d))
+    return np.asarray(s[0]), np.asarray(s[1])
+
+
+def downhill_dd(evaluate, advance, th, tl, entry, budget, min_lambda,
+                required_chi2_decrease, noff=0):
+    """The downhill search over a dd parameter state (th, tl), shared by
+    ``build_fit_loop`` and ``StreamingGLSFitter`` (reference: the loop
+    body of build_fit_loop; decisions of src/pint/fitter.py
+    DownhillFitter): accept a trial iff its chi2 is finite and
+    <= best + 1e-12, else halve the step down to ``min_lambda``; stop on
+    a rejected iteration, when the improvement is below
+    ``required_chi2_decrease``, or after ``budget`` iterations.
+
+    ``evaluate(th, tl) -> (ev, chi2)``: ``ev[0]`` the proposed step
+    (Offset first when ``noff``), ``chi2`` a Python float (NaN marks an
+    unusable trial). ``advance(th, tl, d)`` is (th, tl) + d in exact dd.
+    ``entry`` is ``evaluate`` at the start point; a non-finite entry
+    chi2 stops the search before any trial.
+
+    Returns ``(th, tl, ev, best, ledger, stopped, ntrials)``: the
+    accepted point, its evaluation and chi2, one ``(delta, lam)`` a
+    iteration (``lam`` 0 and ``delta`` None for a rejected one),
+    ``stopped`` True unless the budget ended the search, and the trial
+    evaluations run."""
+    ev, best = entry
+    ledger: list = []
+    stopped = not math.isfinite(best)
+    ntrials = 0
+    while not stopped and len(ledger) < budget:
+        d = ev[0][noff:]
+        lam = 1.0
+        while lam >= min_lambda:
+            step = lam * d
+            thc, tlc = advance(th, tl, step)
+            evc, chi2 = evaluate(thc, tlc)
+            ntrials += 1
+            if math.isfinite(chi2) and chi2 <= best + 1e-12:
+                break
+            lam /= 2.0
+        else:
+            ledger.append((None, 0.0))
+            stopped = True
+            break
+        ledger.append((step, lam))
+        improved = best - chi2
+        th, tl, ev, best = thc, tlc, evc, chi2
+        stopped = improved < required_chi2_decrease
+    return th, tl, ev, best, ledger, stopped, ntrials
+
+
+def _sync_model(fitter, th, tl, th0, tl0, names, noff):
+    """Move the model's free parameters by the exact dd difference of the
+    step slots (th, tl) from the build's (th0, tl0)."""
+    total = dd_np.sub(dd_np.dd(th, tl), dd_np.dd(th0, tl0))
+    fitter.update_model(np.concatenate([np.zeros(noff),
+                                        dd_np.to_f64(total)]), names)
+
+
+class StreamingGLSFitter(GLSFitter):
+    """Matrix-free downhill GLS for TOA counts past the dense design's
+    memory (reference: StreamingGLSFitter): each trial point is ONE
+    streaming pass, the chunked normal-equation accumulator of
+    ``parallel.streaming`` (peak device memory O(chunk + (p+q)^2)) and
+    its CG finalize, so the (N, p+q) design is never formed.
+    ``Fitter.auto`` routes here from ``config.solve_streaming()`` TOAs
+    ($PINT_TPU_STREAM_MIN_TOA).
+
+    The downhill decisions are ``DownhillGLSFitter``'s (accept iff the
+    basis-marginalized chi2 at the trial point improves, halve the step
+    down to ``min_lambda``, stop below ``required_chi2_decrease``); the
+    accept chi2 comes with each pass, so a trial costs exactly one
+    pass. The parameter state advances on the host in exact dd and the
+    model is synced once at the end. A CG or basis-Cholesky failure on
+    the first pass raises ``NonFiniteStepError`` (the dense fitters
+    carry the SVD fallback); on a later pass it rejects the trial. The
+    reference's failover to its numpy mirror belongs to the dispatch
+    supervisor, which is not ported: an error in a pass propagates."""
+
+    def __init__(self, toas, model, residuals=None, track_mode=None,
+                 chunk=None, **step_flags):
+        super().__init__(toas, model, residuals=residuals,
+                         track_mode=track_mode)
+        self.chunk = chunk
+        self.step_flags = dict(step_flags)
+        self.cg_iters = None          # CG iterations of the last solve
+        self.passes = None            # streaming passes of the last fit
+        self.cg_iters_per_pass: Optional[list] = None
+        self.cg_rel_residual = None   # of the last solve
+        self.cg_budget = None         # CG iteration budget of the solves
+
+    def fit_toas(self, maxiter=20, min_lambda=1e-3,
+                 required_chi2_decrease=1e-2, cg_tol=1e-13):
+        from pint_tpu_torch.parallel.streaming import StreamingGLS
+
+        t0 = time.perf_counter()
+        self.passes = None
+        sg = StreamingGLS(self.model, self.toas, chunk=self.chunk,
+                          device=self.device, **self.step_flags)
+        names = sg.names
+        noff = 1 if names and names[0] == "Offset" else 0
+        th, tl = sg.th0.copy(), sg.tl0.copy()
+        self.cg_budget = sg.default_budget
+        effort: list = []   # CG iterations of each pass
+
+        last: list = []     # the newest pass's CG iterations, residual
+
+        def one_pass(th_, tl_):
+            out = sg.solve(sg.accumulate(th_, tl_), tol=cg_tol)
+            effort.append(out[6])
+            last[:] = out[6:8]
+            # a failed CG solve rejects the trial
+            return out, float(out[3]) if out[5] else math.nan
+
+        entry = one_pass(th, tl)
+        if math.isnan(entry[1]) or not np.all(np.isfinite(entry[0][0])):
+            raise NonFiniteStepError(
+                "streaming CG solve failed (singular/degenerate system?); "
+                "use GLSFitter's SVD fallback")
+        th, tl, out, best, ledger, converged, ntrials = downhill_dd(
+            one_pass, _bump, th, tl, entry, maxiter, min_lambda,
+            required_chi2_decrease, noff)
+        self.cg_iters, self.cg_rel_residual = last
+        self.cg_iters_per_pass = effort
+        self.passes = 1 + ntrials
+        _sync_model(self, th, tl, sg.th0, sg.tl0, names, noff)
+        self.set_uncertainties(out[1], names)
+        self.noise_resids = sg.noise_realization(out[4])
+        self.resids = self._residuals()
+        self.converged = converged
+        self._record_stats(best, max(1, len(ledger)), t0)
+        if not converged:
+            raise MaxiterReached(
+                f"no convergence in {maxiter} streaming downhill "
+                f"iterations (model left at the best point found)")
+        return best
+
+
+class DeviceDownhillGLSFitter(GLSFitter):
+    """Downhill GLS where every trial is the one-function fit step
+    (``parallel.build_fit_step``: phase, design matrix, whitening, ECORR
+    downdates, normal equations, Cholesky and the accept chi2 on the
+    model's device), one host read per trial instead of the host
+    fitter's residuals, design-matrix and solve phases (reference:
+    DeviceDownhillGLSFitter). The parameter state advances on the host
+    in exact dd, as compensated updates of the packed dd pairs.
+    ``wideband=True`` fits the stacked [time; DM] rows.
+
+    The fit is a chain of ``build_fit_loop`` calls of K iterations each,
+    each call's ledger replayed on the host and its final step carried
+    into the next as the entry, so every point is evaluated once. K is
+    ``fit_toas(steps_per_dispatch=K)``, 1 by default; ``whole_fit=True``
+    makes it the smallest power of two covering ``maxiter`` (at most 32),
+    ``maxiter`` the loop's runtime budget. Both (and ``pipeline``, with
+    the reference's buffer donation) exist to hide TPU dispatch latency
+    and are kept for the reference's interface: here every call is the
+    same host loop over device tensors, so they change neither the
+    result nor the cost.
+
+    The step is Cholesky-only: a non-finite first step raises
+    ``NonFiniteStepError`` inside, and the fit falls back, with a
+    labelled ``RuntimeWarning``, to ``DownhillGLSFitter`` (or
+    ``WidebandDownhillFitter``) on the same device, whose solve carries
+    the SVD fallback."""
+
+    def __init__(self, toas, model, residuals=None, track_mode=None,
+                 wideband=False, whole_fit=None, pipeline=None,
+                 **step_flags):
+        super().__init__(toas, model, residuals=residuals,
+                         track_mode=track_mode)
+        self.wideband = wideband
+        self.whole_fit = whole_fit
+        self.pipeline = pipeline
+        self.step_flags = dict(step_flags, wideband=wideband)
+        self.step_evals = None   # step evaluations of the last fit
+
+    def _dof(self) -> int:
+        if self.wideband:
+            # chi2 sums over 2N stacked TOA+DM measurements
+            return 2 * self.toas.ntoas - len(self.model.free_params) - 1
+        return super()._dof()
+
+    def fit_toas(self, maxiter=20, min_lambda=1e-3,
+                 required_chi2_decrease=1e-2, steps_per_dispatch=None,
+                 whole_fit=None, pipeline=None):
+        """Without ``steps_per_dispatch``, K = 1 (one step per trial)
+        unless whole-fit mode is asked for, here or at construction.
+        The model moves only after the device loop completes, so a
+        fallback starts from the pre-fit state."""
+        t0 = time.perf_counter()
+        self.step_evals = None
+        try:
+            return self._fit_device(maxiter, min_lambda,
+                                    required_chi2_decrease,
+                                    steps_per_dispatch, t0, whole_fit)
+        except NonFiniteStepError as e:
+            return self._fit_host_fallback(maxiter, min_lambda,
+                                           required_chi2_decrease, e, t0)
+
+    def _fit_host_fallback(self, maxiter, min_lambda,
+                           required_chi2_decrease, cause, t0):
+        """Rerun the fit through the host downhill fitter on the same
+        device and adopt its fitted state."""
+        if self.wideband:
+            from pint_tpu_torch.wideband_fitter import WidebandDownhillFitter
+
+            host = WidebandDownhillFitter(self.toas, self.model,
+                                          track_mode=self.track_mode)
+        else:
+            host = DownhillGLSFitter(self.toas, self.model,
+                                     track_mode=self.track_mode)
+        warnings.warn(
+            f"device fit step unusable ({type(cause).__name__}: {cause}); "
+            f"fell back to {type(host).__name__} on {host.device}",
+            RuntimeWarning, stacklevel=3)
+        chi2 = host.fit_toas(maxiter=maxiter, min_lambda=min_lambda,
+                             required_chi2_decrease=required_chi2_decrease)
+        self.resids = host.resids
+        self.errors = host.errors
+        self.parameter_covariance_matrix = host.parameter_covariance_matrix
+        self.noise_resids = host.noise_resids
+        if self.wideband:
+            self.dm_resids = host.dm_resids
+        self.converged = host.converged
+        self.stats = host.stats
+        if self.stats is not None:
+            # the wall of the whole attempt, the failed start included
+            wall = time.perf_counter() - t0
+            self.stats.wall_time_s = wall
+            self.stats.toas_per_sec = (
+                self.stats.ntoa * max(1, self.stats.iterations) / wall
+                if wall else 0.0)
+        return chi2
+
+    def _fit_device(self, maxiter, min_lambda, required_chi2_decrease,
+                    steps_per_dispatch, t0, whole_fit=None):
+        from pint_tpu_torch.parallel import build_fit_loop
+
+        whole = bool(whole_fit if whole_fit is not None else self.whole_fit)
+        if steps_per_dispatch is None:
+            steps_per_dispatch = 1
+            if whole:
+                k = 4
+                while k < maxiter and k < 32:
+                    k *= 2
+                steps_per_dispatch = k
+        K = int(steps_per_dispatch)
+        loop_fn, args, names = build_fit_loop(
+            self.model, self.toas, max_iter=K, min_lambda=min_lambda,
+            required_chi2_decrease=required_chi2_decrease,
+            **self.step_flags)
+        body = args[2:-1]   # args[-1] is the default budget
+        dev = args[0].device
+        noff = 1 if names and names[0] == "Offset" else 0
+        th0 = args[0].cpu().numpy()
+        tl0 = args[1].cpu().numpy()
+        th, tl = th0.copy(), tl0.copy()
+
+        def on_device(x):
+            return torch.as_tensor(x, dtype=torch.float64, device=dev)
+
+        iterations = nevals = 0
+        converged = maxed_out = False
+        entry = None
+        while True:
+            budget = min(K, maxiter - iterations)
+            out = loop_fn(on_device(th), on_device(tl), *body, budget,
+                          entry=entry)
+            entry = out[2:5]
+            dp = out[2].cpu().numpy()
+            best = float(out[4])
+            if iterations == 0 and (not np.isfinite(float(out[5]))
+                                    or not np.all(np.isfinite(dp))):
+                raise NonFiniteStepError(
+                    "device fit step produced non-finite values (singular "
+                    "system? use GLSFitter's SVD fallback)")
+            niter, done = out[6], out[7]
+            nevals += out[10]
+            deltas = out[8].cpu().numpy()
+            lams = out[9].cpu().numpy()
+            # exact host replay of the accepted updates
+            for k in range(niter):
+                if lams[k] > 0.0:
+                    th, tl = _bump(th, tl, deltas[k])
+            iterations += niter
+            if done:
+                converged = True
+                break
+            if iterations >= maxiter:
+                maxed_out = True
+                break
+        cov = out[3].cpu().numpy()
+        self.step_evals = nevals
+        # the model goes to the accepted point even when about to raise:
+        # a caller catching MaxiterReached gets the best point found
+        _sync_model(self, th, tl, th0, tl0, names, noff)
+        self.set_uncertainties(cov, names)
+        # degeneracy check: at a genuine optimum the last proposed
+        # correction is ~1 sigma of its own uncertainty or less; a huge
+        # (or non-finite) one at convergence means the Cholesky-only step
+        # gave a non-descent direction, as a (near-)singular design does
+        with np.errstate(invalid="ignore", divide="ignore"):
+            sig_steps = np.abs(dp) / np.sqrt(np.abs(np.diagonal(cov)))
+        bad = bool(sig_steps.size) and not np.all(np.isfinite(sig_steps))
+        finite = sig_steps[np.isfinite(sig_steps)]
+        worst = float(finite.max()) if finite.size else 0.0
+        if converged and (bad or worst > 1e3):
+            warnings.warn(
+                f"device downhill converged but the last proposed "
+                f"correction is "
+                f"{'non-finite' if bad else f'{worst:.1e} sigma'} — the "
+                f"system is likely singular/degenerate (collinear design "
+                f"columns?); prefer GLSFitter/DownhillGLSFitter (SVD "
+                f"fallback) for this model", RuntimeWarning, stacklevel=3)
+        # final host refresh at the optimum: residuals and the ML noise
+        # realization (the step returns neither the basis amplitudes nor
+        # the DM residuals)
+        if self.wideband:
+            from pint_tpu_torch.wideband_fitter import WidebandTOAFitter
+
+            helper = WidebandTOAFitter(self.toas, self.model,
+                                       track_mode=self.track_mode)
+            _, _, _, noise, _ = helper._solve_once()
+            self.noise_resids = noise
+            self.resids = helper.resids
+            self.dm_resids = helper.dm_resids
+        else:
+            _, _, _, noise, _ = self._solve_once()
+            self.noise_resids = noise
+        self.converged = converged
+        self._record_stats(best, iterations, t0)
+        if maxed_out:
+            raise MaxiterReached(
+                f"no convergence in {maxiter} device downhill iterations "
+                f"(model left at the best point found)")
+        return best

@@ -63,9 +63,13 @@ class Astrometry(DelayComponent):
         ctx["psr_dir"] = n
         r = batch.ssb_obs_pos  # lt-s
         rdotn = torch.sum(r * n, dim=-1)
-        # barycentric observing frequency for downstream dispersion
+        # barycentric observing frequency for downstream dispersion; an
+        # infinite frequency (barycentred TOAs, a TZR TOA without
+        # TZRFRQ) stays infinite with a zero tangent, where the product
+        # would make it inf * 0 = NaN
         vdotn = torch.sum(batch.ssb_obs_vel * n, dim=-1)  # v/c
-        ctx["bfreq"] = batch.freq_mhz * (1.0 - vdotn)
+        f = batch.freq_mhz
+        ctx["bfreq"] = torch.where(torch.isfinite(f), f * (1.0 - vdotn), f)
         roemer = -rdotn
         if "PX" not in pv:
             return roemer
@@ -176,6 +180,13 @@ class AstrometryEcliptic(Astrometry):
         cl, sl = torch.cos(lam), torch.sin(lam)
         cb, sb = torch.cos(bet), torch.sin(bet)
         n_ecl = torch.stack([cb * cl, cb * sl, sb], dim=-1)
-        mat = torch.as_tensor(np.ascontiguousarray(self._ecl_matrix()),
-                              dtype=n_ecl.dtype, device=n_ecl.device)
-        return n_ecl @ mat.T
+        # moved to the device once per obliquity and device: a copy in
+        # every call would synchronize the stream
+        key = (self.ECL.value, n_ecl.dtype, str(n_ecl.device))
+        cached = getattr(self, "_ecl_dev", None)
+        if cached is None or cached[0] != key:
+            cached = (key, torch.as_tensor(
+                np.ascontiguousarray(self._ecl_matrix()),
+                dtype=n_ecl.dtype, device=n_ecl.device))
+            self._ecl_dev = cached
+        return n_ecl @ cached[1].T

@@ -37,6 +37,15 @@ class Dispersion(DelayComponent):
     def _bfreq(self, batch, ctx):
         return ctx.get("bfreq", batch.freq_mhz)
 
+    def _per_nu2(self, x, batch, ctx):
+        """x / nu^2, 0 where nu is infinite. Infinite rows divide by a
+        stand-in 1 MHz, so neither the value nor a jacfwd tangent there
+        is inf * 0; finite rows are x / (nu * nu) bit for bit."""
+        bf = self._bfreq(batch, ctx)
+        fin = torch.isfinite(bf)
+        bs = torch.where(fin, bf, 1.0)
+        return torch.where(fin, x / (bs * bs), 0.0)
+
     def dm_value_device(self, pv, batch, cache, ctx):
         """This component's DM contribution [pc/cm^3] (N,), the hook the
         wideband DM channel sums over (reference: TimingModel.total_dm
@@ -107,10 +116,9 @@ class DispersionDM(Dispersion):
         return self.dm_value(pv, batch)
 
     def delay(self, pv, batch, cache, ctx, delay_so_far):
-        bf = self._bfreq(batch, ctx)
         dm = self.dm_value(pv, batch)
         ctx["dm"] = dm
-        return DMconst * dm / (bf * bf)
+        return self._per_nu2(DMconst * dm, batch, ctx)
 
     def linear_design_names(self):
         free = [nm for nm in self.dm_terms()
@@ -125,8 +133,7 @@ class DispersionDM(Dispersion):
         names = self.linear_design_names()
         if not names:
             return {}
-        bf = self._bfreq(batch, ctx)
-        inv2 = DMconst / (bf * bf)
+        inv2 = self._per_nu2(DMconst, batch, ctx)
         terms = self.dm_terms()
         if len(terms) > 1:
             dmep = pv["DMEPOCH"].hi + pv["DMEPOCH"].lo \
@@ -137,7 +144,7 @@ class DispersionDM(Dispersion):
         for nm in names:
             k = terms.index(nm)
             if k == 0:
-                out[nm] = ("pre_delay", inv2 * torch.ones_like(bf))
+                out[nm] = ("pre_delay", inv2)
             else:
                 out[nm] = ("pre_delay",
                            inv2 * dt_yr ** k / math.factorial(k))
@@ -212,8 +219,7 @@ class DispersionDMX(Dispersion):
         """d(delay)/d(DMX_i) = DMconst * window_mask_i / nu^2."""
         if not self.dmx_ids:
             return {}
-        bf = self._bfreq(batch, ctx)
-        inv2 = DMconst / (bf * bf)
+        inv2 = self._per_nu2(DMconst, batch, ctx)
         masks = cache["dmx_masks"]
         out = {}
         for col, (_, istr) in enumerate(self.dmx_ids):
@@ -225,9 +231,9 @@ class DispersionDMX(Dispersion):
     def delay(self, pv, batch, cache, ctx, delay_so_far):
         if not self.dmx_ids:
             return torch.zeros_like(batch.freq_mhz)
-        bf = self._bfreq(batch, ctx)
-        return DMconst * self.dm_value_device(pv, batch, cache, ctx) \
-            / (bf * bf)
+        return self._per_nu2(
+            DMconst * self.dm_value_device(pv, batch, cache, ctx), batch,
+            ctx)
 
 
 class DispersionJump(Dispersion):

@@ -39,11 +39,25 @@ class DD(NamedTuple):
     lo: Tensor
 
 
+def operand(b: FloatLike, like: Tensor) -> FloatLike:
+    """``b`` as an operand of arithmetic with ``like``. A Python number
+    against float64 stays a number: torch passes it to the kernel as an
+    argument, with no copy and no launch (``torch.as_tensor`` would copy
+    it from pageable host memory, a copy that synchronizes the stream
+    and cannot be captured in a CUDA graph), and float64 arithmetic
+    with it is that with a 0-d tensor, bit for bit. Anything else
+    becomes a tensor of ``like``'s dtype and device."""
+    if isinstance(b, Tensor) or like.dtype != torch.float64:
+        return torch.as_tensor(b, dtype=like.dtype, device=like.device)
+    return float(b)
+
+
 def dd(hi: Tensor, lo: FloatLike = 0.0) -> DD:
     """A DD from one or two tensors of any relative magnitude
     (renormalized with a full two-sum)."""
-    lo = torch.as_tensor(lo, dtype=hi.dtype, device=hi.device)
-    hi, lo = torch.broadcast_tensors(hi, lo)
+    lo = operand(lo, hi)
+    if isinstance(lo, Tensor):
+        hi, lo = torch.broadcast_tensors(hi, lo)
     s = two_sum(hi, lo)
     return _quick_two_sum(s.hi, s.lo)
 
@@ -71,8 +85,9 @@ def _quick_two_sum(a: Tensor, b: Tensor) -> DD:
     return DD(s, err)
 
 
-def _split(a: Tensor):
-    splitter = _SPLITTER_F32 if a.dtype == torch.float32 else _SPLITTER_F64
+def _split(a: FloatLike):
+    splitter = _SPLITTER_F32 if isinstance(a, Tensor) and \
+        a.dtype == torch.float32 else _SPLITTER_F64
     t = splitter * a
     a_hi = t - (t - a)
     a_lo = a - a_hi
@@ -118,7 +133,8 @@ def _dd_mul(a: DD, b: DD) -> DD:
 def _dd_div(a: DD, b: DD) -> DD:
     # long division with one Newton correction — standard dd recipe
     q1 = a.hi / b.hi
-    r = _dd_sub(a, dd_mul_f(b, q1))
+    p = two_prod(b.hi, q1)   # dd_mul_f(b, q1), for a number b.hi too
+    r = _dd_sub(a, _quick_two_sum(p.hi, p.lo + b.lo * q1))
     q2 = (r.hi + r.lo) / (b.hi + b.lo)
     return _quick_two_sum(q1, q2)
 
@@ -189,6 +205,29 @@ class _Div(_Binary):
         return (dav - dbv * (av / bv)) / bv
 
 
+class _DivF(torch.autograd.Function):
+    """a / b for a Python number b, with no tensor made of it: _Div's
+    value and tangent (b's tangent zero), bit for bit."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(ahi, alo, b):
+        r = _dd_div(DD(ahi, alo), DD(b, 0.0))
+        return r.hi, r.lo
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(inputs[0], inputs[1])
+        ctx.b = inputs[2]
+
+    @staticmethod
+    def jvp(ctx, dahi, dalo, _db):
+        ahi, alo = ctx.saved_tensors
+        dav = _tangent(dahi, ahi) + _tangent(dalo, alo)
+        return _out((dav - 0.0 * ((ahi + alo) / ctx.b)) / ctx.b)
+
+
 def dd_add(a: DD, b: DD) -> DD:
     return DD(*_Add.apply(a.hi, a.lo, b.hi, b.lo))
 
@@ -216,8 +255,8 @@ def dd_abs(a: DD) -> DD:
 
 # f64-mixed fast paths (second operand an ordinary float64)
 
-def _like(b: FloatLike, a: DD) -> Tensor:
-    return torch.as_tensor(b, dtype=a.hi.dtype, device=a.hi.device)
+def _like(b: FloatLike, a: DD) -> FloatLike:
+    return operand(b, a.hi)
 
 
 def dd_add_f(a: DD, b: FloatLike) -> DD:
@@ -237,6 +276,8 @@ def dd_mul_f(a: DD, b: FloatLike) -> DD:
 
 def dd_div_f(a: DD, b: FloatLike) -> DD:
     b = _like(b, a)
+    if not isinstance(b, Tensor):
+        return DD(*_DivF.apply(a.hi, a.lo, b))
     return dd_div(a, DD(b, torch.zeros_like(b)))
 
 

@@ -17,7 +17,8 @@ from typing import Sequence
 
 import torch
 
-from pint_tpu_torch.ops.dd import DD, dd_add, dd_add_f, dd_div_f, dd_mul
+from pint_tpu_torch.ops.dd import DD, dd_add, dd_add_f, dd_div_f, dd_mul, \
+    operand
 
 
 def taylor_horner(dt: torch.Tensor, coeffs: Sequence):
@@ -56,6 +57,5 @@ def dd_taylor_horner(dt: DD, coeffs: Sequence) -> DD:
         if isinstance(ci, DD):
             acc = dd_add(acc, dd_div_f(ci, fct) if fct != 1.0 else ci)
         else:
-            acc = dd_add_f(acc, torch.as_tensor(
-                ci, dtype=dt.hi.dtype, device=dt.hi.device) / fct)
+            acc = dd_add_f(acc, operand(ci, dt.hi) / fct)
     return acc

@@ -22,8 +22,12 @@ This is the route the reference takes on its CPU backend, where float64
 is IEEE, as it is on the GPU: the direct dd phase chain, the float64
 Jacobian and the float64 Gram, with the reference's hybrid Jacobian
 split an option (off by default, see ``_build_fit_core``). The
-anchored, f32-Jacobian and f32-Gram routes, TOA padding, health taps and
-the on-device downhill loop are not ported yet (ROADMAP.md).
+anchored, f32-Jacobian and f32-Gram routes, TOA padding and health taps
+are not ported yet (ROADMAP.md).
+
+``build_fit_loop`` runs up to K downhill iterations of the step, the
+step-halving line search included, and returns the ledger of applied
+updates the host replays in exact dd (reference: build_fit_loop).
 """
 
 from __future__ import annotations
@@ -33,11 +37,13 @@ import torch
 from torch.profiler import record_function
 
 from pint_tpu_torch import resolve_device
-from pint_tpu_torch.gls import cho_factor, cho_solve, equilibrate, jacobi
+from pint_tpu_torch.gls import cho_factor, cho_solve, downhill_dd, \
+    equilibrate, jacobi
 from pint_tpu_torch.models.timing_model import make_pv
-from pint_tpu_torch.ops.dd import dd_frac
+from pint_tpu_torch.ops.dd import dd, dd_add, dd_frac
 
-__all__ = ["build_fit_step", "build_fit_parts", "SegmentSum"]
+__all__ = ["build_fit_step", "build_fit_parts", "build_fit_loop",
+           "SegmentSum"]
 
 
 class SegmentSum:
@@ -64,6 +70,12 @@ class SegmentSum:
         self.table = torch.as_tensor(table, device=eid.device)
         self.last = torch.as_tensor(order[~head], device=eid.device)
 
+    def to(self, device) -> "SegmentSum":
+        """The same plan with its index tensors on ``device``."""
+        out = object.__new__(SegmentSum)
+        out.table, out.last = self.table.to(device), self.last.to(device)
+        return out
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         xz = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
         head = xz[self.table].sum(dim=1)
@@ -72,9 +84,12 @@ class SegmentSum:
 
 
 def _build_fit_core(model, toas, device=None, hybrid_jac=False,
-                    wideband=False):
+                    wideband=False, arg_device=None):
     """(step_fn, parts_fn, args, names, meta) on ``device`` (the model's
-    by default). ``dparams`` is aligned with ``names``: an implicit
+    by default), the TOA-axis arguments on ``arg_device`` (``device`` by
+    default; the streaming accumulator keeps them on the host and
+    uploads one chunk at a time). ``dparams`` is aligned with
+    ``names``: an implicit
     Offset column leads unless the model has a PhaseOffset, and then
     the residuals are not mean-subtracted either (check names[0]).
     ``wideband`` stacks the DM channel's rows below the time rows
@@ -88,8 +103,9 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,
     TZR rows), while more tangents do not add launches (vmap), so the
     all-jacfwd step is the faster one (PERF.md)."""
     dev = model.device if device is None else resolve_device(device)
+    adev = dev if arg_device is None else resolve_device(arg_device)
     phase_fn, (free, frozen) = model._build_phase_fn()
-    cache = model.get_cache(toas, dev)
+    cache = model.get_cache(toas, adev)
     _, _, th, tl, fh, fl = model._pack()
     f0_src = ("free", free.index("F0")) if "F0" in free \
         else ("frozen", frozen.index("F0"))
@@ -101,7 +117,7 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,
     n = toas.ntoas
 
     def tensor(x, dtype=torch.float64):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=adev)
 
     # per-TOA PHASE-command offsets (tim -padd flags, turns), added
     # where the host Residuals adds them
@@ -289,12 +305,86 @@ def build_fit_step(model, toas, device=None, hybrid_jac=False,
 
 
 def build_fit_parts(model, toas, device=None, hybrid_jac=False,
-                    wideband=False):
+                    wideband=False, arg_device=None):
     """(parts_fn, args, names, meta): the design/residual assembly half
-    of the step, taking the same 12 arguments as ``step_fn``."""
-    _, parts_fn, args, names, meta = _build_fit_core(model, toas, device,
-                                                     hybrid_jac, wideband)
+    of the step, taking the same 12 arguments as ``step_fn``; ``args``
+    on ``arg_device`` (``device`` by default)."""
+    _, parts_fn, args, names, meta = _build_fit_core(
+        model, toas, device, hybrid_jac, wideband, arg_device)
     return parts_fn, args, names, meta
+
+
+def build_fit_loop(model, toas, max_iter: int = 8,
+                   min_lambda: float = 1e-3,
+                   required_chi2_decrease: float = 1e-2, device=None,
+                   **step_flags):
+    """Up to ``max_iter`` downhill GLS iterations of the step, the
+    step-halving line search included, plus the ledger of applied
+    updates for an exact host replay (reference: build_fit_loop; the
+    decisions are ``gls.downhill_dd``'s).
+
+    Returns ``(loop_fn, args, names)``, ``args`` ending in the default
+    budget ``max_iter``, with
+
+        loop_fn(th, tl, fh, fl, batch, cache, F, phi, nvec, valid,
+                eid, jvar, budget, entry=None) -> (th', tl', dp, cov,
+                    best_chi2, chi2_0, niter, converged, deltas, lams,
+                    nevals)
+
+    ``deltas`` (max_iter, p) the applied parameter updates (zero rows
+    beyond ``niter`` or on a rejected iteration), ``lams`` (max_iter,)
+    the accepted step factors (0 = rejected or unused), ``chi2_0`` the
+    chi2 at the entry point, ``converged`` True when the loop stopped
+    for a reason other than its iteration limit, ``nevals`` the step
+    evaluations run (the entry step, unless given, and every trial).
+    ``budget`` is a runtime limit: the loop stops at min(max_iter,
+    budget). ``entry``, the ``(dp, cov, best_chi2)`` a previous call
+    returned for this (th, tl), stands in for the entry step, so that
+    chained calls evaluate each point once (not in the reference, whose
+    chained dispatches re-evaluate it).
+
+    The loop is a host loop over device tensors: the step never syncs,
+    and each trial reads one scalar, its chi2, for the accept test (a
+    float64 comparison on the host is the device's, bit for bit). The
+    tensors come back on the device; ``niter``, ``converged`` and
+    ``nevals`` are Python values. (th, tl) advance by the dd two-sum
+    ``dd_add(dd(th, tl), dd(delta))``, the counterpart of the host's
+    ``dd_np.add(dd_np.dd(th, tl), dd_np.dd(delta))``, so replaying
+    ``deltas`` on the host gives (th', tl') bit for bit. ``step_flags``
+    (``hybrid_jac``, ``wideband``) go to ``build_fit_step``."""
+    step_fn, args, names = build_fit_step(model, toas, device, **step_flags)
+    noff = 1 if names and names[0] == "Offset" else 0
+    K = int(max_iter)
+
+    def advance(th, tl, d):
+        s = dd_add(dd(th, tl), dd(d))
+        return s.hi, s.lo
+
+    def loop_fn(th, tl, fh, fl, batch, cache, F, phi, nvec, valid, eid,
+                jvar, budget, entry=None):
+        def evaluate(a, b):
+            ev = step_fn(a, b, fh, fl, batch, cache, F, phi, nvec, valid,
+                         eid, jvar)[:3]
+            return ev, float(ev[2])
+
+        nevals = 0
+        if entry is None:
+            entry = evaluate(th, tl)
+            nevals = 1
+        else:
+            entry = tuple(entry), float(entry[2])
+        th, tl, ev, _, ledger, done, ntrials = downhill_dd(
+            evaluate, advance, th, tl, entry, min(K, int(budget)),
+            min_lambda, required_chi2_decrease, noff)
+        deltas = th.new_zeros((K, th.shape[0]))
+        lams = th.new_zeros(K)
+        for k, (delta, lam) in enumerate(ledger):
+            if lam > 0.0:
+                deltas[k], lams[k] = delta, lam
+        return (th, tl, ev[0], ev[1], ev[2], entry[0][2], len(ledger),
+                done, deltas, lams, nevals + ntrials)
+
+    return loop_fn, args + (K,), names
 
 
 def _gls_core(M, F, phi, r, nvec, valid, jvar, seg=None):

@@ -76,6 +76,31 @@ def test_dd_mixed_ops_bitwise(name):
     assert _same(r, t)
 
 
+@pytest.mark.parametrize("name", ["dd_add_f", "dd_sub_f", "dd_mul_f",
+                                  "dd_div_f"])
+def test_dd_mixed_ops_with_a_number_bitwise(name):
+    """A Python number as the float64 operand (passed to the kernels as an
+    argument, no tensor made of it) gives the reference's values and
+    jacfwd tangents with the number as a 0-d array, bitwise."""
+    rng = np.random.default_rng(48)
+    a = _pair(rng, 300, 1e9)
+    x0 = np.array([1.7])
+    for b in (3.0, 1.0 / 3.0, -7.25e5, 86400.0):
+        def f(mod, x, a, b):
+            r = getattr(mod, name)(mod.dd_mul_f(a, x[0]), b)
+            return r.hi + r.lo
+
+        r = jax.jacfwd(lambda x: f(rdd, x, _ref(*a), jnp.asarray(b)))(
+            jnp.asarray(x0))
+        t = torch.func.jacfwd(lambda x: f(tdd, x, _port(*a), b))(
+            torch.as_tensor(x0))
+        assert _same(r, t), b
+        assert _same(getattr(rdd, name)(_ref(*a), jnp.asarray(b)),
+                     getattr(tdd, name)(_port(*a), b)), b
+    # the constructor's default low word is a number too
+    assert _same(rdd.dd(jnp.asarray(a[0])), tdd.dd(torch.as_tensor(a[0])))
+
+
 @pytest.mark.parametrize("name", ["two_sum", "two_prod"])
 def test_error_free_transforms_bitwise(name):
     rng = np.random.default_rng(44)

@@ -43,8 +43,9 @@ from pint_tpu.toa import get_TOAs as r_get_TOAs
 from pint_tpu.toa import merge_TOAs as r_merge
 
 from pint_tpu_torch.fitter import DownhillWLSFitter, Fitter, WLSFitter
-from pint_tpu_torch.gls import DownhillGLSFitter, GLSFitter, _gls_kernel, \
-    _gls_kernel_fullcov, gls_chi2
+from pint_tpu_torch.gls import DeviceDownhillGLSFitter, DownhillGLSFitter, \
+    GLSFitter, StreamingGLSFitter, _gls_kernel, _gls_kernel_fullcov, \
+    gls_chi2
 from pint_tpu_torch.models import get_model
 from pint_tpu_torch.models.convert import fit_args_from_numpy, \
     toas_from_columns
@@ -483,10 +484,10 @@ def test_fitter_auto_routes_and_refuses_unported(problem):
     assert type(Fitter.auto(tt, tm, downhill=False)) is GLSFitter
     _, _, nm, nt = _ngc()
     assert type(Fitter.auto(nt, nm)) is DownhillWLSFitter
-    for kw in (dict(streaming=True), dict(device=True),
-               dict(serve=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Fitter.auto(tt, tm, **kw)
+    assert type(Fitter.auto(tt, tm, streaming=True)) is StreamingGLSFitter
+    assert type(Fitter.auto(tt, tm, device=True)) is DeviceDownhillGLSFitter
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Fitter.auto(tt, tm, serve=object())
 
 
 def test_pintempo_fits_a_binary(tmp_path, capsys):

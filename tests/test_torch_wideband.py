@@ -286,11 +286,15 @@ def test_fd_and_fdjump_delays_and_columns_match_reference():
     """FD1/FD2 and an order-1 and order-2 FD jump: the delays within
     1e-12 s (a barycentred row included, where they add nothing), the
     design columns (jacfwd, and the hybrid closed-form ones) within 1e-12
-    of each column's largest entry on the rows at finite frequency. (At
-    an infinite frequency the Doppler-shifted frequency's tangent is
-    inf * 0 = NaN in both packages, so every jacfwd column of that row is
-    NaN; ROADMAP.md section 3.) The components' own jacfwd tangents and
-    closed-form columns at that row are finite zeros."""
+    of each column's largest entry on every row. At the barycentred
+    row's infinite frequency the reference's jacfwd columns are NaN (the
+    Doppler-shifted frequency's tangent is inf * 0 there; its closed-form
+    columns are finite): where they are, the row is held to the
+    reference with that TOA at 1e12 MHz, where the DM delay is far below
+    1e-12 s. (The FD columns keep the reference's finite values: FD adds
+    nothing at an infinite frequency but ln(1e9)^i at 1e12 MHz.) The
+    components' own jacfwd tangents and closed-form columns at that row
+    are finite zeros."""
     rm0, _, _, _ = wideband_problem("isolated")
     par = rm0.as_parfile() + FD_PAR_EXTRA
     rm = _quiet(r_get_model, io.StringIO(par))
@@ -307,10 +311,15 @@ def test_fd_and_fdjump_delays_and_columns_match_reference():
     d_r, d_t = np.asarray(rm.delay(rt)), _np(tm.delay(tt))
     assert np.max(np.abs(d_t - d_r)) <= 1e-12
     Mr, nr, _ = rm.designmatrix(rt)
-    Mr = np.asarray(Mr)[:-1]
+    Mr = np.asarray(Mr)
+    rt12 = _quiet(r_get_TOAs_array, mjds, obs=obs,
+                  freqs=np.r_[freqs[:-1], 1e12], flags=flags)
+    M12 = np.asarray(rm.designmatrix(rt12)[0])
+    assert not np.all(np.isfinite(Mr[-1])) and np.all(np.isfinite(M12))
+    Mr[-1] = np.where(np.isfinite(Mr[-1]), Mr[-1], M12[-1])
     Mt, nt, _ = tm.designmatrix(tt)
     assert nt == nr and {"FD1", "FD2", "FDJUMP1", "FD2JUMP1"} <= set(nt)
-    Mt = _np(Mt)[:-1]
+    Mt = _np(Mt)
     assert np.all(np.isfinite(Mt))
     # DMJUMP's column is zero in the time rows
     assert not np.any(Mt[:, nt.index("DMJUMP1")])
@@ -323,9 +332,8 @@ def test_fd_and_fdjump_delays_and_columns_match_reference():
     th, tl, fh, fl = (torch.as_tensor(x, dtype=torch.float64)
                       for x in tm._pack()[2:])
     hyb = tm.design_jacobian(th, tl, fh, fl, cache["batch"], cache,
-                             hybrid=True).numpy()[:-1]
+                             hybrid=True).numpy()
     ad = tm.design_jacobian(th, tl, fh, fl, cache["batch"], cache).numpy()
-    ad = ad[:-1]
     err = np.abs(hyb - ad) / np.maximum(np.max(np.abs(ad), axis=0), 1e-300)
     assert np.max(err) < 1e-12
     # each component alone, on the batch frequencies (inf in the last row)
@@ -476,8 +484,8 @@ def test_fitter_auto_picks_the_wideband_fitters():
         Fitter.auto(tt, tm, serve=object())
     with pytest.raises(ValueError, match="streaming=True cannot fit"):
         Fitter.auto(tt, tm, streaming=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Fitter.auto(tt, tm, device=True)
+    fd = Fitter.auto(tt, tm, device=True)
+    assert type(fd).__name__ == "DeviceDownhillGLSFitter" and fd.wideband
 
 
 def test_pintempo_fits_a_wideband_tim(tmp_path, capsys):
