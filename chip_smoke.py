@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed S] [--n N] [--path-n N] [--m M]
                           [--fit-ntoa N] [--fit-ndmx K] [--stream-ntoa N]
-                          [--baseline-src CU]
+                          [--pta-ntoa N] [--pta-nfreq F] [--baseline-src CU]
 
 Phases, each fatal on failure:
 
@@ -129,7 +129,31 @@ Phases, each fatal on failure:
      config.stream_chunk(N) timed twice, held to the dense GPU step
      (1e-6 sigma, chi2 1e-8 relative, CG ok; bench.py:1520's limits), the
      peak device memory of each, then a fit to convergence;
-10. print the card's name and power limit, and one JSON line of kernel
+10. the pulsar array (no hand-written kernel either):
+   pta-build: BASELINE config 5 (bench_pta.build_pulsar, recipe copied):
+     67 pulsars of --pta-ntoa TOAs (default 100) over MJD 54000-56000, a
+     third of them ELL1 binaries, F0 moved 1e-10 Hz, simulated by the
+     port; each pulsar's linearized problem built on the GPU;
+   pta-solve: the stacked batch's pta_solve on the GPU against the CPU
+     and against pta_solve_np (dparams 1e-8 relative, atol 1e-15; cov
+     diagonal, chi2 and chi2r 1e-8; tests/test_pta.py:93's limits), two
+     GPU solves bitwise equal, timed between CUDA events;
+   pta-noise: tests/test_pta.py's trio (an EFAC/ECORR pulsar on
+     clustered TOAs among them), the same checks;
+   pta-fit: fit_pta(maxiter=2) on the GPU, F0 within 5 sigma of the
+     truth for every pulsar; its wall, device solve and build_problem
+     seconds and TOAs/s;
+   gwb: GWBLikelihood over the 67 problems at --pta-nfreq frequencies
+     (default 14): the blocks against gwb_blocks_np and bench_pta.py's 8 x
+     8 (log10 A, gamma) grid against the numpy outer stage, within 1e-9
+     relative (tests/test_gwb.py:235), log L spread over the grid > 1;
+     block assembly, sweep and one chunk timed, peak device memory;
+   posterior: sample_problems over the 67 problems, 32 walkers, 600
+     steps, seed k for pulsar k: after 200 steps every chain's mean within
+     0.5 sigma of the GLS dparams, std ratio in (0.5, 2), acceptance in
+     (0.1, 0.95) (tests/test_sampling.py:387's limits); chunk=16
+     bitwise the default chunking;
+11. print the card's name and power limit, and one JSON line of kernel
    measurements.
 
 The last line of standard output is {"ok": true, "device": {...}}. The
@@ -149,6 +173,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -337,6 +362,18 @@ STREAM_ECORR_CHUNKS = (4096, 4094)
 NGC = tuple(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tests", "datafile", f"NGC6440E.{ext}")
             for ext in ("par", "tim"))
+
+# BASELINE config 5, the pulsar array (bench_pta.build_pulsar,
+# bench_pta.py:33, recipe copied): 67 pulsars over MJD 54000-56000, 100
+# TOAs each by default, a third of them ELL1 binaries, F0 moved 1e-10 Hz
+PTA_NPSR = 67
+PTA_F0_MOVE = 1e-10
+PTA_RTOL, PTA_ATOL = 1e-8, 1e-15     # tests/test_pta.py:93
+PTA_TRUTH_SIGMA = 5.0                # bench_pta.py's recovered
+GWB_RTOL = 1e-9                      # tests/test_gwb.py:235
+GWB_GRID = 8                         # bench_pta.py's 8 x 8 sweep
+POST_WALKERS, POST_STEPS, POST_BURN = 32, 600, 200
+H100_F64_OPS_PER_S = 67e12           # float64 on the tensor cores (DGEMM)
 
 
 def fail(msg: str) -> None:
@@ -565,9 +602,16 @@ def phase_path(zmod, dev, cols: dict, par: str, m: int, tmp: str) -> dict:
 
 def device_kernel_ms(prof) -> dict:
     """{kernel name: device ms} from a CUDA-activity profile (empty
-    without one)."""
+    without one): the device's own events (kernels, copies and sets)
+    only. An operator's entry on the host side would carry the device
+    time of the kernels it launched as well; the photon path's profile
+    records no host activity, so there is none today."""
+    import torch
+
     out = {}
     for e in (prof.key_averages() if prof is not None else ()):
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
@@ -1809,6 +1853,393 @@ def stream_ecorr_check(model, toas, dense, dev) -> dict:
              "disagrees")
     return res
 
+# ------------------------------------------------------ the pulsar array
+
+
+def pta_pulsar(k: int, ntoa: int, dev) -> tuple:
+    """bench_pta.build_pulsar(k, ntoa): (model, toas, truth), the model's
+    F0 moved PTA_F0_MOVE from the truth the TOAs were simulated with."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.simulation import make_fake_toas_uniform
+
+    binary = ""
+    if k % 3 == 1:  # a third of the array is ELL1 binaries
+        binary = (f"BINARY ELL1\nPB {0.4 + 0.02 * k}\nA1 1.3 1\n"
+                  "TASC 55000.05\nEPS1 1e-5 1\nEPS2 -2e-5 1\n")
+    par = f"""PSR J{1000 + k}
+RAJ {(k * 17) % 24}:{(k * 7) % 60:02d}:00.0 1
+DECJ {-30 + (k % 60)}:00:00.0 1
+F0 {120.0 + 11.0 * k} 1
+F1 {-1e-15 * (1 + k % 5)} 1
+PEPOCH 55000
+POSEPOCH 55000
+DM {5.0 + 0.7 * k} 1
+TZRMJD 55000.1
+TZRSITE @
+TZRFRQ 1400
+UNITS TDB
+{binary}"""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m = get_model(io.StringIO(par), device=dev)
+        t = make_fake_toas_uniform(54000, 56000, ntoa, m, error_us=1.0,
+                                   add_noise=True,
+                                   rng=np.random.default_rng(k))
+    truth = {"F0": m.F0.value, "DM": m.get_param("DM").value}
+    m.F0.add_delta(PTA_F0_MOVE)
+    m.invalidate_cache(params_only=True)
+    return m, t, truth
+
+
+def pta_trio_pulsar(psr, f0, ntoa, seed, dev, noise_lines="", perturb=0.0,
+                    clustered=False) -> tuple:
+    """tests/test_pta.py's _mk (recipe copied): clustered=True gives
+    same-day TOA pairs, so ECORR has two-TOA epochs."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.ops import dd_np
+    from pint_tpu_torch.simulation import _noise_draw_s, _rebuild, \
+        make_fake_toas_uniform, zero_residuals
+    from pint_tpu_torch.toa import get_TOAs_array
+
+    par = f"""PSR {psr}
+RAJ 12:0{seed % 10}:00.0 1
+DECJ 2{seed % 10}:00:00.0 1
+F0 {f0} 1
+F1 -1e-15 1
+PEPOCH 55000
+POSEPOCH 55000
+DM {10 + seed} 1
+TZRMJD 55000.1
+TZRSITE @
+TZRFRQ 1400
+UNITS TDB
+{noise_lines}"""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m = get_model(io.StringIO(par), device=dev)
+        rng = np.random.default_rng(seed)
+        if clustered:
+            base = np.linspace(54500, 55500, ntoa // 2)
+            mjds = np.sort(np.concatenate([base, base + 0.002]))
+            t = get_TOAs_array(mjds, obs="gbt", freqs=1400.0, errors=1.0,
+                               device=dev)
+            for f in t.flags:
+                f["be"] = "X"
+            t = zero_residuals(t, m)
+            noise_s = _noise_draw_s(t, m, rng, True, False)
+            t = _rebuild(t, t.mjd_day, dd_np.add(
+                t.mjd_frac, dd_np.div_f(dd_np.dd(noise_s), 86400.0)))
+        else:
+            t = make_fake_toas_uniform(54500, 55500, ntoa, m,
+                                       error_us=1.0, add_noise=True,
+                                       rng=rng)
+        if noise_lines:
+            for f in t.flags:
+                f["be"] = "X"
+    if perturb:
+        m.F0.add_delta(perturb)
+        m.invalidate_cache(params_only=True)
+    return m, t
+
+
+def rel_err(got, want, rtol: float, atol: float = 0.0) -> float:
+    """max |got - want| / max(|want|, atol/rtol): at most rtol where
+    np.allclose(got, want, rtol, atol) would hold entry by entry."""
+    got, want = np.asarray(got), np.asarray(want)
+    floor = atol / rtol if atol else 0.0
+    return float(np.max(np.abs(got - want)
+                        / np.maximum(np.abs(want), floor)))
+
+
+def pta_solve_check(problems, dev, label: str) -> dict:
+    """pta_solve on the GPU against the CPU and against pta_solve_np:
+    dparams, cov diagonal, chi2 and chi2r within PTA_RTOL; two GPU
+    solves bitwise equal; the batched solve timed between CUDA events on
+    device-resident inputs, and pta_solve (upload, solve, read back) on
+    the host clock."""
+    import torch
+
+    from pint_tpu_torch.parallel import pta_solve, stack_problems
+    from pint_tpu_torch.parallel.pta import STACK_KEYS, _solve_one, \
+        pta_solve_np, upload
+
+    st = stack_problems(problems)
+    gpu = pta_solve(st, device=dev)
+    if not all(np.array_equal(a, b, equal_nan=True)
+               for a, b in zip(gpu, pta_solve(st, device=dev))):
+        fail(f"{label}: two GPU solves differ")
+    res = {"shape": list(st["M"].shape) + [st["F"].shape[2]]}
+    for name, ref in (("cpu", pta_solve(st, device="cpu")),
+                      ("mirror", pta_solve_np(st))):
+        e = {"dparams": rel_err(gpu[0], ref[0], PTA_RTOL, PTA_ATOL),
+             "cov_diag": rel_err(np.diagonal(gpu[1], axis1=1, axis2=2),
+                                 np.diagonal(ref[1], axis1=1, axis2=2),
+                                 PTA_RTOL),
+             "chi2": rel_err(gpu[2], ref[2], PTA_RTOL),
+             "chi2r": rel_err(gpu[3], ref[3], PTA_RTOL)}
+        res[f"vs_{name}"] = e
+        if not all(v <= PTA_RTOL for v in e.values()):
+            fail(f"{label}: GPU solve vs {name} {e} (limit {PTA_RTOL})")
+    placed = upload(st, STACK_KEYS, dev)
+    args = [placed[k] for k in STACK_KEYS]
+    res["solve_ms"] = cuda_ms(lambda: _solve_one(*args), per_sleep=1)
+    host = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pta_solve(st, device=dev)
+        host.append((time.perf_counter() - t0) * 1e3)
+    res["pta_solve_host_ms"] = [float(np.median(host)), min(host),
+                                max(host)]
+    res["dparams"], res["cov"] = gpu[0], gpu[1]
+    print(f"{label}: batch {res['shape']} (P, N, p, q); GPU vs CPU "
+          f"{res['vs_cpu']}, vs numpy mirror {res['vs_mirror']}; solve "
+          f"{fmt(res['solve_ms'])} between events, pta_solve "
+          f"{res['pta_solve_host_ms'][0]:.3f} ms on the host clock")
+    return res
+
+
+def pta_fit_check(pulsars, dev) -> dict:
+    """fit_pta(maxiter=2) on the GPU: F0 within PTA_TRUTH_SIGMA sigma of
+    the truth for every pulsar."""
+    import torch
+
+    from pint_tpu_torch.parallel import fit_pta
+
+    torch.cuda.synchronize()
+    res = fit_pta([(t, m) for m, t, _ in pulsars], maxiter=2, device=dev)
+    st = dict(res.stats)
+    ok = [abs(m.F0.value - truth["F0"]) < PTA_TRUTH_SIGMA *
+          r["errors"]["F0"] for (m, _, truth), r in zip(pulsars, res)]
+    st["recovered"] = int(sum(ok))
+    print(f"pta-fit: {st['npulsars']} pulsars, {st['ntoa_total']} TOAs, "
+          f"{st['iterations']} batch solves in {st['wall_time_s']:.3f} s "
+          f"({st['toas_per_sec']:.1f} TOA/s): build_problem "
+          f"{st['build_problem_s']:.3f} s, device solves "
+          f"{st['device_solve_s']:.3f} s; F0 within {PTA_TRUTH_SIGMA:g} "
+          f"sigma of the truth: {st['recovered']}/{len(pulsars)}")
+    if not all(ok):
+        fail("pta-fit: F0 not recovered for every pulsar")
+    return st
+
+
+def gwb_check(problems, positions, dev, nfreq: int) -> dict:
+    """GWBLikelihood on the GPU: the blocks against gwb_blocks_np, the
+    GWB_GRID x GWB_GRID sweep (bench_pta.py's grid) against the numpy
+    outer stage on the mirror's blocks, both within GWB_RTOL; the block
+    assembly (best of 3 after a warm call), the sweep (points/s, its peak
+    device memory) and one chunk between CUDA events at the default
+    chunk and at one point a chunk."""
+    import torch
+
+    from pint_tpu_torch import config
+    from pint_tpu_torch.parallel.pta import upload
+    from pint_tpu_torch.pta import GWBLikelihood
+    from pint_tpu_torch.pta.gwb import _gwb_outer_batch, _gwb_outer_np, \
+        gwb_blocks_np
+
+    like = GWBLikelihood(problems=problems, positions=positions,
+                         nfreq=nfreq, device=dev)
+    P, m = like.npulsars, like.m
+    A, x, rdr_sum, ld_sum = like.build_blocks()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        like.build_blocks(force=True)
+        best = min(best, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    An, xn, rdrn, ldn = gwb_blocks_np(like.stacked, like.U)
+    mirror_blocks_s = time.perf_counter() - t0
+    blocks = {"A": rel_err(A, An, GWB_RTOL, GWB_RTOL * np.max(np.abs(An))),
+              "x": rel_err(x, xn, GWB_RTOL, GWB_RTOL * np.max(np.abs(xn))),
+              "rdr_sum": rel_err(rdr_sum, rdrn.sum(), GWB_RTOL),
+              "ld_sum": rel_err(ld_sum, ldn.sum(), GWB_RTOL)}
+    if not all(v <= GWB_RTOL for v in blocks.values()):
+        fail(f"gwb: GPU blocks vs gwb_blocks_np {blocks} (limit "
+             f"{GWB_RTOL})")
+    la2, ga2 = np.meshgrid(np.linspace(-15.5, -13.5, GWB_GRID),
+                           np.linspace(2.0, 6.0, GWB_GRID))
+    la, ga = la2.ravel(), ga2.ravel()
+    K = config.gwb_chunk()
+    like.loglik_grid(la, ga)          # warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logL = like.loglik_grid(la, ga)
+    sweep_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    want = _gwb_outer_np(An, xn, float(rdrn.sum()), float(ldn.sum()),
+                         like.Gamma, like.fcols, like.tspan, la, ga)
+    mirror_sweep_s = time.perf_counter() - t0
+    sweep_rel = rel_err(logL, want, GWB_RTOL)
+    kbest = int(np.argmax(logL))
+    res = {"npulsars": P, "nfreq": nfreq, "Pm": P * m,
+           "grid": f"{GWB_GRID}x{GWB_GRID}", "chunk": K,
+           "blocks_vs_mirror": blocks, "sweep_vs_mirror": sweep_rel,
+           "ptp_logL": float(np.ptp(logL)),
+           "best": {"log10A": float(la[kbest]), "gamma": float(ga[kbest]),
+                    "logL": float(logL[kbest])},
+           "blocks_ms": best * 1e3,
+           "mirror_blocks_s": mirror_blocks_s, "sweep_s": sweep_s,
+           "points_per_s": len(la) / sweep_s,
+           "mirror_sweep_s": mirror_sweep_s,
+           "sweep_peak_bytes": int(peak), "counters": like.metrics.snapshot()}
+    if not sweep_rel <= GWB_RTOL:
+        # measure the CPU port against the mirror at the same size before
+        # failing, so a limit set from a measurement can be argued
+        cpu = GWBLikelihood(problems=problems, positions=positions,
+                            nfreq=nfreq, device="cpu")
+        res["cpu_port_vs_mirror"] = rel_err(cpu.loglik_grid(la, ga), want,
+                                            GWB_RTOL)
+        print(json.dumps({"gwb_failed": res}))
+        fail(f"gwb: GPU sweep vs the numpy mirror {sweep_rel:.3e} (limit "
+             f"{GWB_RTOL}; CPU port {res['cpu_port_vs_mirror']:.3e})")
+    if not res["ptp_logL"] > 1.0:
+        fail(f"gwb: the sweep does not discriminate (ptp {res['ptp_logL']})")
+    placed = upload({"A": A, "x": x, "G": like.Gamma, "f": like.fcols,
+                     "la": la, "ga": ga}, ("A", "x", "G", "f", "la", "ga"),
+                    dev)
+    for k in (K, 1):
+        ms = cuda_ms(lambda: _gwb_outer_batch(
+            placed["A"], placed["x"], rdr_sum, ld_sum, placed["G"],
+            placed["f"], like.tspan, placed["la"][:k], placed["ga"][:k]),
+            reps=5, warmup=1, per_sleep=1)
+        res[f"chunk{k}_ms"] = ms
+    n = P * m
+    chol_flops = n ** 3 / 3.0
+    res["bound_point_ms"] = chol_flops / H100_F64_OPS_PER_S * 1e3
+    res["assembly_bytes_point"] = 8 * n * n
+    res["assembly_bound_point_ms"] = 8 * n * n / H100_BYTES_PER_S * 1e3
+    per_point = res[f"chunk{K}_ms"]["median"] / K
+    print(f"gwb: P = {P}, m = {m} (Pm = {n}); blocks vs mirror {blocks}; "
+          f"sweep vs mirror {sweep_rel:.3e}, ptp log L "
+          f"{res['ptp_logL']:.2f}, best {res['best']}; blocks "
+          f"{res['blocks_ms']:.3f} ms (best of 3; mirror "
+          f"{mirror_blocks_s:.3f} s); sweep of {len(la)} points "
+          f"{sweep_s * 1e3:.3f} ms ({res['points_per_s']:.1f} points/s; "
+          f"mirror {mirror_sweep_s:.3f} s), peak {peak / 2**20:.1f} MiB; "
+          f"chunk of {K}: {fmt(res[f'chunk{K}_ms'])} "
+          f"({per_point:.4f} ms a point), one point a chunk: "
+          f"{fmt(res['chunk1_ms'])}; bound a point: Cholesky "
+          f"{chol_flops:.3e} flops at {H100_F64_OPS_PER_S:.3g} = "
+          f"{res['bound_point_ms']:.4f} ms, S assembly "
+          f"{res['assembly_bytes_point']} B at 3.35 TB/s = "
+          f"{res['assembly_bound_point_ms']:.4f} ms")
+    return res
+
+
+def posterior_check(problems, dparams, cov, dev) -> dict:
+    """sample_problems over the array (POST_WALKERS walkers, POST_STEPS
+    steps, seed k for pulsar k): after POST_BURN steps every pulsar's
+    chain mean within 0.5 sigma of the GLS dparams, the std ratio in
+    (0.5, 2), the acceptance in (0.1, 0.95) (tests/test_sampling.py:387's
+    limits); the default chunking and chunk=16 bitwise equal."""
+    import torch
+
+    from pint_tpu_torch import config
+    from pint_tpu_torch.sampling import sample_problems
+
+    seeds = list(range(len(problems)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sample_problems(problems, POST_WALKERS, POST_STEPS, seeds=seeds,
+                          device=dev)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = sample_problems(problems, POST_WALKERS, POST_STEPS,
+                            seeds=seeds, chunk=16, device=dev)
+    wall16 = time.perf_counter() - t0
+    if not all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+               for a, b in zip(out, again)):
+        fail("posterior: chunk=16 and the default chunking differ")
+    worst = {"mean_sigma": 0.0, "ratio_lo": np.inf, "ratio_hi": 0.0,
+             "acc_lo": np.inf, "acc_hi": 0.0}
+    for k, (chain, _, acc) in enumerate(out):
+        p = chain.shape[-1]
+        sig = np.sqrt(np.diag(cov[k])[:p])
+        flat = chain[POST_BURN:].reshape(-1, p)
+        worst["mean_sigma"] = max(worst["mean_sigma"], float(np.max(
+            np.abs(flat.mean(axis=0) - dparams[k][:p]) / sig)))
+        ratio = flat.std(axis=0) / sig
+        worst["ratio_lo"] = min(worst["ratio_lo"], float(ratio.min()))
+        worst["ratio_hi"] = max(worst["ratio_hi"], float(ratio.max()))
+        worst["acc_lo"] = min(worst["acc_lo"], acc)
+        worst["acc_hi"] = max(worst["acc_hi"], acc)
+    res = {"npulsars": len(problems), "walkers": POST_WALKERS,
+           "steps": POST_STEPS,
+           "chunk": config.chain_chunk_steps(POST_STEPS), "worst": worst,
+           "wall_s": wall, "wall_chunk16_s": wall16,
+           "steps_per_s": POST_STEPS / wall,
+           "walker_steps_per_s": POST_STEPS * POST_WALKERS * len(problems)
+           / wall}
+    print(f"posterior: {len(problems)} pulsars x {POST_WALKERS} walkers x "
+          f"{POST_STEPS} steps in {wall:.3f} s ({res['steps_per_s']:.1f} "
+          f"steps/s, {res['walker_steps_per_s']:.0f} walker-steps/s; chunk "
+          f"{res['chunk']}; chunk=16 {wall16:.3f} s, bitwise equal); worst "
+          f"{worst}")
+    if not (worst["mean_sigma"] < 0.5 and worst["ratio_lo"] > 0.5
+            and worst["ratio_hi"] < 2.0 and worst["acc_lo"] > 0.1
+            and worst["acc_hi"] < 0.95):
+        fail(f"posterior: moments or acceptance out of limits {worst}")
+    return res
+
+
+def pta_phase(ntoa: int, nfreq: int, dev) -> dict:
+    """Phase 10: BASELINE config 5 built, solved, noise-solved, fitted,
+    its GWB likelihood swept and its per-pulsar posteriors sampled."""
+    import torch
+
+    from pint_tpu_torch.parallel import build_problem
+    from pint_tpu_torch.pta import pulsar_positions
+
+    secs = {}
+    t0 = time.perf_counter()
+    pulsars = [pta_pulsar(k, ntoa, dev) for k in range(PTA_NPSR)]
+    secs["build"] = time.perf_counter() - t0
+    nbin = sum("BinaryELL1" in m.components for m, _, _ in pulsars)
+    print(f"pta-build: {PTA_NPSR} pulsars x {ntoa} TOAs ({nbin} ELL1) "
+          f"simulated by the port on {dev} in {secs['build']:.3f} s")
+    t0 = time.perf_counter()
+    problems = [build_problem(t, m) for m, t, _ in pulsars]
+    torch.cuda.synchronize()
+    secs["build_problems"] = time.perf_counter() - t0
+    positions = pulsar_positions([m for m, _, _ in pulsars])
+    t0 = time.perf_counter()
+    solve = pta_solve_check(problems, dev, "pta-solve")
+    secs["solve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trio = [pta_trio_pulsar("J0001+01", 101.1, 40, 1, dev, perturb=1e-10),
+            pta_trio_pulsar("J0002+02", 317.9, 64, 2, dev, perturb=-2e-10),
+            pta_trio_pulsar("J0003+03", 218.5, 50, 3, dev,
+                            perturb=1.5e-10,
+                            noise_lines="EFAC -be X 1.2\nECORR -be X 1.0\n",
+                            clustered=True)]
+    trio_problems = [build_problem(t, m) for m, t in trio]
+    if trio_problems[2].F.shape[1] == 0:
+        fail("pta-noise: the ECORR pulsar has no epochs")
+    noise = pta_solve_check(trio_problems, dev, "pta-noise")
+    secs["noise"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fit = pta_fit_check(pulsars, dev)
+    secs["fit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gwb = gwb_check(problems, positions, dev, nfreq)
+    secs["gwb"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    post = posterior_check(problems, solve.pop("dparams"), solve.pop("cov"),
+                           dev)
+    secs["posterior"] = time.perf_counter() - t0
+    noise.pop("dparams")
+    noise.pop("cov")
+    print("pulsar array seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items()))
+    return {"ntoa": ntoa, "npulsars": PTA_NPSR, "solve": solve,
+            "noise": noise, "fit": fit, "gwb": gwb, "posterior": post,
+            "seconds": secs}
+
+
 def fmt(t: dict) -> str:
     return (f"{t['median']:.4f} ms median of 20 (min {t['min']:.4f}, "
             f"max {t['max']:.4f})")
@@ -1831,6 +2262,12 @@ def main() -> int:
                     help="TOAs of the streaming GLS phase (default "
                          "200,000, Fitter.auto's streaming threshold; "
                          "below it the phase asks for streaming=True)")
+    ap.add_argument("--pta-ntoa", type=int, default=100,
+                    help="TOAs of each pulsar of the array (default 100, "
+                         "bench_pta.py's)")
+    ap.add_argument("--pta-nfreq", type=int, default=14,
+                    help="GWB frequencies (default 14, the NANOGrav "
+                         "15-year common process's)")
     ap.add_argument("--m", type=int, default=20, help="harmonics")
     ap.add_argument("--baseline-src", default=None,
                     help="also time a kernel built from this .cu source "
@@ -2005,6 +2442,10 @@ def main() -> int:
     print("device-fit and streaming seconds: " + ", ".join(
         f"{k} {v:.3f}" for k, v in secs.items()))
 
+    # the pulsar array: BASELINE config 5, its GWB likelihood and its
+    # per-pulsar posteriors
+    pta = pta_phase(args.pta_ntoa, args.pta_nfreq, dev)
+
     # timings at the main path's shape: float32 inputs (the TPU kernel's
     # contract) and float64 inputs (what the H-test hands the kernel)
     n, m = args.n, args.m
@@ -2053,6 +2494,15 @@ def main() -> int:
           f"{args.path_n * BATCH_BYTES_PER_PHOTON} B; first (cold) GPU phase "
           f"on 65,536 photons {cold_s * 1e3:.2f} ms")
     km = path["kernels_ms"]
+    # the profile's K1 entry against K1 between CUDA events at the path's
+    # shape (float64 inputs, --path-n photons; L2 flushed, so not faster)
+    pn = args.path_n
+    k_path = cuda_ms(lambda: zmod.z2_harmonics(ph64[:pn], w64[:pn], m))
+    k1_entry = sum(v for k, v in km.items() if "z2_kernel" in k) \
+        / max(1, path["launches"])
+    print(f"profile check: K1's entry {k1_entry:.4f} ms a launch in the "
+          f"path's profile, K1 between events at its shape "
+          f"{k_path['median']:.4f} ms")
     window_ms = (st["batch"] + st["phase"] + st["htest"]) * 1e3
     if km:
         busy = sum(km.values())
@@ -2152,6 +2602,7 @@ def main() -> int:
     print(json.dumps({"graph_step": graph}))
     print(json.dumps({"streaming": stream}))
     print(json.dumps({"stream_ecorr": secorr}))
+    print(json.dumps({"pta": pta}))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": [{
@@ -2166,6 +2617,7 @@ def main() -> int:
         "bound_by_f64_in": by64, "ms_min_max": [k32["min"], k32["max"]],
         "ms_f64_in_min_max": [k64["min"], k64["max"]],
         "casts_ms": casts["median"], "timing_floor_ms": floor["median"],
+        "path_profile_entry_ms": k1_entry, "path_shape_ms": k_path["median"],
         "ms_earlier_design": earlier["median"] if earlier else None,
         "regs": regs["regs"], "spill_bytes": regs["spill_bytes"]}]}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,8 @@ the port calls).
 - $PINT_TPU_OBS_OVERRIDE  : JSON file overriding the observatory table
 - $PINT_TPU_STREAM_MIN_TOA: TOA count from which Fitter.auto streams
 - $PINT_TPU_STREAM_CHUNK  : chunk length of the streaming accumulator
+- $PINT_TPU_CHAIN_CHUNK   : MCMC steps a chain chunk runs
+- $PINT_TPU_GWB_CHUNK     : GWB grid points a sweep chunk evaluates
 """
 
 from __future__ import annotations
@@ -15,8 +17,8 @@ import os
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["clock_dir", "ephem_dir", "obs_override", "solve_streaming",
-           "stream_chunk"]
+__all__ = ["chain_chunk_steps", "clock_dir", "ephem_dir", "gwb_chunk",
+           "obs_override", "solve_streaming", "stream_chunk"]
 
 log = logging.getLogger(__name__)
 _WARNED_ENV: set = set()
@@ -95,3 +97,37 @@ def stream_chunk(ntoa: int) -> int:
     while k < target and k < 65536:
         k *= 2
     return k
+
+
+def chain_chunk_steps(nsteps: int, thin: int = 1) -> int:
+    """MCMC steps one chain chunk runs (``pint_tpu_torch.sampling``): the
+    smallest power of two covering ``nsteps``, clamped to [16, 256] and
+    rounded up to a multiple of ``thin``. The chain's random draws are
+    positional, so the chunk length changes no result; it bounds a
+    chunk's working set and how often a long chain reports progress.
+    $PINT_TPU_CHAIN_CHUNK pins it (still rounded to a thin multiple)."""
+    env = _env_int("PINT_TPU_CHAIN_CHUNK", None, "the auto size")
+    if env is not None:
+        k = max(1, int(env))
+    else:
+        k = 16
+        while k < int(nsteps) and k < 256:
+            k *= 2
+    thin = max(1, int(thin))
+    return ((k + thin - 1) // thin) * thin
+
+
+def gwb_chunk() -> int:
+    """(log10_A, gamma) grid points one GWB sweep chunk evaluates
+    (``pint_tpu_torch.pta.gwb``): a power of two in [1, 64], default 8.
+    The chunk's points are factored as one batch of (Npsr*m)^2 outer
+    systems. $PINT_TPU_GWB_CHUNK pins it, rounded UP to a power of two;
+    a value outside [1, 64] warns once and gives 8."""
+    k = _env_int("PINT_TPU_GWB_CHUNK", None, 8)
+    if k is None:
+        return 8
+    if k < 1 or k > 64:
+        _warn_once("PINT_TPU_GWB_CHUNK", "is outside [1, 64]",
+                   os.environ.get("PINT_TPU_GWB_CHUNK"), 8)
+        return 8
+    return 1 << (k - 1).bit_length()

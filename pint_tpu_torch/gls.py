@@ -63,22 +63,38 @@ def equilibrate(M, w):
 
 def jacobi(S):
     """sqrt of the diagonal, 1 where it is zero or not finite: the
-    unit-diagonal preconditioner of every Cholesky here."""
-    d = torch.sqrt(torch.diagonal(S))
+    unit-diagonal preconditioner of every Cholesky here. ``S`` is one
+    (n, n) matrix or a (..., n, n) batch; the result is (..., n)."""
+    d = torch.sqrt(torch.diagonal(S, dim1=-2, dim2=-1))
     return torch.where((d == 0) | ~torch.isfinite(d), torch.ones_like(d), d)
 
 
 def cho_factor(A):
-    """Lower Cholesky factor; all NaN when A is not positive definite
-    (jax.scipy.linalg.cho_factor's behaviour, without a host sync)."""
+    """Lower Cholesky factor of A (n, n) or of each matrix of a
+    (..., n, n) batch; all NaN for a matrix that is not positive definite
+    (jax.scipy.linalg.cho_factor's behaviour, without a host sync), the
+    other matrices of the batch untouched."""
     L, info = torch.linalg.cholesky_ex(A)
-    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    return torch.where((info == 0)[..., None, None], L,
+                       torch.full_like(L, float("nan")))
 
 
 def cho_solve(L, b):
-    if b.ndim == 1:
-        return torch.cholesky_solve(b[:, None], L)[:, 0]
-    return torch.cholesky_solve(b, L)
+    """Solve with the factor L (..., n, n): ``b`` of one dimension fewer
+    than L is a vector (a (..., n) batch of vectors), ``b`` of as many a
+    matrix of right-hand sides (..., n, k). A batch is solved by two
+    triangular solves: torch's batched ``cholesky_solve`` on CUDA goes
+    through MAGMA, which synchronizes the stream around the call (on the
+    CPU the two are bitwise equal)."""
+    vec = b.ndim == L.ndim - 1
+    if vec:
+        b = b[..., None]
+    if L.ndim == 2:
+        x = torch.cholesky_solve(b, L)
+    else:
+        y = torch.linalg.solve_triangular(L, b, upper=False)
+        x = torch.linalg.solve_triangular(L.mT, y, upper=True)
+    return x[..., 0] if vec else x
 
 
 def _gls_kernel(M, F, phi, r, nvec):

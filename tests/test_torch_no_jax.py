@@ -1,0 +1,77 @@
+"""The port imports nothing of jax or of the JAX package: in a fresh
+interpreter where ``import jax`` and ``import pint_tpu`` fail, every
+module of pint_tpu_torch imports, and the array plane runs on the CPU (a
+batch solve and one GWB log-likelihood on a tiny synthetic array)."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["pint_tpu"] = None
+import importlib, pkgutil
+
+import numpy as np
+
+import pint_tpu_torch
+
+names = sorted(m.name for m in pkgutil.walk_packages(
+    pint_tpu_torch.__path__, "pint_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+for name in ("pint_tpu_torch.pta.gwb", "pint_tpu_torch.parallel.pta",
+             "pint_tpu_torch.sampling.kernel",
+             "pint_tpu_torch.sampling.serve_kernel"):
+    assert name in names, name
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+
+from pint_tpu_torch.parallel import pta_solve, stack_problems
+from pint_tpu_torch.parallel.pta import PulsarProblem
+from pint_tpu_torch.pta import GWBLikelihood
+
+rng = np.random.default_rng(0)
+probs = []
+for k in range(3):
+    n = 12 + k
+    probs.append(PulsarProblem(rng.normal(size=(n, 3)),
+                               rng.normal(size=n) * 1e-6,
+                               np.full(n, 1e-12), np.zeros((n, 0)),
+                               np.ones(0), ["Offset", "A", "B"]))
+dparams, cov, chi2, _ = pta_solve(stack_problems(probs), device="cpu")
+assert dparams.shape == (3, 3) and np.all(np.isfinite(chi2))
+
+
+class _T:
+    def __init__(self, n, k):
+        self.tdb_day = 55000.0 + 30.0 * np.arange(n) + k
+        self.tdb_frac = (np.zeros(n), np.zeros(n))
+
+
+for k, pr in enumerate(probs):
+    pr.toas = _T(pr.M.shape[0], k)
+like = GWBLikelihood(problems=probs, gamma_matrix=np.eye(3), nfreq=2,
+                     device="cpu")
+val = like.loglik(-14.0, 13.0 / 3.0)
+assert np.isfinite(val)
+print("OK", len(names))
+"""
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    env["JAX_PLATFORMS"] = "cpu"
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        pytest.fail(out.stdout + out.stderr)
+    assert out.stdout.strip().startswith("OK")
