@@ -153,7 +153,44 @@ Phases, each fatal on failure:
      0.5 sigma of the GLS dparams, std ratio in (0.5, 2), acceptance in
      (0.1, 0.95) (tests/test_sampling.py:387's limits); chunk=16
      bitwise the default chunking;
-11. print the card's name and power limit, and one JSON line of kernel
+11. the rest of the timing-model zoo (no hand-written kernel but K1
+   either):
+   zoo-msp: a NANOGrav-15-yr-style J1713+0747-like DD binary (ZOO_MSP_PAR),
+     10,000 TOAs in four-TOA clusters over MJD 53000-59000 rotating over
+     five receivers at gbt (820/1400 MHz) and arecibo (430/1400/2300 MHz),
+     EFAC/EQUAD/ECORR per receiver, red (30 modes), chromatic (30,
+     TNCHROMIDX 4 frozen) and solar-wind (10) noise, the troposphere,
+     NE_SW free, 16 SWX windows about the solar conjunctions, DMWaveX at
+     40 and CMWaveX at 20 frequencies, CM/CM1, FD1-FD3, a JUMP per
+     receiver but one: 159 free parameters, simulated from seed 11; the
+     step on the GPU against the CPU and the hybrid step against it
+     (fit-step's limits, chi2 held as the binary steps hold it), timed
+     and profiled as fit-time, then DownhillGLSFitter from F0, PB, A1,
+     NE_SW and CM 3 sigma off on the GPU and the CPU (fit-downhill's
+     limits), every parameter within 5 sigma of the truth;
+   zoo-msp-wb: BASELINE config 3 (wideband-config3's build) plus 8 SWX
+     windows and DMWaveX at 10 frequencies, without and then with NE_SW
+     free: each stacked step on the GPU against the CPU, timed and
+     profiled (the fit_step.dm_jacobian span before and after
+     astrometry's tangents join the DM rows), the model DM on the GPU
+     against the CPU's within 1e-12 pc/cm^3;
+   zoo-young: a Vela-like glitching pulsar, 3,000 parkes TOAs at 1400
+     and 3100 MHz over MJD 55000-59000, two glitches, a spindown piece,
+     WaveX at 30 frequencies (k/T, k = 25..54), four CMX windows,
+     EFAC/EQUAD (81 free): as
+     zoo-msp, from F0, F1, GLF0_1 and GLPH_2 3 sigma off;
+   zoo-photon: --path-n barycentred photons drawn pulsed (the J0030
+     path's profile) under a glitch + WAVE1-WAVE10 + 40-node IFUNC
+     ephemeris of that pulsar, written as FITS events: the GPU phase
+     against the CPU's as in 3, photonphase on the GPU through the
+     kernel as in 4, and H at least half the J0030 path's;
+   zoo-sweep: each of the 14 zoo components alone on the fit path's
+     pulsar at 10,000 gbt/arecibo TOAs, then SWM 1 with SWP free, then
+     DMWaveX + NE_SW + SWX without TZRFRQ with every tenth TOA
+     barycentred: GPU delay vs CPU within 1e-12 s, phase with equal pulse
+     numbers and fractions within F0 x 1e-12 s, design matrix finite and
+     within 1e-10 of each column's largest entry;
+12. print the card's name and power limit, and one JSON line of kernel
    measurements.
 
 The last line of standard output is {"ok": true, "device": {...}}. The
@@ -374,6 +411,135 @@ GWB_RTOL = 1e-9                      # tests/test_gwb.py:235
 GWB_GRID = 8                         # bench_pta.py's 8 x 8 sweep
 POST_WALKERS, POST_STEPS, POST_BURN = 32, 600, 200
 H100_F64_OPS_PER_S = 67e12           # float64 on the tensor cores (DGEMM)
+
+# The rest of the timing-model zoo. zoo-msp: a NANOGrav-15-yr-style
+# J1713+0747-like DD binary, 10,000 TOAs in four-TOA clusters (four
+# sub-bands of +-2 and +-6 %) rotating over five receivers at gbt and
+# arecibo, each with its EFAC/EQUAD/ECORR and all but one with a free
+# JUMP; the troposphere, NE_SW, one SWX window of +-30 d about each
+# December solar conjunction, DMWaveX at k/T (k = 1..40, T the span) in
+# place of DMX, CM and CM1, CMWaveX at k/T (k = 1..20), FD1-FD3, red,
+# chromatic and solar-wind noise: 159 free parameters. OM stays frozen
+# (T0 and OM are degenerate at e ~ 7.5e-5). The TZR TOA is at gbt, as in
+# a NANOGrav par file: at '@' with a finite TZRFRQ the Sun is ~0.005 AU
+# from it, its solar-wind DM is a constant ~200 times the TOAs' own, and
+# NE_SW's column is then nearly the offset's (the normal matrix's
+# smallest correlation eigenvalue 4e-7 against 4e-4 at gbt, on the CPU
+# at 10,000 TOAs; on an H100 the step's covariance then moved 8e-8
+# relative between the GPU and the CPU, over the 1e-8 limit).
+ZOO_MSP_SPAN = (53000.0, 59000.0)
+ZOO_MSP_NTOA = 10_000
+ZOO_MSP_RECEIVERS = (("gbt", "Rcvr_800", 820.0), ("gbt", "Rcvr1_2", 1400.0),
+                     ("arecibo", "430", 430.0), ("arecibo", "L-wide", 1400.0),
+                     ("arecibo", "S-wide", 2300.0))
+ZOO_SUBBANDS = (-0.06, -0.02, 0.02, 0.06)
+ZOO_CONJUNCTION = 53347.0   # J1713+0747's December solar conjunction, 2004
+ZOO_MSP_PAR = [
+    "PSR J1713+0747z", "RAJ 17:13:49.5331 1", "DECJ 07:47:37.492 1",
+    "PMRA 4.918 1", "PMDEC -3.914 1", "PX 0.95 1", "F0 218.81184385472 1",
+    "F1 -4.0838e-16 1", "DM 15.917", "PEPOCH 56000", "POSEPOCH 56000",
+    "DMEPOCH 56000", "TZRMJD 56000.1", "TZRSITE gbt", "TZRFRQ 1400",
+    "UNITS TDB", "CORRECT_TROPOSPHERE Y", "BINARY DD", "PB 67.8251309 1",
+    "A1 32.342422 1", "T0 56000.4 1", "ECC 7.494e-5 1", "OM 176.2",
+    "M2 0.29 1", "SINI 0.95 1", "NE_SW 8.0 1", "SWM 0", "CM 0.0 1",
+    "CM1 0.0 1", "CMEPOCH 56000", "TNCHROMIDX 4", "FD1 1e-5 1",
+    "FD2 -2e-6 1", "FD3 5e-7 1", "DMWXEPOCH 56000", "CMWXEPOCH 56000",
+    "TNREDAMP -14.2", "TNREDGAM 3.5", "TNREDC 30", "TNCHROMAMP -14.5",
+    "TNCHROMGAM 3.0", "TNCHROMC 30", "TNSWAMP -6.0", "TNSWGAM 2.0",
+    "TNSWC 10",
+]
+ZOO_MSP_NDMWX, ZOO_MSP_NCMWX = 40, 20
+ZOO_MSP_OFFSET = ("F0", "PB", "A1", "NE_SW", "CM")
+# zoo-young: a Vela-like glitching pulsar, 3,000 TOAs at parkes (1400 and
+# 3100 MHz) over MJD 55000-59000: astrometry, F0-F2, two glitches
+# (GLPH/GLF0/GLF1/GLF0D free, GLEP and GLTD frozen), one spindown piece
+# between them, WaveX at 30 frequencies k/T (k = 25..54, periods 74-160
+# d) as the fittable whitening, four yearly CMX windows, EFAC/EQUAD. The
+# lower harmonics are what F0-F2 and the glitch ramps fit already: with
+# k = 1..30 the normal matrix's smallest correlation eigenvalue is 2e-13
+# (k = 3..32: 1e-9, k = 25..54: 7.6e-6, on the CPU at 3,000 TOAs), and
+# a 1-ulp difference of the design columns moves the step's covariance
+# by up to 1e-4 relative.
+ZOO_YOUNG_SPAN = (55000.0, 59000.0)
+ZOO_YOUNG_NTOA = 3_000
+ZOO_YOUNG_BASE = [
+    "PSR J0835-4510z", "RAJ 08:35:20.61149 1", "DECJ -45:10:34.8751 1",
+    "PMRA -49.68 1", "PMDEC 29.9 1", "PX 3.5", "F0 11.186693 1",
+    "F1 -1.5583e-11 1", "F2 1.2e-21 1", "DM 67.97", "PEPOCH 57000",
+    "POSEPOCH 57000", "DMEPOCH 57000", "TZRMJD 57000.1", "TZRSITE @",
+]
+ZOO_YOUNG_GLITCH = ["GLEP_1 55800", "GLPH_1 0.0 1", "GLF0_1 1.9e-5 1",
+                    "GLF1_1 -1e-13 1", "GLF0D_1 8e-8 1", "GLTD_1 30"]
+ZOO_YOUNG_PAR = ZOO_YOUNG_BASE + ["TZRFRQ 1400", "UNITS TDB"] \
+    + ZOO_YOUNG_GLITCH + [
+        "GLEP_2 57734.5", "GLPH_2 0.0 1", "GLF0_2 1.6e-5 1",
+        "GLF1_2 -8e-14 1", "GLF0D_2 5e-8 1", "GLTD_2 12", "PWEP_1 56750",
+        "PWSTART_1 56400", "PWSTOP_1 57100", "PWPH_1 0.0 1",
+        "PWF0_1 0.0 1", "WXEPOCH 57000", "EFAC -f PDFB_1400 1.1",
+        "EQUAD -f PDFB_1400 0.5", "EFAC -f PDFB_3100 1.2",
+        "EQUAD -f PDFB_3100 0.8",
+    ] + [line for k in range(4) for line in (
+        f"CMX_{k + 1:04d} 0.0 1", f"CMXR1_{k + 1:04d} {55000.0 + 365.25 * k}",
+        f"CMXR2_{k + 1:04d} {55000.0 + 365.25 * (k + 1)}")]
+ZOO_YOUNG_NWX, ZOO_YOUNG_WX_K0 = 30, 25
+ZOO_YOUNG_OFFSET = ("F0", "F1", "GLF0_1", "GLPH_2")
+ZOO_TRUTH_SIGMA = 5.0
+# zoo-photon: the young pulsar's ephemeris as a Fermi-LAT user folds it
+# (one glitch, TEMPO's WAVE whitening at WAVE_OM with WAVE1-WAVE10, as
+# in Kerr et al. 2015, ApJ 814, 128, and a 40-node IFUNC table), on
+# barycentred photons over MJD 55000-59000
+ZOO_PHOTON_SPAN = (55000.0, 59000.0)
+ZOO_PHOTON_PAR = ZOO_YOUNG_BASE + ["TZRFRQ inf", "UNITS TDB"] \
+    + ZOO_YOUNG_GLITCH[:1] + ["GLPH_1 0.2", "GLF0_1 1.9e-5",
+                              "GLF1_1 -1e-13", "GLF0D_1 8e-8", "GLTD_1 30",
+                              "WAVE_OM 0.0015", "WAVEEPOCH 57000"] \
+    + [f"WAVE{k} {5e-3 / k!r} {-3e-3 / k!r}" for k in range(1, 11)] \
+    + ["SIFUNC 2"] + [
+        f"IFUNC{k + 1} {55000.0 + 4000.0 * k / 39:.4f} "
+        f"{4e-3 * math.sin(0.7 * k)!r}" for k in range(40)]
+ZOO_PHOTON_H_SHARE = 0.5   # of the J0030 path's H, same photons and profile
+# zoo-sweep: each component alone on the fit path's pulsar (FIT_PAR's
+# model lines, tests/test_torch_zoo.py's component lines), then SWM 1
+# with SWP free, and DMWaveX + NE_SW + SWX without TZRFRQ on TOAs of which
+# every tenth is barycentred (nu = inf)
+ZOO_SWEEP_BASE = FIT_PAR[:FIT_PAR.index("UNITS TDB") + 1]
+ZOO_SWEEP = {
+    "Glitch": ["GLEP_1 54600", "GLPH_1 0.1 1", "GLF0_1 1e-8 1",
+               "GLF1_1 -1e-17 1", "GLF0D_1 2e-8 1", "GLTD_1 50",
+               "GLEP_2 55300", "GLF0_2 3e-9 1", "GLF2_2 1e-27 1"],
+    "Wave": ["WAVE_OM 0.01", "WAVEEPOCH 55000", "WAVE1 1e-5 -2e-5",
+             "WAVE2 3e-6 1e-6", "WAVE3 -1e-6 2e-6"],
+    "WaveX": ["WXEPOCH 55000"] + [
+        ln for k in range(1, 4) for ln in (
+            f"WXFREQ_{k:04d} {0.0015 * k!r}", f"WXSIN_{k:04d} 1e-6 1",
+            f"WXCOS_{k:04d} -2e-7 1")],
+    "DMWaveX": ["DMWXEPOCH 55000"] + [
+        ln for k in range(1, 4) for ln in (
+            f"DMWXFREQ_{k:04d} {0.0015 * k!r}", f"DMWXSIN_{k:04d} 1e-4 1",
+            f"DMWXCOS_{k:04d} -2e-5 1")],
+    "SolarWindDispersion": ["NE_SW 8.0 1"],
+    "TroposphereDelay": ["CORRECT_TROPOSPHERE Y"],
+    "ChromaticCM": ["CM 0.02 1", "CM1 1e-10 1", "CMEPOCH 55000",
+                    "TNCHROMIDX 4.4"],
+    "ChromaticCMX": [ln for k, (a, b) in enumerate(
+        ((54100, 54700), (54700, 55300), (55300, 55900)), 1) for ln in (
+        f"CMX_{k:04d} 1e-3 1", f"CMXR1_{k:04d} {a}", f"CMXR2_{k:04d} {b}")],
+    "CMWaveX": ["CMWXEPOCH 55000"] + [
+        ln for k in range(1, 3) for ln in (
+            f"CMWXFREQ_{k:04d} {0.002 * k!r}", f"CMWXSIN_{k:04d} 1e-4 1",
+            f"CMWXCOS_{k:04d} 5e-5 1")],
+    "IFunc": ["SIFUNC 2", "IFUNC1 53000 1e-5", "IFUNC2 54800 -2e-5",
+              "IFUNC3 55600 3e-5", "IFUNC4 57000 0.5e-5"],
+    "PiecewiseSpindown": ["PWEP_1 54650", "PWSTART_1 54550",
+                          "PWSTOP_1 54750", "PWPH_1 0.02 1", "PWF0_1 2e-8 1",
+                          "PWF1_1 1e-17 1"],
+    "SolarWindDispersionX": [
+        "SWXDM_0001 1e-4 1", "SWXR1_0001 54100", "SWXR2_0001 54500",
+        "SWXDM_0002 2e-4 1", "SWXR1_0002 54500", "SWXR2_0002 55000"],
+    "PLChromNoise": ["TNCHROMAMP -14", "TNCHROMGAM 3", "TNCHROMC 8"],
+    "PLSWNoise": ["TNSWAMP -5", "TNSWGAM 2", "TNSWC 6"],
+}
+ZOO_WB_NDMWX = 10
 
 
 def fail(msg: str) -> None:
@@ -827,31 +993,19 @@ def within_limits(d: dict) -> bool:
             and d["chi2_rel"] <= CHI2_REL and d["resid_s"] <= RESID_S)
 
 
-def chi2_of_residuals(model, toas, r) -> float:
-    """The step's chi2 as a function of its residuals alone, on the CPU:
-    r^T C^-1 r less its projection on the design matrix, with the dense
-    noise basis (ECORR columns included), by _gls_kernel."""
-    import torch
-
-    from pint_tpu_torch.gls import _gls_kernel
-
-    M, _, _ = model.designmatrix(toas, device="cpu")
-    nvec, F, phi = model.noise_device(toas, "cpu")
-    return float(_gls_kernel(M, F, phi, torch.as_tensor(r), nvec)[2])
-
-
-def wideband_chi2_of_residuals(model, toas, rs) -> list:
-    """The wideband step's chi2 as a function of its time residuals
-    alone, on the CPU, for each vector in `rs`: the stacked rows of
-    build_fit_parts(wideband=True) with those time residuals over the
-    CPU's DM residuals, solved by the step's _gls_core."""
+def chi2_of_residuals(model, toas, rs, wideband: bool = False) -> list:
+    """The step's chi2 as a function of its time residuals alone, on the
+    CPU, for each vector in `rs`: the rows of build_fit_parts (stacked
+    over the CPU's DM residuals with `wideband`) with those time
+    residuals, solved by the step's own _gls_core (the same quadratic
+    form as the step's chi2: r^T C^-1 r, the noise bases marginalized)."""
     import torch
 
     from pint_tpu_torch.parallel import build_fit_parts
     from pint_tpu_torch.parallel.fit_step import SegmentSum, _gls_core
 
     parts_fn, args, _, meta = build_fit_parts(model, toas, device="cpu",
-                                              wideband=True)
+                                              wideband=wideband)
     M, Fv, r0, nvec, valid, eid, _ = parts_fn(*args)
     n = toas.ntoas
     plan = SegmentSum(eid, meta["nseg"]) if meta["nseg"] > 1 else None
@@ -874,7 +1028,8 @@ def fit_step_check(model, toas, dev, label: str = "fit-step",
     form P in the residuals, and the GPU's and the CPU's differ by ~1 ulp
     of the delays (~1e-13 s) TOA by TOA, which moves a chi2 of thousands
     by ~1e-9 of itself. P(r_gpu) - P(r_cpu), evaluated in one place (the
-    CPU), is subtracted first."""
+    CPU, with the step's own _gls_core: chi2_of_residuals, which must
+    give the CPU step's chi2 at its residuals), is subtracted first."""
     from pint_tpu_torch.parallel import build_fit_step
 
     step, args, names = build_fit_step(model, toas, device=dev,
@@ -896,12 +1051,12 @@ def fit_step_check(model, toas, dev, label: str = "fit-step",
            "chi2_cpu": float(c[2]), "cpu_step_ms": cpu_ms}
     held = dict(got)
     if explain_chi2:
-        if wideband:
-            pg, pc = wideband_chi2_of_residuals(model, toas, (g1[3], c[3]))
-            moved = pg - pc
-        else:
-            moved = chi2_of_residuals(model, toas, g1[3]) - \
-                chi2_of_residuals(model, toas, c[3])
+        pg, pc = chi2_of_residuals(model, toas, (g1[3], c[3]), wideband)
+        moved = pg - pc
+        # the function is the CPU step's own chi2 at its own residuals
+        if not abs(pc - float(c[2])) <= 1e-12 * abs(float(c[2])):
+            fail(f"{label}: chi2_of_residuals gives {pc!r} at the CPU "
+                 f"step's residuals, the step {float(c[2])!r}")
         got["chi2_moved_by_resids"] = moved
         got["chi2_rel_unexplained"] = held["chi2_rel"] = \
             abs(float(g1[2]) - float(c[2]) - moved) / abs(float(c[2]))
@@ -2240,6 +2395,327 @@ def pta_phase(ntoa: int, nfreq: int, dev) -> dict:
             "seconds": secs}
 
 
+# ------------------------------------------------------------ the model zoo
+
+
+def conjunction_windows(span, first: float, half: float = 30.0) -> list:
+    """(start, end) MJDs of +-`half` days about each yearly solar
+    conjunction first + 365.25 k whose window lies inside `span`."""
+    out, t = [], first
+    while t - half < span[0]:
+        t += 365.25
+    while t + half <= span[1]:
+        out.append((t - half, t + half))
+        t += 365.25
+    return out
+
+
+def fourier_lines(pre: str, n: int, span_days: float, k0: int = 1) -> list:
+    """Par lines of a WaveX-style family `pre` (WX, DMWX, CMWX) at the n
+    frequencies k/span (k = k0..k0+n-1), amplitudes 0 and free."""
+    return [ln for i, k in enumerate(range(k0, k0 + n), 1) for ln in (
+        f"{pre}FREQ_{i:04d} {k / span_days!r}", f"{pre}SIN_{i:04d} 0.0 1",
+        f"{pre}COS_{i:04d} 0.0 1")]
+
+
+def zoo_msp_lines() -> list:
+    """ZOO_MSP_PAR with its SWX windows, DMWaveX and CMWaveX families and
+    the per-receiver white noise and JUMPs."""
+    par = list(ZOO_MSP_PAR)
+    for i, (lo, hi) in enumerate(conjunction_windows(ZOO_MSP_SPAN,
+                                                     ZOO_CONJUNCTION), 1):
+        par += [f"SWXDM_{i:04d} 0.0 1", f"SWXR1_{i:04d} {lo!r}",
+                f"SWXR2_{i:04d} {hi!r}"]
+    span = ZOO_MSP_SPAN[1] - ZOO_MSP_SPAN[0]
+    par += fourier_lines("DMWX", ZOO_MSP_NDMWX, span)
+    par += fourier_lines("CMWX", ZOO_MSP_NCMWX, span)
+    for k, (_, fe, _) in enumerate(ZOO_MSP_RECEIVERS):
+        par += [f"EFAC -fe {fe} 1.1", f"EQUAD -fe {fe} 0.1",
+                f"ECORR -fe {fe} 0.5"]
+        if k:
+            par.append(f"JUMP -fe {fe} 0.0 1")
+    return par
+
+
+def zoo_msp_build(ntoa: int, dev) -> tuple:
+    """(par text, model, TOAs) of zoo-msp on `dev`: ntoa/4 four-TOA
+    clusters over the span, the receivers in turn, the receiver flag set
+    before the draw, 1 us errors, white noise from default_rng(11)."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
+
+    par = "\n".join(zoo_msp_lines()) + "\n"
+    model = get_model(io.StringIO(par), device=dev)
+    rec = [ZOO_MSP_RECEIVERS[(i // 4) % len(ZOO_MSP_RECEIVERS)]
+           for i in range(ntoa)]
+    freqs = np.array([r[2] * (1.0 + ZOO_SUBBANDS[i % 4])
+                      for i, r in enumerate(rec)])
+    toas = make_fake_toas_fromMJDs(
+        clustered_mjds(ZOO_MSP_SPAN, ntoa), model, error_us=1.0,
+        obs=[r[0] for r in rec], freq_mhz=freqs, add_noise=True,
+        rng=np.random.default_rng(11), flags=[{"fe": r[1]} for r in rec])
+    return par, model, toas
+
+
+def zoo_young_build(ntoa: int, dev) -> tuple:
+    """(par text, model, TOAs) of zoo-young on `dev`: ntoa parkes TOAs at
+    MJDs from default_rng(13), 1400 and 3100 MHz in turn with their -f
+    flags, 1 us errors, white noise from the same generator."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
+
+    span = ZOO_YOUNG_SPAN[1] - ZOO_YOUNG_SPAN[0]
+    par = "\n".join(ZOO_YOUNG_PAR + fourier_lines(
+        "WX", ZOO_YOUNG_NWX, span, ZOO_YOUNG_WX_K0)) + "\n"
+    model = get_model(io.StringIO(par), device=dev)
+    rng = np.random.default_rng(13)
+    mjds = np.sort(rng.uniform(*ZOO_YOUNG_SPAN, ntoa))
+    freqs = np.tile([1400.0, 3100.0], ntoa // 2)
+    toas = make_fake_toas_fromMJDs(
+        mjds, model, error_us=1.0, obs="parkes", freq_mhz=freqs,
+        add_noise=True, rng=rng,
+        flags=[{"f": f"PDFB_{int(f)}"} for f in freqs])
+    return par, model, toas
+
+
+def zoo_fit_phase(label: str, par: str, model, toas, dev, offsets,
+                  build_s: float) -> dict:
+    """fit_step_check (GPU vs CPU, hybrid vs default), fit_time, then
+    DownhillGLSFitter from `offsets` moved 3 sigma (of the step at the
+    truth), on the GPU and the CPU (fit_downhill's limits), every fitted
+    parameter within ZOO_TRUTH_SIGMA of the simulated truth."""
+    from pint_tpu_torch.models import get_model
+
+    print(f"{label}: build {build_s:.3f} s on the host; N = {toas.ntoas}, "
+          f"{len(model.free_params)} free parameters, components "
+          f"{sorted(model.components)}, noise columns "
+          f"{model.noise_model_dimensions(toas)}")
+    step = fit_step_check(model, toas, dev, f"{label} step",
+                          explain_chi2=True)
+    tm = fit_time(step["step"], step["args"], f"{label} step")
+    start = get_model(io.StringIO(par), device="cpu")
+    for i, nm in enumerate(offsets):
+        start.get_param(nm).add_delta((3.0 if i % 2 == 0 else -3.0)
+                                      * float(step["sigma"][nm]))
+    out = fit_downhill(start.as_parfile(), toas, dev, f"{label} downhill")
+    fitted, truth = out.pop("fitter"), get_model(io.StringIO(par),
+                                                 device="cpu")
+    dev_truth = {nm: abs(fitted.model.get_param(nm).value
+                         - truth.get_param(nm).value) / fitted.errors[nm]
+                 for nm in truth.free_params}
+    worst = max(dev_truth, key=dev_truth.get)
+    print(f"{label} downhill: from {', '.join(offsets)} 3 sigma off; "
+          f"fitted parameters within {dev_truth[worst]:.3f} sigma of the "
+          f"simulated truth ({worst}; limit {ZOO_TRUTH_SIGMA})")
+    if dev_truth[worst] > ZOO_TRUTH_SIGMA:
+        fail(f"{label}: {worst} fitted {dev_truth[worst]:.3f} sigma from "
+             "the simulated truth")
+    return {"ntoa": toas.ntoas, "nfree": len(model.free_params),
+            "build_s": build_s,
+            **{k: tm[k] for k in ("host_ms", "event_ms", "launches_per_step",
+                                  "busy_share", "stages_ms",
+                                  "stage_spans_ms", "top_ops_ms")},
+            "cpu_step_ms": step["cpu_step_ms"],
+            "gpu_vs_cpu": {k: step[k] for k in (
+                "dp_sigma", "cov_rel", "chi2_rel", "chi2_moved_by_resids",
+                "chi2_rel_unexplained", "resid_s")},
+            "hybrid_vs_step": step["hybrid_vs_step"],
+            "downhill": {**out, "truth_sigma_max": dev_truth[worst],
+                         "truth_worst": worst}}
+
+
+def zoo_wideband_phase(dev) -> dict:
+    """zoo-msp-wb: config 3 (config3_build) plus its SWX windows about the
+    December conjunctions and DMWaveX at k/T (k = 1..ZOO_WB_NDMWX), first
+    without NE_SW and then with it free (astrometry's tangents then join
+    the DM rows' jacfwd): each stacked step on the GPU against the CPU
+    (fit_step_check, wideband), timed and profiled (the
+    fit_step.dm_jacobian span); the model DM on the GPU against the
+    CPU's within 1e-12 pc/cm^3."""
+    import torch
+
+    from pint_tpu_torch.models import get_model
+
+    t0 = time.perf_counter()
+    _, base, toas = config3_build(CONFIG3_NTOA, CONFIG3_NDMX, dev)
+    build_s = time.perf_counter() - t0
+    span = CONFIG3_SPAN[1] - CONFIG3_SPAN[0]
+    extra = ["DMWXEPOCH 54500"] + fourier_lines("DMWX", ZOO_WB_NDMWX, span)
+    for i, (lo, hi) in enumerate(conjunction_windows(CONFIG3_SPAN,
+                                                     ZOO_CONJUNCTION), 1):
+        extra += [f"SWXDM_{i:04d} 0.0 1", f"SWXR1_{i:04d} {lo!r}",
+                  f"SWXR2_{i:04d} {hi!r}"]
+    # the TZR TOA at gbt: at '@' with a finite TZRFRQ the Sun is ~0.005 AU
+    # away, and that TOA's solar-wind DM makes NE_SW's column nearly the
+    # offset's (see ZOO_MSP_PAR)
+    text = re.sub(r"(?m)^TZRSITE.*$", "TZRSITE gbt", base.as_parfile())
+    out = {"ntoa": toas.ntoas, "build_s": build_s}
+    for tag, lines in (("without_ne_sw", extra),
+                       ("with_ne_sw", ["NE_SW 8.0 1"] + extra)):
+        model = get_model(io.StringIO(text + "\n".join(lines) + "\n"),
+                          device=dev)
+        label = f"zoo-msp-wb ({tag.replace('_', ' ')})"
+        step = fit_step_check(model, toas, dev, f"{label} step",
+                              hybrid=tag == "with_ne_sw", explain_chi2=True,
+                              wideband=True)
+        tm = fit_time(step["step"], step["args"], f"{label} step")
+        dm_g = model.total_dm(toas)
+        torch.cuda.synchronize()
+        dm_c = model.total_dm(toas, device="cpu")
+        dm_err = float(torch.max(torch.abs(dm_g.cpu() - dm_c)))
+        ndm = len(model.dm_affecting_free_params() & set(model.free_params))
+        span_ms = tm["stage_spans_ms"].get("fit_step.dm_jacobian")
+        print(f"{label}: {len(model.free_params)} free, {ndm} of them move "
+              f"the DM rows; fit_step.dm_jacobian span {span_ms} ms a "
+              f"step; model DM GPU vs CPU {dm_err:.3e} pc/cm^3 (limit "
+              "1e-12)")
+        if not dm_err <= 1e-12:
+            fail(f"{label}: the model DM differs between GPU and CPU")
+        out[tag] = {
+            "nfree": len(model.free_params), "ndm_params": ndm,
+            "dm_jacobian_span_ms": span_ms, "dm_gpu_vs_cpu": dm_err,
+            **{k: tm[k] for k in ("host_ms", "event_ms", "launches_per_step",
+                                  "busy_share", "stages_ms",
+                                  "stage_spans_ms")},
+            "cpu_step_ms": step["cpu_step_ms"],
+            "gpu_vs_cpu": {k: step[k] for k in (
+                "dp_sigma", "cov_rel", "chi2_rel", "chi2_rel_unexplained",
+                "resid_s")},
+            "hybrid_vs_step": step.get("hybrid_vs_step")}
+    return out
+
+
+def zoo_photon_columns(par: str, n: int, seed: int, dev, tmp: str) -> dict:
+    """`n` barycentred photons pulsed under the model of `par` itself:
+    uniform times over ZOO_PHOTON_SPAN, each given a target phase (the
+    J0030 path's profile: a Gaussian peak at PEAK for FRAC_PULSED of
+    them, uniform for the rest) and moved within its pulse period by one
+    Newton step on the model's own phase, computed by the port on `dev`:
+    t + (target - phase(t)) / F(t), F(t) the F0-F2 Taylor frequency. The
+    step's error (the glitch's, WAVE's and IFUNC's frequency terms over a
+    shift of at most half a period) is under 1e-5 turns."""
+    from pint_tpu_torch.event_toas import load_fits_TOAs
+    from pint_tpu_torch.models import get_model
+
+    rng = np.random.default_rng(seed)
+    mjd = np.sort(rng.uniform(*ZOO_PHOTON_SPAN, n))
+    times = ((mjd - NICER_MJDREF[0]) - NICER_MJDREF[1]) * 86400.0
+    pulsed = rng.uniform(size=n) < FRAC_PULSED
+    target = np.where(pulsed,
+                      np.mod(PEAK + WIDTH * rng.standard_normal(n), 1.0),
+                      rng.uniform(size=n))
+    w = np.where(pulsed, rng.uniform(0.5, 1.0, n), rng.uniform(0.0, 0.5, n))
+    cand = os.path.join(tmp, "zoo_candidates.fits")
+    write_events(cand, {"TIME": times, "WEIGHT": w})
+    model = get_model(par, device=dev)
+    frac = model.phase(load_fits_TOAs(cand, weightcolumn="WEIGHT",
+                                      device=dev)).frac.cpu().numpy()
+    dt = (mjd - model.PEPOCH.value) * 86400.0
+    f = model.F0.value + model.F1.value * dt + model.F2.value * dt * dt / 2
+    times = times + (np.mod(target - frac + 0.5, 1.0) - 0.5) / f
+    order = np.argsort(times)
+    return {"TIME": times[order], "WEIGHT": w[order]}
+
+
+def zoo_photon_phase(zmod, dev, n: int, m: int, seed: int,
+                     h_j0030: float) -> dict:
+    """zoo-photon: photons pulsed under ZOO_PHOTON_PAR (glitch, WAVE,
+    IFUNC) through phase_exact (GPU vs CPU) and phase_path (photonphase
+    through K1 on the GPU); H at least ZOO_PHOTON_H_SHARE of the J0030
+    path's on as many photons with the same profile."""
+    with tempfile.TemporaryDirectory() as tmp:
+        par = os.path.join(tmp, "zoo_young.par")
+        with open(par, "w") as f:
+            f.write("\n".join(ZOO_PHOTON_PAR) + "\n")
+        t0 = time.perf_counter()
+        cols = zoo_photon_columns(par, n, seed, dev, tmp)
+        draw_s = time.perf_counter() - t0
+        cold_s = phase_exact(dev, cols, par, tmp)
+        path = phase_path(zmod, dev, cols, par, m, tmp)
+    print(f"zoo-photon: {n} photons drawn under the glitch/WAVE/IFUNC "
+          f"ephemeris in {draw_s:.3f} s; H {path['h']:.2f} against the "
+          f"J0030 path's {h_j0030:.2f} (limit {ZOO_PHOTON_H_SHARE} of it); "
+          f"K1 launches {path['launches']}")
+    if not path["h"] >= ZOO_PHOTON_H_SHARE * h_j0030:
+        fail("zoo-photon: the H-test does not detect the pulsation")
+    return {"n": n, "draw_s": draw_s, "cold_phase_s": cold_s,
+            "h": path["h"], "h_j0030": h_j0030,
+            "launches": path["launches"], "stages": path["stages"]}
+
+
+def zoo_sweep(ntoa: int, dev) -> dict:
+    """Each ZOO_SWEEP component alone on ZOO_SWEEP_BASE, then SWM 1 with
+    SWP free, then DMWaveX + NE_SW + SWX without TZRFRQ on TOAs of which
+    every tenth is barycentred: at `ntoa` TOAs (gbt and arecibo, 430 to
+    2300 MHz), the GPU delay and phase against the CPU's (ZOO_DELAY_S,
+    equal pulse numbers and fractions within F0 ZOO_DELAY_S, what that
+    delay difference moves the phase by) and the GPU design matrix
+    against the CPU's (finite, ZOO_DESIGN_REL of each column's largest
+    entry)."""
+    import torch
+
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.toa import get_TOAs_array
+
+    rng = np.random.default_rng(7)
+    mjds = np.sort(rng.uniform(*FIT_SPAN, ntoa))
+    odd = np.arange(ntoa) % 2 == 1
+    obs = np.where(odd, "gbt", "arecibo")
+    freqs = np.where(odd, np.tile([820.0, 1400.0], ntoa)[:ntoa],
+                     np.tile([430.0, 1400.0, 2300.0], ntoa)[:ntoa])
+    toas = get_TOAs_array(mjds, obs=list(obs), freqs=freqs, errors=1.0,
+                          device=dev)
+    bary = np.arange(ntoa) % 10 == 0
+    toas_inf = get_TOAs_array(mjds, obs=list(np.where(bary, "@", obs)),
+                              freqs=np.where(bary, np.inf, freqs),
+                              errors=1.0, device=dev)
+    rows = [(name, ZOO_SWEEP_BASE + lines, toas)
+            for name, lines in ZOO_SWEEP.items()]
+    rows.append(("SWM 1, SWP free", ZOO_SWEEP_BASE + [
+        "NE_SW 8.0 1", "SWM 1", "SWP 2.3 1"], toas))
+    rows.append(("nu = inf", [ln for ln in ZOO_SWEEP_BASE
+                              if not ln.startswith("TZRFRQ")]
+                 + ZOO_SWEEP["DMWaveX"] + ZOO_SWEEP["SolarWindDispersion"]
+                 + ZOO_SWEEP["SolarWindDispersionX"], toas_inf))
+    worst = {"delay_s": 0.0, "phase_turns": 0.0, "design_rel": 0.0}
+    per = {}
+    for name, lines, t in rows:
+        model = get_model(io.StringIO("\n".join(lines) + "\n"), device=dev)
+        if name in ZOO_SWEEP and name not in model.components:
+            fail(f"zoo-sweep: {name} built {sorted(model.components)}")
+        t0 = time.perf_counter()
+        dg, pg = model.delay(t), model.phase(t)
+        Mg, names, _ = model.designmatrix(t)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        dc, pc = model.delay(t, device="cpu"), model.phase(t, device="cpu")
+        Mc, cnames, _ = model.designmatrix(t, device="cpu")
+        d_err = float(torch.max(torch.abs(dg.cpu() - dc)))
+        p_err = float(torch.max(torch.abs(pg.frac.cpu() - pc.frac)))
+        Mg, Mc = Mg.cpu().numpy(), Mc.numpy()
+        m_err = float(np.max(np.max(np.abs(Mg - Mc), axis=0)
+                             / np.maximum(np.max(np.abs(Mc), axis=0),
+                                          1e-300)))
+        q = sum(k for _, k in model.noise_model_dimensions(t).values())
+        ok = (names == cnames and np.all(np.isfinite(Mg))
+              and torch.equal(pg.int.cpu(), pc.int) and d_err <= ZOO_DELAY_S
+              and p_err <= model.F0.value * ZOO_DELAY_S
+              and m_err <= ZOO_DESIGN_REL)
+        print(f"zoo-sweep {name:22s}: GPU vs CPU delay {d_err:.3e} s, phase "
+              f"{p_err:.3e} turns, design matrix {m_err:.3e} of each "
+              f"column's largest, {len(names)} columns, {q} noise columns; "
+              f"GPU delay + phase + design matrix {gpu_s:.3f} s")
+        if not ok:
+            fail(f"zoo-sweep: {name} differs between GPU and CPU")
+        per[name] = {"delay_s": d_err, "phase_turns": p_err,
+                     "design_rel": m_err, "ncols": len(names),
+                     "noise_cols": q, "gpu_s": gpu_s}
+        worst = {"delay_s": max(worst["delay_s"], d_err),
+                 "phase_turns": max(worst["phase_turns"], p_err),
+                 "design_rel": max(worst["design_rel"], m_err)}
+    return {"ntoa": ntoa, "worst": worst, "rows": per}
+
+
 def fmt(t: dict) -> str:
     return (f"{t['median']:.4f} ms median of 20 (min {t['min']:.4f}, "
             f"max {t['max']:.4f})")
@@ -2446,6 +2922,31 @@ def main() -> int:
     # per-pulsar posteriors
     pta = pta_phase(args.pta_ntoa, args.pta_nfreq, dev)
 
+    # the rest of the model zoo
+    zoo_s = {}
+    t0 = time.perf_counter()
+    zm_par, zm_model, zm_toas = zoo_msp_build(ZOO_MSP_NTOA, dev)
+    zm = zoo_fit_phase("zoo-msp", zm_par, zm_model, zm_toas, dev,
+                       ZOO_MSP_OFFSET, time.perf_counter() - t0)
+    zoo_s["msp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zwb = zoo_wideband_phase(dev)
+    zoo_s["msp_wb"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zy_par, zy_model, zy_toas = zoo_young_build(ZOO_YOUNG_NTOA, dev)
+    zy = zoo_fit_phase("zoo-young", zy_par, zy_model, zy_toas, dev,
+                       ZOO_YOUNG_OFFSET, time.perf_counter() - t0)
+    zoo_s["young"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zph = zoo_photon_phase(zmod, dev, args.path_n, args.m, args.seed + 5,
+                           path["h"])
+    zoo_s["photon"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zsw = zoo_sweep(ZOO_NTOA, dev)
+    zoo_s["sweep"] = time.perf_counter() - t0
+    print("zoo seconds: " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in zoo_s.items()))
+
     # timings at the main path's shape: float32 inputs (the TPU kernel's
     # contract) and float64 inputs (what the H-test hands the kernel)
     n, m = args.n, args.m
@@ -2603,6 +3104,11 @@ def main() -> int:
     print(json.dumps({"streaming": stream}))
     print(json.dumps({"stream_ecorr": secorr}))
     print(json.dumps({"pta": pta}))
+    print(json.dumps({"zoo_msp": {**zm, "seconds": zoo_s["msp"]}}))
+    print(json.dumps({"zoo_msp_wb": {**zwb, "seconds": zoo_s["msp_wb"]}}))
+    print(json.dumps({"zoo_young": {**zy, "seconds": zoo_s["young"]}}))
+    print(json.dumps({"zoo_photon": {**zph, "seconds": zoo_s["photon"]}}))
+    print(json.dumps({"zoo_sweep": {**zsw, "seconds": zoo_s["sweep"]}}))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": [{

@@ -30,21 +30,21 @@ from pint_tpu_torch.ops.dd import dd_to_f64
 from pint_tpu_torch.ops.taylor import taylor_horner
 
 
+def per_nu2(x, batch, ctx):
+    """x / nu^2 with nu the barycentric frequency (ctx["bfreq"]), 0 where
+    nu is infinite. Infinite rows divide by a stand-in 1 MHz, so neither
+    the value nor a jacfwd tangent there is inf * 0; finite rows are
+    x / (nu * nu) bit for bit. Every nu^-2 delay (DM, DMX, DMWaveX, the
+    solar wind, SWX) and its closed-form column goes through it."""
+    bf = ctx.get("bfreq", batch.freq_mhz)
+    fin = torch.isfinite(bf)
+    bs = torch.where(fin, bf, 1.0)
+    return torch.where(fin, x / (bs * bs), 0.0)
+
+
 class Dispersion(DelayComponent):
     category = "dispersion"
     register = False
-
-    def _bfreq(self, batch, ctx):
-        return ctx.get("bfreq", batch.freq_mhz)
-
-    def _per_nu2(self, x, batch, ctx):
-        """x / nu^2, 0 where nu is infinite. Infinite rows divide by a
-        stand-in 1 MHz, so neither the value nor a jacfwd tangent there
-        is inf * 0; finite rows are x / (nu * nu) bit for bit."""
-        bf = self._bfreq(batch, ctx)
-        fin = torch.isfinite(bf)
-        bs = torch.where(fin, bf, 1.0)
-        return torch.where(fin, x / (bs * bs), 0.0)
 
     def dm_value_device(self, pv, batch, cache, ctx):
         """This component's DM contribution [pc/cm^3] (N,), the hook the
@@ -118,7 +118,7 @@ class DispersionDM(Dispersion):
     def delay(self, pv, batch, cache, ctx, delay_so_far):
         dm = self.dm_value(pv, batch)
         ctx["dm"] = dm
-        return self._per_nu2(DMconst * dm, batch, ctx)
+        return per_nu2(DMconst * dm, batch, ctx)
 
     def linear_design_names(self):
         free = [nm for nm in self.dm_terms()
@@ -133,7 +133,7 @@ class DispersionDM(Dispersion):
         names = self.linear_design_names()
         if not names:
             return {}
-        inv2 = self._per_nu2(DMconst, batch, ctx)
+        inv2 = per_nu2(DMconst, batch, ctx)
         terms = self.dm_terms()
         if len(terms) > 1:
             dmep = pv["DMEPOCH"].hi + pv["DMEPOCH"].lo \
@@ -219,7 +219,7 @@ class DispersionDMX(Dispersion):
         """d(delay)/d(DMX_i) = DMconst * window_mask_i / nu^2."""
         if not self.dmx_ids:
             return {}
-        inv2 = self._per_nu2(DMconst, batch, ctx)
+        inv2 = per_nu2(DMconst, batch, ctx)
         masks = cache["dmx_masks"]
         out = {}
         for col, (_, istr) in enumerate(self.dmx_ids):
@@ -231,7 +231,7 @@ class DispersionDMX(Dispersion):
     def delay(self, pv, batch, cache, ctx, delay_so_far):
         if not self.dmx_ids:
             return torch.zeros_like(batch.freq_mhz)
-        return self._per_nu2(
+        return per_nu2(
             DMconst * self.dm_value_device(pv, batch, cache, ctx), batch,
             ctx)
 

@@ -6,17 +6,17 @@ Each registered Component contributes its parameter names and aliases to
 an index; prefixed families (F2.., DM2..) and JUMP mask parameters are
 recognized by pattern, as are DMX windows and the mask families (EFAC,
 EQUAD, TNEQ, ECORR and their aliases, DMEFAC, DMEQUAD, DMJUMP, FDJUMP
-and FD<n>JUMP); other members of a ported prefix family (FD2, FD3...)
-land on the family's component. The BINARY line is read
-first, whatever its place in the file, and selects the binary component
-that every binary parameter (and the FB series, the BT_piecewise pieces)
-lands on; ``BINARY T2`` picks the family from the parameters present
-(``guess_binary_model``). Keys nobody knows are warned about and
-ignored, as in the reference. Keys of components the reference has but
-this port does not have yet (glitches, waves, chromatic and solar-wind
-terms, the chromatic and solar-wind noise) raise NotImplementedError
-naming the ROADMAP item: ignoring them would give wrong phases
-silently.
+and FD<n>JUMP). The BINARY line is read first, whatever its place in
+the file, and selects the binary component that every binary parameter
+(and the FB series, the BT_piecewise pieces) lands on; ``BINARY T2``
+picks the family from the parameters present (``guess_binary_model``).
+Other members of a prefix family (GLF0_2,
+WXFREQ_0002, CMX_0003...) land on the family's component as a parameter
+of its first member's class, so WAVE2 and IFUNC2 are pairs like WAVE1 and
+IFUNC1. Keys nobody knows are warned about and ignored, as in the
+reference. ``UNITS TCB``, which the reference converts and this port
+cannot yet, raises NotImplementedError naming the ROADMAP item: reading
+TCB values as TDB would give wrong phases silently.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import Dict, List
 from pint_tpu_torch.io.par import ParfileLine, parse_parfile
 from pint_tpu_torch.models.parameter import (
     maskParameter,
+    pairParameter,
     prefixParameter,
     split_prefixed_name,
 )
@@ -62,62 +63,17 @@ MASK_UNITS = {"EFAC": "", "EQUAD": "us", "TNEQ": "log10(s)", "ECORR": "us",
               "DMEFAC": "", "DMEQUAD": "pc cm^-3", "DMJUMP": "pc cm^-3",
               "FDJUMP": "s"}
 
-# ---- what the reference knows and this port does not have yet ----------
-# component → ROADMAP.md item that ports it
-_ZOO = "ROADMAP.md queue 1 item 7 (rest of the model zoo)"
-UNPORTED_COMPONENTS: Dict[str, str] = {
-    **{c: _ZOO for c in (
-        "Glitch", "IFunc", "Wave", "WaveX", "DMWaveX", "CMWaveX",
-        "ChromaticCM", "ChromaticCMX", "PiecewiseSpindown",
-        "SolarWindDispersion", "SolarWindDispersionX", "TroposphereDelay",
-        "PLChromNoise", "PLSWNoise")},
+# what the reference does with a par file and this port cannot yet, by
+# the line that asks for it → the ROADMAP.md item that ports it
+UNPORTED: Dict[str, str] = {
+    "UNITS TCB": "the TCB->TDB conversion, ROADMAP.md queue 1 item 12",
 }
 
-# par key (name, alias or family prefix) → unported component, as the
-# reference's parameter index routes it
-UNPORTED_PARAMS: Dict[str, str] = {}
-for _cls, _keys in {
-    "CMWaveX": "CMWXCOS CMWXCOS_ CMWXEPOCH CMWXFREQ CMWXFREQ_ CMWXSIN "
-               "CMWXSIN_",
-    "ChromaticCM": "CM CM1 CMEPOCH CMIDX TNCHROMIDX",
-    "ChromaticCMX": "CMX CMXR1 CMXR1_ CMXR2 CMXR2_ CMX_",
-    "DMWaveX": "DMWXCOS DMWXCOS_ DMWXEPOCH DMWXFREQ DMWXFREQ_ DMWXSIN "
-               "DMWXSIN_",
-    "Glitch": "GLEP GLEP_ GLF0 GLF0D GLF0D_ GLF0_ GLF1 GLF1_ GLF2 GLF2_ "
-              "GLPH GLPH_ GLTD GLTD_",
-    "IFunc": "IFUNC SIFUNC",
-    "PLChromNoise": "TNCHROMAMP TNCHROMC TNCHROMGAM TNChromAmp TNChromC "
-                    "TNChromGam",
-    "PLSWNoise": "TNSWAMP TNSWAmp TNSWC TNSWGAM TNSWGam",
-    "PiecewiseSpindown": "PWEP PWEP_ PWF0 PWF0_ PWF1 PWF1_ PWF2 PWF2_ PWPH "
-                         "PWPH_ PWSTART PWSTART_ PWSTOP PWSTOP_",
-    "SolarWindDispersion": "NE1AU NE_SW SOLARN0 SWM SWP",
-    "SolarWindDispersionX": "SWXDM SWXDM_ SWXR1 SWXR1_ SWXR2 SWXR2_",
-    "TroposphereDelay": "CORRECT_TROPOSPHERE",
-    "Wave": "WAVE WAVEEPOCH WAVEOM WAVE_OM",
-    "WaveX": "WXCOS WXCOS_ WXEPOCH WXFREQ WXFREQ_ WXSIN WXSIN_",
-}.items():
-    for _k in _keys.split():
-        UNPORTED_PARAMS[_k] = _cls
 
-
-def _refuse(key: str, cls: str):
+def _refuse(key: str):
     raise NotImplementedError(
-        f"par key {key!r} belongs to {cls}, which pint_tpu_torch does "
-        f"not have yet: {UNPORTED_COMPONENTS[cls]}")
-
-
-def _unported_owner(key: str):
-    """The unported component a par key routes to in the reference, or
-    None."""
-    if key in UNPORTED_PARAMS:
-        return UNPORTED_PARAMS[key]
-    try:
-        prefix, _, _ = split_prefixed_name(key)
-    except ValueError:
-        return None
-    return UNPORTED_PARAMS.get(prefix) or \
-        UNPORTED_PARAMS.get(prefix.rstrip("_"))
+        f"par line {key!r} needs {UNPORTED[key]}, which pint_tpu_torch "
+        f"does not have yet")
 
 
 BINARY_COMPONENT_PREFIX = "Binary"
@@ -266,9 +222,7 @@ class ModelBuilder:
             if key == "UNITS":
                 units = toks[0] if toks else "TDB"
                 if units.upper() == "TCB":
-                    raise NotImplementedError(
-                        "UNITS TCB: the TCB->TDB conversion is not in "
-                        "pint_tpu_torch yet (ROADMAP.md queue 1 item 12)")
+                    _refuse("UNITS TCB")
                 get_comp("MiscParams").UNITS.value = units
                 continue
 
@@ -359,13 +313,8 @@ class ModelBuilder:
                 p.from_tokens(toks)
                 continue
 
-            # 4. known to the reference, not ported yet
-            owner = _unported_owner(key)
-            if owner is not None:
-                _refuse(key, owner)
-
-            # 5. other members of a ported prefix family (FD2, FD3...):
-            #    a new parameter of the template member's units
+            # 4. other members of a prefix family (FD2, GLF0_2, WAVE2...):
+            #    a new parameter of the first member's class and units
             p = _family_member(key, self.param_index, get_comp)
             if p is not None:
                 p.from_tokens(toks)
@@ -408,9 +357,10 @@ class ModelBuilder:
 
 
 def _family_member(key: str, index: Dict[str, str], get_comp):
-    """A new prefixParameter ``key`` on the component owning its prefix
-    family (reference: ModelBuilder step 4), or None when no ported
-    component owns the prefix."""
+    """A new parameter ``key`` on the component owning its prefix family,
+    of the class of the family's first member (a pairParameter for WAVE
+    and IFUNC, else a prefixParameter) and its units (reference:
+    ModelBuilder step 4), or None when no component owns the prefix."""
     try:
         prefix, _, _ = split_prefixed_name(key)
     except ValueError:
@@ -422,7 +372,10 @@ def _family_member(key: str, index: Dict[str, str], get_comp):
     tmpl = next((q for qn, q in comp.params.items()
                  if qn != key and qn.startswith(prefix)
                  and qn[len(prefix):].isdigit()), None)
-    p = prefixParameter(name=key, units=getattr(tmpl, "units", ""))
+    if isinstance(tmpl, pairParameter):
+        p = pairParameter(key, units=tmpl.units)
+    else:
+        p = prefixParameter(name=key, units=getattr(tmpl, "units", ""))
     comp.add_param(p)
     return p
 

@@ -21,8 +21,9 @@ Conventions:
 
 Wideband DM channel: ScaleDmError scales the DM uncertainties
 (DMEQUAD added first, then DMEFAC multiplies), and PLDMNoise's basis
-couples into the DM rows through ``noise_dm_basis``. PLChromNoise and
-PLSWNoise are not ported yet (ROADMAP.md).
+couples into the DM rows through ``noise_dm_basis``, as does
+PLSWNoise's (the solar wind is a DM perturbation too). PLChromNoise
+scales the basis by (1400 MHz/nu)^alpha with ChromaticCM's TNCHROMIDX.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from pint_tpu_torch.models.timing_model import Component
 
 __all__ = [
     "NoiseComponent", "ScaleToaError", "ScaleDmError", "EcorrNoise",
-    "PLRedNoise", "PLDMNoise",
+    "PLRedNoise", "PLDMNoise", "PLChromNoise", "PLSWNoise",
     "create_quantization_matrix", "quantization_buckets",
     "create_fourier_design_matrix", "powerlaw", "EcorrOverlapError",
 ]
@@ -463,4 +464,123 @@ class PLDMNoise(NoiseComponent):
 
     def noise_dm_basis(self, toas, F_time):
         """Wideband DM-channel block (see _dm_rows_from_time_basis)."""
+        return _dm_rows_from_time_basis(toas, F_time)
+
+
+class PLChromNoise(NoiseComponent):
+    """Power-law chromatic noise with a general index: the red-noise
+    Fourier basis scaled per row by (1400 MHz/nu)^alpha, alpha =
+    TNCHROMIDX of the ChromaticCM component (4 without one) (reference:
+    PLChromNoise.pl_chrom_basis_weight_pair)."""
+
+    register = True
+
+    def param_dimensions(self):
+        return _spec({"TNCHROMAMP": "", "TNCHROMGAM": ""})
+
+    is_basis_noise = True
+
+    REF_FREQ_MHZ = 1400.0
+
+    def __init__(self):
+        super().__init__()
+        self.add_param(floatParameter(
+            "TNCHROMAMP", units="log10", aliases=["TNChromAmp"],
+            description="log10 chromatic-noise amplitude"))
+        self.add_param(floatParameter(
+            "TNCHROMGAM", units="", aliases=["TNChromGam"],
+            description="chromatic-noise spectral index"))
+        self.add_param(intParameter(
+            "TNCHROMC", value=30, aliases=["TNChromC"],
+            description="number of chromatic Fourier modes"))
+
+    def _alpha(self) -> float:
+        from pint_tpu_torch.models.components_tail import chromatic_index
+
+        return chromatic_index(getattr(self, "_parent", None))
+
+    def validate(self):
+        if self.TNCHROMAMP.value is not None and \
+                self.TNCHROMGAM.value is None:
+            raise ValueError("TNCHROMAMP set without TNCHROMGAM")
+
+    def noise_basis_weight(self, toas, tspan=None,
+                           tref_day=None):
+        if self.TNCHROMAMP.value is None:
+            return None
+        A = 10.0 ** self.TNCHROMAMP.value
+        gamma = self.TNCHROMGAM.value
+        nmodes = int(self.TNCHROMC.value or 30)
+        t = _tdb_seconds(toas, ref_day=tref_day)
+        F, freqs = create_fourier_design_matrix(t, nmodes, Tspan=tspan)
+        scale = (self.REF_FREQ_MHZ / toas.get_freqs()) ** self._alpha()
+        F = F * np.where(np.isfinite(scale), scale, 0.0)[:, None]
+        df = freqs[0]
+        phi = powerlaw(freqs, A, gamma) * df
+        return F, phi
+
+
+class PLSWNoise(NoiseComponent):
+    """Power-law solar-wind noise: the Fourier basis scaled per row by
+    the solar wind's line-of-sight geometry (at the catalogue position)
+    times (1400 MHz/nu)^2 (reference: PLSWNoise.pl_sw_basis_weight_pair).
+    """
+
+    register = True
+
+    def param_dimensions(self):
+        return _spec({"TNSWAMP": "", "TNSWGAM": ""})
+
+    is_basis_noise = True
+
+    REF_FREQ_MHZ = 1400.0
+
+    def __init__(self):
+        super().__init__()
+        self.add_param(floatParameter(
+            "TNSWAMP", units="log10", aliases=["TNSWAmp"],
+            description="log10 solar-wind-noise amplitude"))
+        self.add_param(floatParameter(
+            "TNSWGAM", units="", aliases=["TNSWGam"],
+            description="solar-wind-noise spectral index"))
+        self.add_param(intParameter(
+            "TNSWC", value=10, aliases=["TNSWC"],
+            description="number of solar-wind Fourier modes"))
+
+    def validate(self):
+        if self.TNSWAMP.value is not None and \
+                self.TNSWGAM.value is None:
+            raise ValueError("TNSWAMP set without TNSWGAM")
+
+    def noise_basis_weight(self, toas, tspan=None,
+                           tref_day=None):
+        if self.TNSWAMP.value is None:
+            return None
+        parent = getattr(self, "_parent", None)
+        if parent is None:
+            return None
+        from pint_tpu_torch.models.components_extra import AU_M, PC_M
+        from pint_tpu_torch.models.components_tail import (
+            solar_wind_geometry_host,
+        )
+
+        A = 10.0 ** self.TNSWAMP.value
+        gamma = self.TNSWGAM.value
+        nmodes = int(self.TNSWC.value or 10)
+        t = _tdb_seconds(toas, ref_day=tref_day)
+        F, freqs = create_fourier_design_matrix(t, nmodes, Tspan=tspan)
+        # normalized at 90 degrees of elongation and 1 AU
+        geom = solar_wind_geometry_host(toas, parent._host_psr_dir(toas))
+        geom0 = (AU_M * AU_M / PC_M) * (np.pi / 2.0) / AU_M
+        fscale = (self.REF_FREQ_MHZ / toas.get_freqs()) ** 2
+        scale = (geom / geom0) * np.where(np.isfinite(fscale), fscale,
+                                          0.0)
+        F = F * scale[:, None]
+        df = freqs[0]
+        phi = powerlaw(freqs, A, gamma) * df
+        return F, phi
+
+    def noise_dm_basis(self, toas, F_time):
+        """A nu^-2 DM perturbation (the geometry rides along in F_time):
+        it couples into the wideband DM rows as PLDMNoise does."""
         return _dm_rows_from_time_basis(toas, F_time)

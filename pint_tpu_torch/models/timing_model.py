@@ -190,6 +190,26 @@ class MiscParams(Component):
                 "CHI2": DIMENSIONLESS, "TRES": parse_unit("us")}
 
 
+def frozen_value(param, fallback=None):
+    """The host value of a parameter that device code reads as a plain
+    number: reference epochs (WXEPOCH, DMWXEPOCH, CMEPOCH, CMWXEPOCH and
+    their PEPOCH fallback) and the solar-wind model switch SWM. That is
+    sound only while the parameter is frozen: no tangent flows through a
+    host number, so fitting such a parameter would leave its design
+    column zero. A free one raises the reference's ValueError
+    (frozen_trace_value). ``fallback`` (another Parameter) is read, under
+    the same rule, when ``param`` has no value."""
+    if not param.frozen:
+        raise ValueError(
+            f"{param.name} is free, but device code reads its value as a "
+            f"constant: fitting it is not supported; freeze {param.name}")
+    if param.value is not None:
+        return float(param.value)
+    if fallback is not None:
+        return frozen_value(fallback)
+    return None
+
+
 def _category_rank(comp: Component) -> int:
     cats = DELAY_CATEGORY_ORDER + PHASE_CATEGORY_ORDER
     try:
@@ -506,27 +526,46 @@ class TimingModel:
 
     def dm_total_device(self, pv, batch, cache_sub):
         """Total model DM [pc/cm^3] per TOA, summed over every component
-        with a ``dm_value_device`` (DM polynomial, DMX, DMJUMP). None of
-        these reads ctx, so no delay runs first (the reference runs
-        astrometry's for the solar-wind DM, not ported). Shared by
-        build_dm_fn and the wideband fit step, so the two channels
-        cannot disagree."""
+        with a ``dm_value_device`` (DM polynomial, DMX, DMJUMP, DMWaveX,
+        the solar wind and SWX). With a solar-wind component, the one
+        reader of ctx, astrometry's delay runs first, on a zero delay, to
+        put the pulsar direction in ctx for its line of sight (the
+        reference runs it always; without a reader it changes no value
+        and costs ~120 launches a wideband step). Shared by build_dm_fn
+        and the wideband fit step, so the two channels cannot
+        disagree."""
         ctx: dict = {}
         dm = torch.zeros_like(batch.freq_mhz)
+        if self._has_solar_wind():
+            for c in self.delay_components:
+                if c.category == "astrometry":
+                    c.delay(pv, batch, cache_sub, ctx, dm)
         for c in self._ordered_components():
             if hasattr(c, "dm_value_device"):
                 dm = dm + c.dm_value_device(pv, batch, cache_sub, ctx)
         return dm
 
+    def _has_solar_wind(self) -> bool:
+        """A SolarWindDispersion (NE_SW) is present: its DM reads the
+        pulsar direction astrometry puts in ctx."""
+        return any(c.category == "solar_wind"
+                   for c in self.components.values())
+
     def dm_affecting_free_params(self) -> set:
         """Names whose tangents can move dm_total_device: the parameters
-        of every component with a ``dm_value_device``. The wideband step
-        restricts the DM-row Jacobian to these columns; every other one
-        is structurally zero."""
+        of every component with a ``dm_value_device``, and astrometry's
+        when a solar-wind component (NE_SW) reads the pulsar direction
+        it puts in ctx (SWX's geometry columns are host data, so it adds
+        none). The wideband step restricts the DM-row Jacobian to these
+        columns; every other one is structurally zero."""
         names: set = set()
         for c in self.components.values():
             if hasattr(c, "dm_value_device"):
                 names.update(c.params)
+        if self._has_solar_wind():
+            for c in self.components.values():
+                if c.category == "astrometry":
+                    names.update(c.params)
         return names
 
     def build_dm_fn(self, toas, device=None):
@@ -590,6 +629,26 @@ class TimingModel:
         self._cache = cache
         self._cache_key = key
         return cache
+
+    def _host_psr_dir(self, toas) -> np.ndarray:
+        """(N, 3) SSB->pulsar unit vectors (ICRS) at the catalogue
+        position, without proper motion: for host precomputes whose
+        dependence on astrometry updates is second order (the SWX
+        geometry columns, the PLSWNoise basis)."""
+        eq = self.components.get("AstrometryEquatorial")
+        if eq is not None:
+            a0, d0 = eq.RAJ.value, eq.DECJ.value
+            n = np.array([np.cos(d0) * np.cos(a0),
+                          np.cos(d0) * np.sin(a0), np.sin(d0)])
+            return np.broadcast_to(n, (toas.ntoas, 3))
+        ec = self.components.get("AstrometryEcliptic")
+        if ec is not None:
+            l0, b0 = ec.ELONG.value, ec.ELAT.value
+            n_ecl = np.array([np.cos(b0) * np.cos(l0),
+                              np.cos(b0) * np.sin(l0), np.sin(b0)])
+            n = np.asarray(ec._ecl_matrix()) @ n_ecl
+            return np.broadcast_to(n, (toas.ntoas, 3))
+        raise ValueError("model has no astrometry component")
 
     def _make_tzr_toas(self, toas):
         """Build the one-TOA TZR set (reference:
