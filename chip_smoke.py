@@ -190,7 +190,30 @@ Phases, each fatal on failure:
      barycentred: GPU delay vs CPU within 1e-12 s, phase with equal pulse
      numbers and fractions within F0 x 1e-12 s, design matrix finite and
      within 1e-10 of each column's largest entry;
-12. print the card's name and power limit, and one JSON line of kernel
+12. the Bayesian path on the fit cell (no hand-written kernel either;
+   K1's launches on it are read and must stay 0):
+   bayes-batch: BayesianTiming.lnlikelihood_batch at 88 walker points
+     (init_walkers, default_rng(7), the parameters' uncertainties the fit
+     step's sigmas) on the GPU against the CPU's and against three scalar
+     calls, 1e-10 relative;
+   bayes-noise: SampledNoiseLikelihood (ECORR1.log10, PLRedNoise.log10_A,
+     .gamma) at eta0 against the fixed-noise BayesianTiming, at eta0 +
+     (0.1, 0.3, -0.4) against a BayesianTiming rebuilt there, 1e-9;
+   bayes-chain: DeviceEnsembleSampler over the 43 dimensions, 88 walkers,
+     32 steps: scan and host_loop bitwise equal;
+   bayes-time: MCMCFitter(sample_noise=True), a chain of 64 steps timed
+     (steps/s, walker-steps/s, peak device memory), the launches of one
+     lnpost_batch of 44 walkers and a profiled chain step (device busy,
+     idle share);
+   bayes-moments: tests/test_sampling.py's 60-TOA pulsar simulated and
+     WLS-fitted on the GPU, 32 walkers x 600 steps: after 200 the F0/F1
+     means within 0.5 sigma of the fit, std ratios in (0.5, 2),
+     acceptance in (0.1, 0.95);
+   bayes-grid: grid_chisq over (F0, F1), 8 x 8 nodes at +-3.5 sigma about
+     the fit, maxiter 2, in chunks of config.grid_chunk nodes: minimum at
+     the node nearest the fit, four nodes against the CPU within
+     chi2_tol, its wall, chunk and peak device memory;
+13. print the card's name and power limit, and one JSON line of kernel
    measurements.
 
 The last line of standard output is {"ok": true, "device": {...}}. The
@@ -411,6 +434,33 @@ GWB_RTOL = 1e-9                      # tests/test_gwb.py:235
 GWB_GRID = 8                         # bench_pta.py's 8 x 8 sweep
 POST_WALKERS, POST_STEPS, POST_BURN = 32, 600, 200
 H100_F64_OPS_PER_S = 67e12           # float64 on the tensor cores (DGEMM)
+
+# The Bayesian path on the fit cell: 40 timing parameters + ECORR1.log10,
+# PLRedNoise.log10_A and .gamma sampled, with MCMCFitter's 2 * 43 + 2 = 88
+# walkers (walkers(): 2 * ndim + 2). BAYES_REL: the GPU batch against the
+# CPU's and the scalar calls (tests/test_torch_bayesian.py); NOISE_REL:
+# the noise-sampled oracles (tests/test_sampling.py:228, :250).
+BAYES_EXACT_STEPS, BAYES_TIMED_STEPS = 32, 64
+BAYES_REL, NOISE_REL = 1e-10, 1e-9
+BAYES_ETA_MOVE = (0.1, 0.3, -0.4)
+# the moments check: tests/test_sampling.py's 60-TOA pulsar (PAR, _mk's
+# recipe copied), its WLS fit, 32 walkers x 600 steps, 200 burned
+MOMENT_PAR = """\
+PSR J0006+0006
+RAJ 06:00:00.0
+DECJ 20:00:00.0
+F0 220.0 1
+F1 -1.5e-15 1
+PEPOCH 55000
+POSEPOCH 55000
+DM 15.0
+DMEPOCH 55000
+TZRMJD 55000.1
+TZRSITE @
+TZRFRQ 1400
+UNITS TDB
+"""
+GRID_NODES, GRID_MAXITER, GRID_SIGMA = 8, 2, 3.5   # (F0, F1) +-3.5 sigma
 
 # The rest of the timing-model zoo. zoo-msp: a NANOGrav-15-yr-style
 # J1713+0747-like DD binary, 10,000 TOAs in four-TOA clusters (four
@@ -2395,6 +2445,339 @@ def pta_phase(ntoa: int, nfreq: int, dev) -> dict:
             "seconds": secs}
 
 
+# ------------------------------------------------------------ the Bayesian path
+
+
+def bayes_model(par: str, sigma: dict, dev):
+    """The fit cell's model on `dev`, each free timing parameter's
+    uncertainty set to the fit step's sigma (so the walkers start within
+    the posterior, as after a fit)."""
+    from pint_tpu_torch.models import get_model
+
+    m = get_model(io.StringIO(par), device=dev)
+    for name in m.free_params:
+        m.get_param(name).uncertainty = float(sigma[name])
+    return m
+
+
+def walkers(ndim: int) -> int:
+    """MCMCFitter's ensemble size for `ndim` dimensions at its default
+    nwalkers=32: 2 * ndim + 2 (even)."""
+    return max(32, 2 * ndim + 2)
+
+
+def bayes_batch_check(mg, mc, toas, seed: int) -> tuple:
+    """(a) BayesianTiming.lnlikelihood_batch at walkers(ndim) points drawn
+    by init_walkers from default_rng(seed): the GPU's against the CPU's
+    and against the GPU's scalar lnlikelihood at three of them, within
+    BAYES_REL relative. Returns (results, posterior, walker array)."""
+    import torch
+
+    from pint_tpu_torch.bayesian import BayesianTiming
+    from pint_tpu_torch.sampling import DevicePosterior
+
+    t0 = time.perf_counter()
+    post = DevicePosterior(mg, toas, sample_noise=True)
+    build_s = time.perf_counter() - t0
+    bt = post.bt
+    nw = walkers(post.nparams)
+    p0 = post.init_walkers(nw, rng=np.random.default_rng(seed))
+    thetas = p0[:, :post.ntiming]
+    bt.lnlikelihood_batch(thetas)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ll = bt.lnlikelihood_batch(thetas)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ll_cpu = BayesianTiming(mc, toas).lnlikelihood_batch(thetas)
+    cpu_s = time.perf_counter() - t0
+    scalar = [bt.lnlikelihood(thetas[k]) for k in range(3)]
+    res = {"walkers": nw, "ntiming": post.ntiming,
+           "nparams": post.nparams, "labels_noise":
+           post.param_labels[post.ntiming:], "posterior_build_s": build_s,
+           "batch_ms": batch_ms, "cpu_batch_s": cpu_s,
+           "gpu_vs_cpu_rel": rel_err(ll, ll_cpu, BAYES_REL),
+           "batch_vs_scalar_rel": rel_err(ll[:3], scalar, BAYES_REL),
+           "lnlike_range": [float(ll.min()), float(ll.max())]}
+    print(f"bayes-batch: {nw} walkers x {post.ntiming} timing "
+          f"parameters ({post.nparams} with the noise dimensions "
+          f"{res['labels_noise']}), N = {toas.ntoas}: GPU batch "
+          f"{batch_ms:.3f} ms (host clock), CPU batch {cpu_s:.3f} s; GPU vs "
+          f"CPU {res['gpu_vs_cpu_rel']:.3e} relative, batch vs scalar "
+          f"{res['batch_vs_scalar_rel']:.3e} (limit {BAYES_REL}); lnL in "
+          f"[{res['lnlike_range'][0]:.6e}, {res['lnlike_range'][1]:.6e}]")
+    if not (np.all(np.isfinite(ll)) and res["gpu_vs_cpu_rel"] <= BAYES_REL
+            and res["batch_vs_scalar_rel"] <= BAYES_REL):
+        fail("bayes-batch: the GPU batch likelihood disagrees")
+    if post.nparams != post.ntiming + 3:
+        fail(f"bayes-batch: {post.nparams - post.ntiming} noise dimensions, "
+             "expected ECORR1.log10, PLRedNoise.log10_A and .gamma")
+    return res, post, p0
+
+
+def bayes_noise_check(par: str, post, p0, toas, dev) -> dict:
+    """(b) SampledNoiseLikelihood on the GPU: at eta0 the fixed-noise
+    BayesianTiming, at eta0 + BAYES_ETA_MOVE a BayesianTiming rebuilt at
+    those hyperparameters, within NOISE_REL, at two walker points."""
+    from pint_tpu_torch.bayesian import BayesianTiming
+    from pint_tpu_torch.models import get_model
+
+    sn, bt = post.noise, post.bt
+    pts = p0[:2, :post.ntiming]
+    pinned = rel_err([sn.lnlikelihood(th, sn.eta0) for th in pts],
+                     [bt.lnlikelihood(th) for th in pts], NOISE_REL)
+    eta1 = sn.eta0 + np.asarray(BAYES_ETA_MOVE)
+    m2 = get_model(io.StringIO(par), device=dev)
+    m2.get_param(sn.labels[0].split(".")[0]).value = 10.0 ** eta1[0]
+    m2.get_param("TNREDAMP").value = eta1[1]
+    m2.get_param("TNREDGAM").value = eta1[2]
+    m2.invalidate_cache()
+    bt2 = BayesianTiming(m2, toas)
+    moved = rel_err([sn.lnlikelihood(th, eta1) for th in pts],
+                    [bt2.lnlikelihood(th) for th in pts], NOISE_REL)
+    shift = sn.lnlikelihood(pts[0], eta1) - sn.lnlikelihood(pts[0], sn.eta0)
+    print(f"bayes-noise: pinned eta0 vs fixed-noise {pinned:.3e}, moved "
+          f"eta0 + {BAYES_ETA_MOVE} vs rebuilt {moved:.3e} relative (limit "
+          f"{NOISE_REL}); the move shifts lnL by {shift:.6e}")
+    if not (pinned <= NOISE_REL and moved <= NOISE_REL and shift != 0.0):
+        fail("bayes-noise: the noise-sampled likelihood disagrees")
+    return {"pinned_rel": pinned, "moved_rel": moved, "lnl_shift": shift}
+
+
+def bayes_chain_check(post, p0, dev) -> dict:
+    """(c) DeviceEnsembleSampler over the 43 sampled dimensions: scan and
+    host_loop bitwise equal after BAYES_EXACT_STEPS steps."""
+    from pint_tpu_torch.sampling import DeviceEnsembleSampler
+
+    out, secs = [], {}
+    for mode in ("scan", "host_loop"):
+        s = DeviceEnsembleSampler(len(p0), post.nparams, post.lnpost_batch,
+                                  device=dev)
+        t0 = time.perf_counter()
+        pos = s.run_mcmc(p0, BAYES_EXACT_STEPS, seed=5, mode=mode)
+        secs[mode] = time.perf_counter() - t0
+        out.append((s, pos))
+    (a, pa), (b, pb) = out
+    same = (np.array_equal(pa, pb) and np.array_equal(a.chain, b.chain)
+            and np.array_equal(a.lnprob, b.lnprob)
+            and a.naccepted == b.naccepted)
+    print(f"bayes-chain: {len(p0)} walkers x {post.nparams} "
+          f"dimensions x {BAYES_EXACT_STEPS} steps, scan {secs['scan']:.3f}"
+          f" s ({a.dispatches} chunk), host_loop {secs['host_loop']:.3f} s "
+          f"({b.dispatches} calls): bitwise equal {same}; acceptance "
+          f"{a.acceptance_fraction:.3f}, finite lnprob "
+          f"{bool(np.all(np.isfinite(a.lnprob)))}")
+    if not same or not np.all(np.isfinite(a.lnprob)):
+        fail("bayes-chain: scan and host_loop differ on the GPU")
+    return {"steps": BAYES_EXACT_STEPS, "scan_s": secs["scan"],
+            "host_loop_s": secs["host_loop"],
+            "acceptance": a.acceptance_fraction}
+
+
+def bayes_time(par: str, sigma: dict, toas, dev) -> dict:
+    """(d) MCMCFitter(sample_noise=True) on the fit cell: a timed chain of
+    BAYES_TIMED_STEPS steps (steps/s, walker-steps/s, peak device memory),
+    launches per lnpost_batch and one profiled chain step (device busy,
+    idle share)."""
+    import torch
+
+    from pint_tpu_torch.mcmc_fitter import MCMCFitter
+
+    fitter = MCMCFitter(toas, bayes_model(par, sigma, dev),
+                        sample_noise=True, rng=np.random.default_rng(9))
+    post, smp = fitter.post, fitter.sampler
+    nw = fitter.nwalkers
+    if nw != walkers(post.nparams):
+        fail(f"bayes-time: MCMCFitter sized {nw} walkers")
+    x = torch.as_tensor(post.init_walkers(nw, rng=np.random.default_rng(3)),
+                        device=dev)
+    half = x[:nw // 2]
+    post.lnpost_batch(half)
+    one = device_busy(lambda: post.lnpost_batch(half), "bayes lnpost_batch "
+                      f"({nw // 2} walkers)")
+    lp = post.lnpost_batch(x)
+    chunk = smp._chunk(1)
+    seed = torch.tensor(1, dtype=torch.int64, device=dev)
+    chunk(x, lp, seed, 1, 0)
+    step = device_busy(lambda: chunk(x, lp, seed, 1, 0),
+                       "bayes chain step")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    chi2 = fitter.fit_toas(nsteps=BAYES_TIMED_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    res = {"walkers": nw, "nparams": post.nparams,
+           "steps": BAYES_TIMED_STEPS, "wall_s": wall,
+           "steps_per_s": BAYES_TIMED_STEPS / wall,
+           "walker_steps_per_s": BAYES_TIMED_STEPS * nw / wall,
+           "launches_per_lnpost_batch": one["launches"],
+           "lnpost_batch_ms": one["wall_ms"], "lnpost_batch_busy_ms":
+           one["busy_ms"], "step": step, "peak_mib": peak / 2 ** 20,
+           "acceptance": smp.acceptance_fraction, "chi2": chi2,
+           "noise_estimates": fitter.noise_estimates}
+    print(f"bayes-time: MCMCFitter(sample_noise=True), {nw} "
+          f"walkers x {post.nparams} dimensions x {BAYES_TIMED_STEPS} steps "
+          f"on N = {toas.ntoas}: {wall:.3f} s ({res['steps_per_s']:.3f} "
+          f"steps/s, {res['walker_steps_per_s']:.1f} walker-steps/s), peak "
+          f"{res['peak_mib']:.1f} MiB; acceptance {res['acceptance']:.3f}; "
+          f"noise medians {fitter.noise_estimates}")
+    if not (np.isfinite(chi2) and len(fitter.noise_estimates) == 3):
+        fail("bayes-time: the fit gave no finite chi2 or noise estimates")
+    return res
+
+
+def bayes_moments(dev) -> dict:
+    """(e) MOMENT_PAR's 60 TOAs, simulated (default_rng(11), as
+    tests/test_sampling.py's _mk) and WLS-fitted on the GPU: 32 walkers x
+    600 steps, after 200 the F0/F1 chain means within 0.5 sigma of the
+    fit, std ratios in (0.5, 2), acceptance in (0.1, 0.95)
+    (posterior_check's limits)."""
+    from pint_tpu_torch.fitter import WLSFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.sampling import DeviceEnsembleSampler, \
+        DevicePosterior
+    from pint_tpu_torch.simulation import make_fake_toas_uniform
+
+    m = get_model(io.StringIO(MOMENT_PAR), device=dev)
+    toas = make_fake_toas_uniform(54000, 56000, 60, m, error_us=1.0,
+                                  freq_mhz=1400.0, add_noise=True,
+                                  rng=np.random.default_rng(11), device=dev)
+    wls = WLSFitter(toas, m)
+    wls.fit_toas(maxiter=2)
+    post = DevicePosterior(m, toas)
+    s = DeviceEnsembleSampler(POST_WALKERS, post.nparams, post.lnpost_batch,
+                              device=dev)
+    t0 = time.perf_counter()
+    s.run_mcmc(post.init_walkers(POST_WALKERS,
+                                 rng=np.random.default_rng(12)),
+               POST_STEPS, seed=13)
+    wall = time.perf_counter() - t0
+    flat = s.get_chain(discard=POST_BURN, flat=True)
+    sig = np.array([wls.errors[n] for n in post.param_labels])
+    mean_sigma = np.abs(flat.mean(axis=0) - post.theta0) / sig
+    ratio = flat.std(axis=0) / sig
+    acc = s.acceptance_fraction
+    res = {"labels": post.param_labels, "mean_sigma": mean_sigma.tolist(),
+           "std_ratio": ratio.tolist(), "acceptance": acc, "wall_s": wall,
+           "steps_per_s": POST_STEPS / wall, "chunks": s.dispatches}
+    print(f"bayes-moments: {post.param_labels} of the 60-TOA pulsar, "
+          f"{POST_WALKERS} walkers x {POST_STEPS} steps in {wall:.3f} s "
+          f"({res['steps_per_s']:.1f} steps/s, {s.dispatches} chunks): mean "
+          f"{mean_sigma} sigma from the WLS fit, std ratio {ratio}, "
+          f"acceptance {acc:.3f}")
+    if not (np.all(mean_sigma < 0.5) and np.all((ratio > 0.5) & (ratio < 2))
+            and 0.1 < acc < 0.95):
+        fail("bayes-moments: the chain's moments disagree with the WLS fit")
+    return res
+
+
+def bayes_grid(mg, mc, toas, step: dict) -> dict:
+    """(f) grid_chisq over (F0, F1), GRID_NODES x GRID_NODES nodes at
+    +-GRID_SIGMA sigma about the fit (the GLS step's update added),
+    maxiter=GRID_MAXITER: the minimum at the node nearest the fit in the
+    metric of the step's (F0, F1) covariance; four nodes against the CPU
+    within chi2_tol (the GPU-CPU residual difference at the entry point
+    as dr); its wall, node chunk and peak device memory."""
+    import torch
+
+    from pint_tpu_torch import config
+    from pint_tpu_torch.gridutils import grid_chisq
+    from pint_tpu_torch.residuals import Residuals
+
+    dp, cov, _, _ = [x.cpu().numpy() for x in step["step"](*step["args"])]
+    k = [step["names"].index(n) for n in ("F0", "F1")]
+    sig = np.sqrt(np.diag(cov)[k])
+    fit = np.array([mg.F0.value, mg.F1.value]) + dp[k]
+    off = np.linspace(-GRID_SIGMA, GRID_SIGMA, GRID_NODES)
+    axes = [fit[i] + (off + 0.25) * sig[i] for i in range(2)]
+    icov = np.linalg.inv(cov[np.ix_(k, k)])
+    g0, g1 = np.meshgrid(*axes, indexing="ij")
+    d = np.stack([g0 - fit[0], g1 - fit[1]], axis=-1)
+    maha = np.einsum("...i,ij,...j->...", d, icov, d)
+    nearest = np.unravel_index(np.argmin(maha), maha.shape)
+    nparams = len(step["names"]) - 2
+    chunk = config.grid_chunk(toas.ntoas, nparams)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    chi2 = grid_chisq(mg, toas, ("F0", "F1"), axes, maxiter=GRID_MAXITER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    kmin = np.unravel_index(np.argmin(chi2), chi2.shape)
+    idx = [(0, 0), nearest, (GRID_NODES - 1, 2), (3, GRID_NODES - 1)]
+    t0 = time.perf_counter()
+    cpu = [grid_chisq(mc, toas, ("F0", "F1"),
+                      ([axes[0][i]], [axes[1][j]]),
+                      maxiter=GRID_MAXITER)[0, 0] for i, j in idx]
+    cpu_s = time.perf_counter() - t0
+    dr = (Residuals(toas, mg).time_resids.cpu().numpy()
+          - Residuals(toas, mc).time_resids.numpy())
+    sigma = mc.scaled_toa_uncertainty(toas)
+    worst = 0.0
+    for (i, j), c in zip(idx, cpu):
+        tol = chi2_tol(c, dr, sigma, CHI2_REL)
+        worst = max(worst, abs(chi2[i, j] - c) / tol)
+    res = {"nodes": GRID_NODES ** 2, "maxiter": GRID_MAXITER,
+           "chunk": chunk, "nparams": nparams, "wall_s": wall,
+           "nodes_per_s": GRID_NODES ** 2 / wall, "peak_mib": peak / 2 ** 20,
+           "min_node": [int(x) for x in kmin],
+           "nearest_node": [int(x) for x in nearest],
+           "chi2_min": float(chi2.min()), "chi2_max": float(chi2.max()),
+           "cpu_nodes_s": cpu_s, "cpu_worst_over_tol": worst}
+    print(f"bayes-grid: grid_chisq over (F0, F1), {GRID_NODES} x "
+          f"{GRID_NODES} nodes at +-{GRID_SIGMA} sigma, maxiter "
+          f"{GRID_MAXITER}, {nparams} columns refit, chunks of {chunk} "
+          f"nodes: {wall:.3f} s ({res['nodes_per_s']:.2f} nodes/s), peak "
+          f"{res['peak_mib']:.1f} MiB; minimum at {res['min_node']} (nearest "
+          f"the fit {res['nearest_node']}), chi2 {res['chi2_min']:.6f} to "
+          f"{res['chi2_max']:.6f}; 4 nodes on the CPU in {cpu_s:.3f} s, worst "
+          f"|GPU - CPU| {worst:.3e} of chi2_tol")
+    if not (np.all(np.isfinite(chi2)) and tuple(kmin) == tuple(nearest)
+            and worst <= 1.0):
+        fail("bayes-grid: the grid's minimum or its CPU nodes disagree")
+    return res
+
+
+def bayes_phase(zmod, par: str, toas, step: dict, dev) -> dict:
+    """Phase 12: the Bayesian path on the fit cell (gates (a)-(f))."""
+    secs = {}
+    zmod.launches = 0
+    t0 = time.perf_counter()
+    mg, mc = (bayes_model(par, step["sigma"], d) for d in (dev, "cpu"))
+    batch, post, p0 = bayes_batch_check(mg, mc, toas, 7)
+    secs["batch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    noise = bayes_noise_check(par, post, p0, toas, dev)
+    secs["noise"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chain = bayes_chain_check(post, p0, dev)
+    secs["chain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timing = bayes_time(par, step["sigma"], toas, dev)
+    secs["time"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moments = bayes_moments(dev)
+    secs["moments"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid = bayes_grid(mg, mc, toas, step)
+    secs["grid"] = time.perf_counter() - t0
+    print("bayes seconds: " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in secs.items())
+          + f"; K1 launches on this path {zmod.launches} (no hand kernel "
+          "on it)")
+    if zmod.launches != 0:
+        fail(f"bayes: K1 launched {zmod.launches} times on a path that "
+             "reaches no Pallas kernel in the reference")
+    return {"ntoa": toas.ntoas, "batch": batch, "noise": noise,
+            "chain": chain, "time": timing, "moments": moments,
+            "grid": grid, "k1_launches": zmod.launches, "seconds": secs}
+
+
 # ------------------------------------------------------------ the model zoo
 
 
@@ -2947,6 +3330,11 @@ def main() -> int:
     print("zoo seconds: " + ", ".join(f"{k} {v:.3f}"
                                       for k, v in zoo_s.items()))
 
+    # the Bayesian path on the fit cell
+    t0 = time.perf_counter()
+    bayes = bayes_phase(zmod, fit_par_text, toas, step, dev)
+    bayes["seconds"]["total"] = time.perf_counter() - t0
+
     # timings at the main path's shape: float32 inputs (the TPU kernel's
     # contract) and float64 inputs (what the H-test hands the kernel)
     n, m = args.n, args.m
@@ -3109,6 +3497,7 @@ def main() -> int:
     print(json.dumps({"zoo_young": {**zy, "seconds": zoo_s["young"]}}))
     print(json.dumps({"zoo_photon": {**zph, "seconds": zoo_s["photon"]}}))
     print(json.dumps({"zoo_sweep": {**zsw, "seconds": zoo_s["sweep"]}}))
+    print(json.dumps({"bayes": bayes}))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": [{

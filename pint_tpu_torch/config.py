@@ -17,8 +17,8 @@ import os
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["chain_chunk_steps", "clock_dir", "ephem_dir", "gwb_chunk",
-           "obs_override", "solve_streaming", "stream_chunk"]
+__all__ = ["chain_chunk_steps", "clock_dir", "ephem_dir", "grid_chunk",
+           "gwb_chunk", "obs_override", "solve_streaming", "stream_chunk"]
 
 log = logging.getLogger(__name__)
 _WARNED_ENV: set = set()
@@ -131,3 +131,24 @@ def gwb_chunk() -> int:
                    os.environ.get("PINT_TPU_GWB_CHUNK"), 8)
         return 8
     return 1 << (k - 1).bit_length()
+
+
+# the chi2 grid's working set a node: float64 (N, p) blocks alive at
+# once in the vmapped refit step (measured ~16 on an H100: 393 MiB for 8
+# nodes at 10,000 TOAs and 39 columns, PERF.md; 24 leaves room), and
+# the budget of a chunk
+GRID_BLOCKS_PER_NODE = 24
+GRID_BUDGET_BYTES = 2 << 30
+
+
+def grid_chunk(ntoa: int, nparams: int) -> int:
+    """chi2-grid nodes one vmapped refit evaluates (``pint_tpu_torch.
+    gridutils``): the largest power of two in [1, 64] whose working set,
+    GRID_BLOCKS_PER_NODE float64 (ntoa, nparams) blocks a node, fits
+    GRID_BUDGET_BYTES (2 GiB). The result does not depend on the chunk."""
+    per_node = GRID_BLOCKS_PER_NODE * 8 * max(1, int(ntoa)) \
+        * max(1, int(nparams))
+    k = 1
+    while k < 64 and 2 * k * per_node <= GRID_BUDGET_BYTES:
+        k *= 2
+    return k

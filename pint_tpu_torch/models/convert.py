@@ -10,7 +10,8 @@ same inputs can be fed to both phase chains without either parser.
 FDJUMP, DMX — and a wideband step's ``wb_dm``/``wb_dme``/``wb_Fdm``
 leaves, noise bases, ECORR segments), and ``toas_from_columns`` a
 processed TOA table (its host columns, the -pp_dm/-pp_dme flags
-among them).
+among them). ``prior_from_reference`` gives a parameter the port's
+counterpart of a reference prior.
 """
 
 from __future__ import annotations
@@ -90,6 +91,28 @@ def fit_args_from_numpy(args: Sequence, device=None) -> tuple:
             _cache_from_numpy(cache, dev), f64(F), f64(phi), f64(nvec),
             f64(valid), torch.as_tensor(np.array(eid, np.int64),
                                         device=dev), f64(jvar))
+
+
+def prior_from_reference(obj):
+    """The port's prior of the same class as the reference prior ``obj``
+    (None stays None), read by class name and attributes (``lower`` and
+    ``upper``, ``mu`` and ``sigma``, ``base``) without importing the
+    reference."""
+    from pint_tpu_torch.models import priors
+
+    if obj is None:
+        return None
+    name = type(obj).__name__
+    if name not in priors.__all__:
+        raise TypeError(f"no port prior for {name}")
+    cls = getattr(priors, name)
+    if name == "UniformPrior":
+        return cls(obj.lower, obj.upper)
+    if name == "GaussianPrior":
+        return cls(obj.mu, obj.sigma)
+    if name == "Log10TransformedPrior":
+        return cls(prior_from_reference(obj.base))
+    return cls()
 
 
 _TOA_COLUMNS = ("mjd_day", "mjd_frac", "freq_mhz", "error_us", "obs",

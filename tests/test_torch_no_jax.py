@@ -1,7 +1,9 @@
 """The port imports nothing of jax or of the JAX package: in a fresh
 interpreter where ``import jax`` and ``import pint_tpu`` fail, every
 module of pint_tpu_torch imports, and the array plane runs on the CPU (a
-batch solve and one GWB log-likelihood on a tiny synthetic array)."""
+batch solve and one GWB log-likelihood on a tiny synthetic array), and
+so does the Bayesian plane (a DevicePosterior of a tiny simulated
+pulsar, fixed-noise and noise-sampled)."""
 
 import os
 import subprocess
@@ -27,7 +29,13 @@ for name in names:
     importlib.import_module(name)
 for name in ("pint_tpu_torch.pta.gwb", "pint_tpu_torch.parallel.pta",
              "pint_tpu_torch.sampling.kernel",
-             "pint_tpu_torch.sampling.serve_kernel"):
+             "pint_tpu_torch.sampling.serve_kernel",
+             "pint_tpu_torch.bayesian", "pint_tpu_torch.sampler",
+             "pint_tpu_torch.mcmc_fitter", "pint_tpu_torch.gridutils",
+             "pint_tpu_torch.models.priors",
+             "pint_tpu_torch.sampling.likelihood",
+             "pint_tpu_torch.sampling.posterior",
+             "pint_tpu_torch.sampling.chain"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu")
@@ -62,6 +70,37 @@ like = GWBLikelihood(problems=probs, gamma_matrix=np.eye(3), nfreq=2,
                      device="cpu")
 val = like.loglik(-14.0, 13.0 / 3.0)
 assert np.isfinite(val)
+
+import io
+import warnings
+
+import torch
+
+from pint_tpu_torch.models import get_model
+from pint_tpu_torch.models.priors import GaussianPrior
+from pint_tpu_torch.sampling import DevicePosterior
+from pint_tpu_torch.simulation import make_fake_toas_fromMJDs
+
+PAR = ("PSR J0006+0006\nRAJ 06:00:00.0\nDECJ 20:00:00.0\nF0 220.0 1\n"
+       "F1 -1.5e-15 1\nPEPOCH 55000\nDM 15.0\nTZRMJD 55000.1\n"
+       "TZRSITE @\nTZRFRQ 1400\nUNITS TDB\nEFAC -be X 1.1\n"
+       "ECORR -be X 0.8\nTNREDAMP -13.5\nTNREDGAM 3.0\nTNREDC 3\n")
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    model = get_model(io.StringIO(PAR), device="cpu")
+    mjds = (np.linspace(54001, 55999, 8)[:, None] + [0.0, 0.01]).ravel()
+    toas = make_fake_toas_fromMJDs(mjds, model, error_us=1.0,
+                                   freq_mhz=1400.0, add_noise=True,
+                                   rng=np.random.default_rng(1))
+for f in toas.flags:
+    f["be"] = "X"
+model.F1.prior = GaussianPrior(-1.5e-15, 1e-17)
+for noise in (False, True):
+    post = DevicePosterior(model, toas, sample_noise=noise)
+    p0 = post.init_walkers(2 * post.nparams + 2,
+                           rng=np.random.default_rng(2), scatter=0.1)
+    lp = post.lnpost_batch(torch.as_tensor(p0))
+    assert lp.shape == (len(p0),) and torch.all(torch.isfinite(lp)), lp
 print("OK", len(names))
 """
 
