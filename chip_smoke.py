@@ -213,7 +213,51 @@ Phases, each fatal on failure:
      the fit, maxiter 2, in chunks of config.grid_chunk nodes: minimum at
      the node nearest the fit, four nodes against the CPU within
      chi2_tol, its wall, chunk and peak device memory;
-13. print the card's name and power limit, and one JSON line of kernel
+13. photon sampling on --path-n photons of the photon path's recipe,
+   each moved by one Newton step onto PAR's own phase (the model delays
+   barycentred photons by the Sun's Shapiro delay, which the recipe's
+   spin-down leaves out), PAR with F0 and F1 free; K1's launches are
+   read for each check, and must be 2 in event-optimize, 1 in each run
+   of fermiphase, 0 elsewhere:
+   photon-templates: each of the 7 primitives, a three-primitive mixed
+     template and an LCEnergyTemplate with nonzero slopes, the pdf on the
+     card against the CPU at the path's phases (energies log-uniform over
+     0.1-10 keV) within 1e-12 of its largest value; LCTemplate.random on
+     the card gives the CPU's draws;
+   photon-lcfit: LCFitter from event_optimize's seed template on the
+     first 262,144 photons (background logit held), card vs CPU: logL
+     1e-9 relative, theta within 1e-2 of its Hessian error, the loc's and
+     width's theta_err 1e-4 relative; at full width on the card the
+     peak's loc within 3 errors of 0.3 and its width within 20 % of 0.01
+     (iterations, wall, ms a value-and-gradient call); LCEnergyFitter
+     card vs CPU on 65,536 photons (logL 1e-9, theta 1e-2 of its Hessian
+     errors, the logits relative to the background's);
+   photon-batch: PhotonMCMCFitter._photon_lnlike_batch at 16 walker
+     points, card vs CPU on the first 65,536 photons within 1e-9
+     relative, the vmapped device core bitwise the host _lp_batch at full
+     width; one half-ensemble timed, profiled (launches, busy ms, idle
+     share) and its peak device memory;
+   photon-chain: scan and host_loop bitwise over 16 steps of 32 walkers;
+     F1 frozen, F0 started 3 sigma off (sigma from the curvature of the
+     photon log-likelihood on the card), 32 walkers x 200 steps from a 1
+     sigma spread: the median within 5 sigma of the truth, acceptance in
+     (0.1, 0.95) (steps/s, walker-steps/s);
+   event-optimize: the CLI at full width on the card (32 walkers x 100
+     steps): return code 0, a (100, 32, 2) chain, a par file get_model
+     reads, both H values within phase 4's limit of the float64 plain H
+     (ingest, template, MCMC and H-test seconds);
+   composite: CompositeMCMCFitter on 500 gbt 1400 MHz TOAs simulated by
+     the port plus the first 262,144 photons, F0 free, 8 walkers x 60
+     steps (tests/test_mcmc.py:188's shape): _lp_batch card vs CPU at 8
+     points within 1e-9 relative, F0 within 5 of its errors of the truth;
+   fermiphase: a Fermi-LAT-like barycentred FT1 file of 262,144 photons
+     (Fermi's MJDREF, TELESCOP GLAST, MODEL_WEIGHT): fermiphase and
+     photonphase --mission fermi --weightcol MODEL_WEIGHT give bitwise
+     the same phases and H, within phase 4's limit of the plain H;
+   toa-io: get_TOAs(NGC6440E.tim, usecache=True) twice on the card, the
+     second from the cache, bitwise the same batch; write_TOA_file read
+     back within 1e-16 d of the TDBs;
+14. print the card's name and power limit, and one JSON line of kernel
    measurements.
 
 The last line of standard output is {"ok": true, "device": {...}}. The
@@ -259,6 +303,7 @@ UNITS TDB
 """
 F0, F1, PEPOCH = 205.53069927, -4.3e-16, 56500.0
 NICER_MJDREF = (56658, 7.775925925925926e-4)
+FERMI_MJDREF = (51910, 7.428703703703703e-4)
 PEAK, WIDTH, FRAC_PULSED = 0.3, 0.01, 0.8
 
 H100_BYTES_PER_S = 3.35e12     # HBM3
@@ -591,17 +636,60 @@ ZOO_SWEEP = {
 }
 ZOO_WB_NDMWX = 10
 
+# Phase 13, photon sampling, on the J0030 path's photons (--path-n,
+# default 1,048,576) and PAR with F0 and F1 free (PH_PAR): the templates
+# and LCFitter against the CPU on the first PH_LCFIT_N photons
+# (LCEnergyFitter on PH_ENERGY_N), the photon likelihood of PH_WALKERS
+# walkers (a half-ensemble of event_optimize's 32) against the CPU on the
+# first PH_BATCH_N, the chains, event_optimize, the composite radio +
+# photon fit (tests/test_mcmc.py:188's shape), fermiphase on a Fermi-LAT-
+# like FT1 file and the TOA cache and tim writer on NGC6440E.
+PH_PAR = PAR.replace("F0 205.53069927\n", "F0 205.53069927 1\n").replace(
+    "F1 -4.3e-16\n", "F1 -4.3e-16 1\n")
+PH_SPECS = {
+    "gaussian": [("gaussian", 0.55, 0.3, 0.03)],
+    "gaussian2": [("gaussian2", 0.5, 0.35, [0.02, 0.05])],
+    "vonmises": [("vonmises", 0.5, 0.7, 0.04)],
+    "lorentzian": [("lorentzian", 0.45, 0.95, 0.02)],
+    "lorentzian2": [("lorentzian2", 0.5, 0.05, [0.02, 0.05])],
+    "tophat": [("tophat", 0.6, 0.5, 0.2)],
+    "skewgaussian": [("skewgaussian", 0.5, 0.3, [0.03, 2.0])],
+    "mixed": [("gaussian", 0.4, 0.25, 0.03), ("vonmises", 0.2, 0.7, 0.05),
+              ("lorentzian2", 0.15, 0.9, [0.01, 0.03])],
+}
+PH_ENERGY_BASE = [("gaussian", 0.45, 0.3, 0.04), ("vonmises", 0.2, 0.7, 0.05),
+                  ("lorentzian", 0.1, 0.9, 0.02)]
+PH_SLOPES = dict(e0_kev=1.0, dlogits=[0.0, 0.4, -0.2, 0.1],
+                 dloc=[0.05, -0.02, 0.01], dlogw=[0.3, 0.0, -0.1])
+PH_PDF_REL = 1e-12            # card vs CPU pdf, of the pdf's largest value
+PH_DRAWS = 65_536             # LCTemplate.random draws, card vs CPU
+PH_REL = 1e-9                 # card vs CPU log-likelihoods and posteriors
+PH_LCFIT_N, PH_ENERGY_N, PH_BATCH_N = 262_144, 65_536, 65_536
+PH_THETA_SIGMA, PH_ERR_REL = 1e-2, 1e-4   # LCFitter card vs CPU
+PH_LOC_SIGMA, PH_WIDTH_REL = 3.0, 0.2     # the full-width fit vs the truth
+PH_WALKERS = 16
+PH_SCALES = (1e-10, 3e-17)    # F0 [Hz], F1 [Hz/s] spread of the batch points
+PH_EXACT_STEPS = 16
+PH_REC_WALKERS, PH_REC_STEPS, PH_REC_OFFSET = 32, 200, 3.0
+PH_TRUTH_SIGMA = 5.0
+PH_ACCEPT = (0.1, 0.95)
+PH_EO_STEPS = 100             # event_optimize's chain (32 walkers, F0/F1)
+COMPOSITE_NTOA, COMPOSITE_N = 500, 262_144
+COMPOSITE_WALKERS, COMPOSITE_STEPS = 8, 60
+FERMI_N = 262_144             # the ~1e5 weighted photons of a Fermi MSP
+H_REL = 1e-3                  # phase 4's limit: H vs the float64 plain H
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
 
 
-def event_columns(n: int, seed: int) -> dict:
-    """Barycentric photon times (seconds since the NICER MJDREF) whose
-    phases follow a Gaussian peak at PEAK plus a uniform background, and
-    photon weights (pulsed photons heavier): the recipe of the reference
-    package's event tests."""
+def event_draws(n: int, seed: int) -> tuple:
+    """(barycentric MJDs, target phases, weights) of `n` photons whose
+    phases follow a Gaussian peak at PEAK plus a uniform background, the
+    pulsed photons heavier: the recipe of the reference package's event
+    tests (times placed on PAR's spin-down to first order in F1)."""
     rng = np.random.default_rng(seed)
     mjd0, mjd1 = 56400.0, 56600.0
     base = rng.uniform(mjd0, mjd1, n)
@@ -612,20 +700,30 @@ def event_columns(n: int, seed: int) -> dict:
     dt = (base - PEPOCH) * 86400.0
     k = np.floor(dt * F0)
     tsec = (k + phi_t) / F0 - 0.5 * F1 / F0 * ((k + phi_t) / F0) ** 2
-    mjd = PEPOCH + tsec / 86400.0
-    times = ((mjd - NICER_MJDREF[0]) - NICER_MJDREF[1]) * 86400.0
     w = np.where(pulsed, rng.uniform(0.5, 1.0, n), rng.uniform(0.0, 0.5, n))
+    return PEPOCH + tsec / 86400.0, phi_t, w
+
+
+def event_columns(n: int, seed: int, mjdref=NICER_MJDREF,
+                  weightcol: str = "WEIGHT") -> dict:
+    """event_draws' photons as event columns: times in seconds since
+    `mjdref` (the NICER MJDREF by default), in time order, and the
+    weights in column `weightcol`."""
+    mjd, _, w = event_draws(n, seed)
+    times = ((mjd - mjdref[0]) - mjdref[1]) * 86400.0
     order = np.argsort(times)
-    return {"TIME": times[order], "WEIGHT": w[order]}
+    return {"TIME": times[order], weightcol: w[order]}
 
 
-def write_events(path: str, cols: dict) -> None:
+def write_events(path: str, cols: dict, mjdref=NICER_MJDREF,
+                 telescop: str = "NICER") -> None:
+    """Barycentred (TDB, SOLARSYSTEM) event FITS of `cols`."""
     from pint_tpu_torch.io.fits import write_events_fits
 
     write_events_fits(path, cols, header_extra={
         "TIMESYS": "TDB", "TIMEREF": "SOLARSYSTEM",
-        "MJDREFI": NICER_MJDREF[0], "MJDREFF": NICER_MJDREF[1],
-        "TELESCOP": "NICER", "TIMEZERO": 0.0, "TIMEUNIT": "s"})
+        "MJDREFI": mjdref[0], "MJDREFF": mjdref[1],
+        "TELESCOP": telescop, "TIMEZERO": 0.0, "TIMEUNIT": "s"})
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3,
@@ -802,18 +900,25 @@ def phase_path(zmod, dev, cols: dict, par: str, m: int, tmp: str) -> dict:
     med = float(np.median(dist))
     if not med < 0.02:
         fail(f"median distance from the injected peak {med:.4f} >= 0.02")
-    ph = torch.as_tensor(phases, dtype=torch.float64, device=dev)
-    w = torch.as_tensor(weights, dtype=torch.float64, device=dev)
-    cs = zmod.z2_harmonics_plain(ph, w, m)
-    terms = 2.0 * (cs[0] ** 2 + cs[1] ** 2) / torch.sum(w ** 2)
-    ks = torch.arange(1, m + 1, dtype=torch.float64, device=dev)
-    h_plain = float(torch.max(torch.cumsum(terms, 0) - 4.0 * ks + 4.0))
-    if not abs(h_cli - h_plain) <= 1e-3 * max(1.0, h_plain):
+    h_plain = plain_h(zmod, phases, weights, m, dev)
+    if not abs(h_cli - h_plain) <= H_REL * max(1.0, h_plain):
         fail(f"H from the kernel path {h_cli} vs f64 plain {h_plain}")
     print(f"path: median peak distance {med:.5f} turns, H {h_cli:.2f} "
           f"(f64 plain {h_plain:.2f}), kernel launches {launches}")
     return {"launches": launches, "stages": stages, "h": h_cli,
             "kernels_ms": device_kernel_ms(prof)}
+
+
+def plain_h(zmod, phases, weights, m: int, dev) -> float:
+    """The weighted H-test from K1's float64 plain version on `dev`."""
+    import torch
+
+    ph = torch.as_tensor(phases, dtype=torch.float64, device=dev)
+    w = torch.as_tensor(weights, dtype=torch.float64, device=dev)
+    cs = zmod.z2_harmonics_plain(ph, w, m)
+    terms = 2.0 * (cs[0] ** 2 + cs[1] ** 2) / torch.sum(w ** 2)
+    ks = torch.arange(1, m + 1, dtype=torch.float64, device=dev)
+    return float(torch.max(torch.cumsum(terms, 0) - 4.0 * ks + 4.0))
 
 
 def device_kernel_ms(prof) -> dict:
@@ -2968,36 +3073,47 @@ def zoo_wideband_phase(dev) -> dict:
     return out
 
 
-def zoo_photon_columns(par: str, n: int, seed: int, dev, tmp: str) -> dict:
-    """`n` barycentred photons pulsed under the model of `par` itself:
-    uniform times over ZOO_PHOTON_SPAN, each given a target phase (the
-    J0030 path's profile: a Gaussian peak at PEAK for FRAC_PULSED of
-    them, uniform for the rest) and moved within its pulse period by one
-    Newton step on the model's own phase, computed by the port on `dev`:
-    t + (target - phase(t)) / F(t), F(t) the F0-F2 Taylor frequency. The
-    step's error (the glitch's, WAVE's and IFUNC's frequency terms over a
-    shift of at most half a period) is under 1e-5 turns."""
+def pulsed_under_model(par: str, mjd, target, w, dev, tmp: str) -> dict:
+    """Event columns of barycentred photons pulsed under the model of
+    `par` itself: the photons at `mjd`, each moved within its pulse period
+    by one Newton step on the model's own phase, computed by the port on
+    `dev`, towards its `target` phase: t + (target - phase(t)) / F(t), F(t)
+    the model's spin-down Taylor frequency. The step's error (for a
+    glitch, WAVE or IFUNC ephemeris, their frequency terms over a shift of
+    at most half a period) is under 1e-5 turns."""
     from pint_tpu_torch.event_toas import load_fits_TOAs
     from pint_tpu_torch.models import get_model
 
-    rng = np.random.default_rng(seed)
-    mjd = np.sort(rng.uniform(*ZOO_PHOTON_SPAN, n))
+    order = np.argsort(mjd)
+    mjd, target, w = mjd[order], target[order], w[order]
     times = ((mjd - NICER_MJDREF[0]) - NICER_MJDREF[1]) * 86400.0
-    pulsed = rng.uniform(size=n) < FRAC_PULSED
-    target = np.where(pulsed,
-                      np.mod(PEAK + WIDTH * rng.standard_normal(n), 1.0),
-                      rng.uniform(size=n))
-    w = np.where(pulsed, rng.uniform(0.5, 1.0, n), rng.uniform(0.0, 0.5, n))
-    cand = os.path.join(tmp, "zoo_candidates.fits")
+    cand = os.path.join(tmp, "candidates.fits")
     write_events(cand, {"TIME": times, "WEIGHT": w})
     model = get_model(par, device=dev)
     frac = model.phase(load_fits_TOAs(cand, weightcolumn="WEIGHT",
                                       device=dev)).frac.cpu().numpy()
     dt = (mjd - model.PEPOCH.value) * 86400.0
-    f = model.F0.value + model.F1.value * dt + model.F2.value * dt * dt / 2
+    f = sum(model.get_param(name).value * dt ** k / math.factorial(k)
+            for k, name in enumerate(
+                model.components["Spindown"].f_terms()))
     times = times + (np.mod(target - frac + 0.5, 1.0) - 0.5) / f
     order = np.argsort(times)
     return {"TIME": times[order], "WEIGHT": w[order]}
+
+
+def zoo_photon_columns(par: str, n: int, seed: int, dev, tmp: str) -> dict:
+    """`n` barycentred photons pulsed under the model of `par` itself
+    (pulsed_under_model): uniform times over ZOO_PHOTON_SPAN, each given
+    a target phase (the J0030 path's profile: a Gaussian peak at PEAK for
+    FRAC_PULSED of them, uniform for the rest)."""
+    rng = np.random.default_rng(seed)
+    mjd = np.sort(rng.uniform(*ZOO_PHOTON_SPAN, n))
+    pulsed = rng.uniform(size=n) < FRAC_PULSED
+    target = np.where(pulsed,
+                      np.mod(PEAK + WIDTH * rng.standard_normal(n), 1.0),
+                      rng.uniform(size=n))
+    w = np.where(pulsed, rng.uniform(0.5, 1.0, n), rng.uniform(0.0, 0.5, n))
+    return pulsed_under_model(par, mjd, target, w, dev, tmp)
 
 
 def zoo_photon_phase(zmod, dev, n: int, m: int, seed: int,
@@ -3097,6 +3213,730 @@ def zoo_sweep(ntoa: int, dev) -> dict:
                  "phase_turns": max(worst["phase_turns"], p_err),
                  "design_rel": max(worst["design_rel"], m_err)}
     return {"ntoa": ntoa, "worst": worst, "rows": per}
+
+
+# ------------------------------------------------------ photon sampling
+
+
+def sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def peak_mib(fn) -> tuple:
+    """(fn(), MiB allocated at the peak of the call above what was
+    allocated before it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def record_hmw() -> tuple:
+    """(H values, restore): eventstats.hmw wrapped to record what it
+    returns, in call order, for the CLIs that import it at run time."""
+    from pint_tpu_torch import eventstats
+
+    seen, real = [], eventstats.hmw
+
+    def hmw(*a, **kw):
+        seen.append(real(*a, **kw))
+        return seen[-1]
+
+    eventstats.hmw = hmw
+    return seen, lambda: setattr(eventstats, "hmw", real)
+
+
+def run_main(main, argv) -> tuple:
+    """(return code, standard output) of a CLI's main(argv), its output
+    echoed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main([str(a) for a in argv])
+    out = buf.getvalue()
+    print(out, end="")
+    return rc, out
+
+
+def stage_seconds(out: str) -> dict:
+    return json.loads(re.search(r"Stage seconds: (\{.*\})", out).group(1))
+
+
+def photon_build(n: int, seed: int, tmp: str, dev) -> dict:
+    """PH_PAR and event_draws' `n` photons made pulsed under its model
+    (pulsed_under_model: the model delays barycentred photons by the
+    Sun's Shapiro delay, which event_draws' spin-down leaves out, 5.7e-11
+    Hz of F0 over the 200 days, ROADMAP.md §3) as files, the TOAs on
+    `dev`, the model's phases there and the photon weights."""
+    import torch
+
+    from pint_tpu_torch.event_toas import get_event_weights, load_fits_TOAs
+    from pint_tpu_torch.models import get_model
+
+    par = os.path.join(tmp, "j0030_f0f1.par")
+    with open(par, "w") as f:
+        f.write(PH_PAR)
+    t0 = time.perf_counter()
+    cols = pulsed_under_model(par, *event_draws(n, seed), dev, tmp)
+    draw_s = time.perf_counter() - t0
+    ev = os.path.join(tmp, "photons.fits")
+    write_events(ev, cols)
+    t0 = time.perf_counter()
+    toas = load_fits_TOAs(ev, weightcolumn="WEIGHT", device=dev)
+    ingest_s = time.perf_counter() - t0
+    model = get_model(par, device=dev)
+    phases = torch.remainder(model.phase(toas).frac, 1.0)
+    return {"par": par, "ev": ev, "cols": cols, "toas": toas,
+            "phases": phases, "weights": get_event_weights(toas),
+            "draw_s": draw_s, "ingest_s": ingest_s}
+
+
+def seed_template(phases: np.ndarray, weights: np.ndarray, dev):
+    """event_optimize's seeding recipe: one Gaussian at the first
+    harmonic's phase, its norm the clamped pulsed fraction, width 0.05."""
+    from pint_tpu_torch.templates import LCGaussian, LCTemplate
+
+    c1 = np.sum(weights * np.exp(2j * np.pi * phases))
+    loc0 = float(np.angle(c1) / (2 * np.pi)) % 1.0
+    frac = min(0.9, max(0.1, 2.0 * np.abs(c1) / np.sum(weights)))
+    return LCTemplate([LCGaussian()], norms=[frac], locs=[loc0],
+                      widths=[0.05], device=dev)
+
+
+def photon_templates_check(phases, seed: int, dev) -> dict:
+    """(a) every primitive, PH_SPECS' mixed template and an LCEnergyTemplate
+    with nonzero slopes: the pdf on the card against the CPU at the path's
+    phases (energies log-uniform over 0.1-10 keV from default_rng(seed)),
+    within PH_PDF_REL of the pdf's largest value; LCTemplate.random on the
+    card gives the CPU's PH_DRAWS draws."""
+    from pint_tpu_torch.templates import make_template
+    from pint_tpu_torch.templates.energy import LCEnergyTemplate
+
+    ph = phases.cpu().numpy()
+    energies = 10.0 ** np.random.default_rng(seed).uniform(-1, 1, len(ph))
+    errs, card_s = {}, {}
+    for name, spec in PH_SPECS.items():
+        g, c = (make_template(spec, device=d) for d in (dev, "cpu"))
+        t0 = time.perf_counter()
+        pg = g(ph)
+        card_s[name] = time.perf_counter() - t0
+        pc = c(ph)
+        errs[name] = float(np.max(np.abs(pg - pc)) / np.max(pc))
+        same = np.array_equal(g.random(PH_DRAWS, np.random.default_rng(1)),
+                              c.random(PH_DRAWS, np.random.default_rng(1)))
+        if not (errs[name] <= PH_PDF_REL and same):
+            fail(f"photon-templates: {name} on the card differs from the "
+                 f"CPU (pdf {errs[name]:.3e} of its largest value, limit "
+                 f"{PH_PDF_REL}; draws equal {same})")
+    g, c = (LCEnergyTemplate(make_template(PH_ENERGY_BASE, device=d),
+                             device=d, **PH_SLOPES) for d in (dev, "cpu"))
+    t0 = time.perf_counter()
+    pg = g(ph, energies)
+    card_s["energy"] = time.perf_counter() - t0
+    pc = c(ph, energies)
+    errs["energy"] = float(np.max(np.abs(pg - pc)) / np.max(pc))
+    print(f"photon-templates: 7 primitives, a mixed template and an "
+          f"LCEnergyTemplate at {len(ph)} phases: card vs CPU worst "
+          f"{max(errs.values()):.3e} of the pdf's largest value (limit "
+          f"{PH_PDF_REL}), {PH_DRAWS} random draws equal; pdf calls on the "
+          f"card {sum(card_s.values()):.3f} s (host clock, copies included)")
+    if not errs["energy"] <= PH_PDF_REL:
+        fail(f"photon-templates: the energy template on the card differs "
+             f"from the CPU by {errs['energy']:.3e}")
+    return {"n": len(ph), "pdf_rel": errs, "card_s": card_s}
+
+
+def counted_fitter(fitter) -> list:
+    """Count the fitter's value-and-gradient calls (one a BFGS call)."""
+    calls, vg = [0], fitter._valgrad
+
+    def counted(theta):
+        calls[0] += 1
+        return vg(theta)
+
+    fitter._valgrad = counted
+    return calls
+
+
+def hessian_err(nll, theta: np.ndarray, held) -> np.ndarray:
+    """sqrt(diag(H^-1)) of `nll` at theta over the entries not `held`
+    (0 at those)."""
+    import torch
+
+    keep = np.ones(len(theta), bool)
+    keep[list(held)] = False
+    H = torch.func.hessian(nll)(torch.as_tensor(theta)).cpu().numpy()
+    err = np.zeros(len(theta))
+    err[keep] = np.sqrt(np.diag(np.linalg.inv(H[np.ix_(keep, keep)])))
+    return err
+
+
+def softmax_gauge(theta: np.ndarray, m: int) -> np.ndarray:
+    """An energy template's theta with the logits and the logit slopes
+    taken relative to the background's (adding one number to every logit,
+    or to every slope, changes no pdf)."""
+    t = np.array(theta, dtype=np.float64)
+    t[:m + 1] -= theta[0]
+    t[3 * m + 1:4 * m + 2] -= theta[3 * m + 1]
+    return t
+
+
+def photon_lcfit_check(phases, weights: np.ndarray, seed: int,
+                       dev) -> tuple:
+    """(b) LCFitter from event_optimize's seed template on the first
+    PH_LCFIT_N photons, on the card and on the CPU, the background logit
+    held (softmax's one redundant direction, which leaves the Hessian
+    singular when free): log-likelihoods within PH_REL relative, each free
+    theta within PH_THETA_SIGMA of its Hessian error, the loc's and
+    width's theta_err within PH_ERR_REL relative (the weights carry the
+    background, so the norm runs to 1 and its logit's error is noise);
+    then the fit at full width on the card (loc within
+    PH_LOC_SIGMA errors of PEAK, width within PH_WIDTH_REL of WIDTH), and
+    LCEnergyFitter card vs CPU on PH_ENERGY_N photons (theta in the
+    softmax gauge). Returns (results, the full-width template)."""
+    import torch
+
+    from pint_tpu_torch.templates import LCFitter
+    from pint_tpu_torch.templates.energy import (LCEnergyFitter,
+                                                 LCEnergyTemplate)
+
+    ph_all, n = phases.cpu().numpy(), min(PH_LCFIT_N, len(weights))
+    fits = {}
+    for tag, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        t = seed_template(ph_all[:n], weights[:n], d)
+        free = t.param_mask()
+        free[0] = False
+        f = LCFitter(t, phases[:n].to(d), weights=weights[:n], device=d)
+        calls = counted_fitter(f)
+        t0 = time.perf_counter()
+        res = f.fit(free=free)
+        sync(d)
+        fits[tag] = (t, res, time.perf_counter() - t0, calls[0])
+    (tg, rg, sg, cg), (tc, rc, sc, cc) = fits["gpu"], fits["cpu"]
+    ll_rel = abs(rg["loglikelihood"] - rc["loglikelihood"]) \
+        / abs(rc["loglikelihood"])
+    th_sigma = float(np.max(np.abs(tg.theta - tc.theta)[free]
+                            / rc["theta_err"][free]))
+    # theta_err of the locs and widths: the logits are held or flat (the
+    # weights carry the background, so the fitted norm runs to 1)
+    shape = np.arange(len(free)) > 1
+    err_rel = float(np.max(np.abs(rg["theta_err"] - rc["theta_err"])[shape]
+                           / rc["theta_err"][shape]))
+    print(f"photon-lcfit: LCFitter on {n} photons, card {sg:.3f} s "
+          f"({rg['iterations']} iterations, {cg} calls), CPU {sc:.3f} s "
+          f"({rc['iterations']}, {cc}): logL {rg['loglikelihood']!r} vs "
+          f"{rc['loglikelihood']!r} ({ll_rel:.3e} relative, limit {PH_REL}); "
+          f"theta within {th_sigma:.3e} of its errors (limit "
+          f"{PH_THETA_SIGMA}), theta_err {err_rel:.3e} relative (limit "
+          f"{PH_ERR_REL})")
+    if not (rg["success"] and rc["success"] and ll_rel <= PH_REL
+            and th_sigma <= PH_THETA_SIGMA and err_rel <= PH_ERR_REL):
+        fail("photon-lcfit: the card's LCFitter does not reach the CPU's "
+             "optimum")
+    # the full width on the card
+    t = seed_template(ph_all, weights, dev)
+    f = LCFitter(t, phases, weights=weights, device=dev)
+    calls = counted_fitter(f)
+    t0 = time.perf_counter()
+    res = f.fit(free=free)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    theta = torch.as_tensor(t.theta, device=dev)
+    times = []
+    for _ in range(11):
+        t0 = time.perf_counter()
+        f._valgrad(theta)[0].cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    call_ms = float(np.median(times[1:]))
+    loc, loc_err, width = t.locs[0], res["theta_err"][2], t.widths[0][0]
+    print(f"photon-lcfit: full width ({len(weights)} photons) on the card: "
+          f"{res['iterations']} iterations, {calls[0]} value-and-gradient "
+          f"calls in {wall:.3f} s ({wall / calls[0] * 1e3:.3f} ms a call in "
+          f"the fit, {call_ms:.3f} ms alone, median of 10); loc {loc:.6f} +- {loc_err:.2e} "
+          f"(truth {PEAK}), width {width:.6f} (truth {WIDTH}), norm "
+          f"{t.norms[0]:.4f}")
+    if not (res["success"] and abs(loc - PEAK) <= PH_LOC_SIGMA * loc_err
+            and abs(width - WIDTH) <= PH_WIDTH_REL * WIDTH):
+        fail("photon-lcfit: the full-width fit misses the injected peak")
+    # LCEnergyFitter on energies log-uniform over 0.1-10 keV
+    ne = min(PH_ENERGY_N, len(weights))
+    en = 10.0 ** np.random.default_rng(seed).uniform(-1, 1, ne)
+    efits = {}
+    for tag, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        et = LCEnergyTemplate(seed_template(ph_all[:ne], weights[:ne], d),
+                              device=d)
+        ef = LCEnergyFitter(et, phases[:ne].to(d), en, weights=weights[:ne],
+                            device=d)
+        t0 = time.perf_counter()
+        eres = ef.fit()
+        sync(d)
+        efits[tag] = (et, eres, time.perf_counter() - t0, ef)
+    (eg, erg, esg, _), (ec, erc, esc, efc) = efits["gpu"], efits["cpu"]
+    # softmax gauge: each logit and logit slope taken relative to the
+    # background's, which carry no information of their own
+    gauge = (0, 3 * ec.m + 1)
+    eerr = hessian_err(efc._nll, ec.theta, gauge)
+    keep = eerr > 0
+    e_ll = abs(erg["loglikelihood"] - erc["loglikelihood"]) \
+        / abs(erc["loglikelihood"])
+    e_sigma = float(np.max(np.abs(softmax_gauge(eg.theta, ec.m)
+                                  - softmax_gauge(ec.theta, ec.m))[keep]
+                           / eerr[keep]))
+    print(f"photon-lcfit: LCEnergyFitter on {ne} photons, card {esg:.3f} s "
+          f"({erg['iterations']} iterations), CPU {esc:.3f} s: logL "
+          f"{e_ll:.3e} relative (limit {PH_REL}), theta within "
+          f"{e_sigma:.3e} of its Hessian errors (limit {PH_THETA_SIGMA})")
+    if not (erg["success"] and erc["success"] and e_ll <= PH_REL
+            and e_sigma <= PH_THETA_SIGMA):
+        fail("photon-lcfit: the card's LCEnergyFitter does not reach the "
+             "CPU's optimum")
+    return {"n": n, "gpu_s": sg, "cpu_s": sc, "iterations": rg["iterations"],
+            "calls": cg, "ll_rel": ll_rel, "theta_sigma": th_sigma,
+            "theta_err_rel": err_rel,
+            "full": {"n": len(weights), "wall_s": wall,
+                     "iterations": res["iterations"], "calls": calls[0],
+                     "ms_per_call_in_fit": wall / calls[0] * 1e3,
+                     "ms_per_call": call_ms, "loc": loc, "loc_err": loc_err,
+                     "width": width, "norm": float(t.norms[0])},
+            "energy": {"n": ne, "gpu_s": esg, "cpu_s": esc,
+                       "iterations": erg["iterations"], "ll_rel": e_ll,
+                       "theta_sigma": e_sigma}}, t
+
+
+def photon_fitter(toas, par: str, template, weights, dev, nwalkers: int,
+                  seed: int, frozen=()):
+    """PhotonMCMCFitter of the model of `par` on `dev`."""
+    from pint_tpu_torch.mcmc_fitter import PhotonMCMCFitter
+    from pint_tpu_torch.models import get_model
+
+    model = get_model(par, device=dev)
+    for name in frozen:
+        model.get_param(name).frozen = True
+    model.invalidate_cache()
+    return PhotonMCMCFitter(toas, model, template, weights=weights,
+                            nwalkers=nwalkers,
+                            rng=np.random.default_rng(seed))
+
+
+def photon_batch_check(pb: dict, template, seed: int, tmp: str,
+                       dev) -> tuple:
+    """(c) PhotonMCMCFitter._photon_lnlike_batch at PH_WALKERS points
+    (PH_SCALES about the par's F0 and F1, default_rng(seed)): the card
+    against the CPU on the first PH_BATCH_N photons (PH_REL relative), the
+    vmapped device core (lnpost_batch) against the host _lp_batch at full
+    width (bitwise); one half-ensemble profiled (launches, busy ms, idle
+    share) and its peak device memory. Returns (results, fitter, points)."""
+    import torch
+
+    from pint_tpu_torch import config
+    from pint_tpu_torch.event_toas import load_fits_TOAs
+
+    w = pb["weights"]
+    fitter = photon_fitter(pb["toas"], pb["par"], template, w, dev,
+                           2 * PH_WALKERS, seed)
+    th = fitter.theta0[None, :] + np.asarray(PH_SCALES)[None, :] \
+        * np.random.default_rng(seed).standard_normal((PH_WALKERS, 2))
+    n = min(PH_BATCH_N, len(w))
+    head = os.path.join(tmp, "photons_batch_head.fits")
+    write_events(head, {k: v[:n] for k, v in pb["cols"].items()})
+    sub = load_fits_TOAs(head, weightcolumn="WEIGHT", device=dev)
+    ll = {}
+    for tag, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        f = photon_fitter(sub, pb["par"], template, w[:n], d,
+                          2 * PH_WALKERS, seed)
+        t0 = time.perf_counter()
+        ll[tag] = f._photon_lnlike_batch(th)
+        ll[tag + "_s"] = time.perf_counter() - t0
+    rel = rel_err(ll["gpu"], ll["cpu"], PH_REL)
+    host = fitter._lp_batch(th)
+    half = torch.as_tensor(th, device=dev)
+    dev_core = fitter.lnpost_batch(half).cpu().numpy()
+    same = np.array_equal(host, dev_core)
+    times = []
+    for _ in range(5):
+        sync(dev)
+        t0 = time.perf_counter()
+        fitter.lnpost_batch(half)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    prof = device_busy(lambda: fitter.lnpost_batch(half),
+                       f"photon lnpost_batch ({PH_WALKERS} walkers x "
+                       f"{len(w)} photons)")
+    _, peak = peak_mib(lambda: fitter.lnpost_batch(half))
+    chunk = config.photon_walker_chunk(len(w))
+    per_wp = peak * 2 ** 20 / (PH_WALKERS * len(w) * 8)
+    res = {"walkers": PH_WALKERS, "n": len(w), "n_cpu_check": n,
+           "gpu_vs_cpu_rel": rel, "gpu_head_s": ll["gpu_s"],
+           "cpu_head_s": ll["cpu_s"], "device_core_eq_host": same,
+           "host_ms": float(np.median(times)), "host_ms_min_max":
+           [min(times), max(times)], **prof, "peak_mib": peak,
+           "peak_float64_per_walker_photon": per_wp, "walker_chunk": chunk,
+           "lnlike_range": [float(host.min()), float(host.max())]}
+    print(f"photon-batch: {PH_WALKERS} walkers, card vs CPU on {n} photons "
+          f"{rel:.3e} relative (limit {PH_REL}); device core == host "
+          f"_lp_batch at {len(w)} photons: {same}; a half-ensemble "
+          f"{res['host_ms']:.3f} ms (host clock, median of 5), peak "
+          f"{peak:.1f} MiB ({per_wp:.1f} float64 a walker-photon; walker "
+          f"chunk {chunk}); lnL in [{host.min():.6e}, {host.max():.6e}]")
+    if not (rel <= PH_REL and same and np.all(np.isfinite(host))
+            and np.ptp(host) > 1.0):
+        fail("photon-batch: the card's photon likelihood disagrees")
+    return res, fitter, th
+
+
+def curvature_sigma(fitter, k: int = 0) -> float:
+    """The photon log-likelihood's error in parameter k, from its
+    curvature: a parabola through 5 points at +-2 sigma, sigma first
+    taken from 3 points at +-4e-12."""
+    x0 = fitter.theta0
+    sigma = 4e-12
+    for offs in ((-1.0, 0.0, 1.0), (-2.0, -1.0, 0.0, 1.0, 2.0)):
+        th = np.repeat(x0[None, :], len(offs), 0)
+        th[:, k] += sigma * np.asarray(offs)
+        ll = fitter._photon_lnlike_batch(th)
+        curv = np.polyfit(np.asarray(offs) * sigma, ll, 2)[0] * 2.0
+        if not curv < 0:
+            fail(f"photon-chain: the likelihood is not peaked in F0 "
+                 f"(curvature {curv:.3e})")
+        sigma = 1.0 / math.sqrt(-curv)
+    return sigma
+
+
+def photon_chain_check(pb: dict, fitter, template, seed: int, dev) -> dict:
+    """(d) scan against host_loop over PH_EXACT_STEPS steps of the 32-walker
+    ensemble (bitwise); then F1 frozen at the truth and F0 started
+    PH_REC_OFFSET sigma off (sigma from the curvature of the photon
+    log-likelihood in F0), PH_REC_WALKERS walkers x PH_REC_STEPS steps with
+    scatter sigma/F0 (an initial spread of 1 sigma): the median within
+    PH_TRUTH_SIGMA sigma of the truth, acceptance in PH_ACCEPT."""
+    from pint_tpu_torch.mcmc_fitter import PhotonMCMCFitter
+    from pint_tpu_torch.sampling import DeviceEnsembleSampler
+
+    p0 = fitter.theta0[None, :] + np.asarray(PH_SCALES)[None, :] \
+        * np.random.default_rng(seed).standard_normal((2 * PH_WALKERS, 2))
+    out, secs = [], {}
+    for mode in ("scan", "host_loop"):
+        s = DeviceEnsembleSampler(2 * PH_WALKERS, 2, fitter.lnpost_batch,
+                                  device=dev)
+        t0 = time.perf_counter()
+        pos = s.run_mcmc(p0, PH_EXACT_STEPS, seed=seed, mode=mode)
+        secs[mode] = time.perf_counter() - t0
+        out.append((s, pos))
+    (a, pa), (b, pbb) = out
+    same = (np.array_equal(pa, pbb) and np.array_equal(a.chain, b.chain)
+            and np.array_equal(a.lnprob, b.lnprob)
+            and a.naccepted == b.naccepted)
+    print(f"photon-chain: {2 * PH_WALKERS} walkers x {PH_EXACT_STEPS} steps, "
+          f"scan {secs['scan']:.3f} s, host_loop {secs['host_loop']:.3f} s: "
+          f"bitwise equal {same}; acceptance {a.acceptance_fraction:.3f}")
+    if not same or not np.all(np.isfinite(a.lnprob)):
+        fail("photon-chain: scan and host_loop differ on the card")
+    probe = photon_fitter(pb["toas"], pb["par"], template, pb["weights"],
+                          dev, PH_REC_WALKERS, seed + 1, frozen=("F1",))
+    sigma = curvature_sigma(probe)
+    model = probe.model
+    model.F0.value = F0 + PH_REC_OFFSET * sigma
+    model.invalidate_cache(params_only=True)
+    rec = PhotonMCMCFitter(pb["toas"], model, template,
+                           weights=pb["weights"], nwalkers=PH_REC_WALKERS,
+                           rng=np.random.default_rng(seed + 2))
+    scatter = sigma / F0
+    t0 = time.perf_counter()
+    lnmax = rec.fit_toas(nsteps=PH_REC_STEPS, scatter=scatter)
+    wall = time.perf_counter() - t0
+    med, acc = rec.model.F0.value, rec.sampler.acceptance_fraction
+    off = abs(med - F0) / sigma
+    res = {"exact_steps": PH_EXACT_STEPS, "scan_s": secs["scan"],
+           "host_loop_s": secs["host_loop"], "sigma_f0": sigma,
+           "start_sigma": PH_REC_OFFSET, "scatter": scatter,
+           "walkers": PH_REC_WALKERS, "steps": PH_REC_STEPS, "wall_s": wall,
+           "steps_per_s": PH_REC_STEPS / wall,
+           "walker_steps_per_s": PH_REC_STEPS * PH_REC_WALKERS / wall,
+           "median_off_sigma": off, "std_over_sigma":
+           rec.errors["F0"] / sigma, "acceptance": acc, "lnmax": lnmax,
+           "chunks": rec.sampler.dispatches}
+    print(f"photon-chain: recovery, F0 sigma {sigma:.4e} Hz (curvature on "
+          f"the card), start {PH_REC_OFFSET} sigma off, scatter "
+          f"{scatter:.4e} (1 sigma), {PH_REC_WALKERS} walkers x "
+          f"{PH_REC_STEPS} steps in {wall:.3f} s ({res['steps_per_s']:.3f} "
+          f"steps/s, {res['walker_steps_per_s']:.1f} walker-steps/s): median "
+          f"{off:.3f} sigma from the truth (limit {PH_TRUTH_SIGMA}), std "
+          f"{res['std_over_sigma']:.3f} sigma, acceptance {acc:.3f}")
+    if not (off <= PH_TRUTH_SIGMA and PH_ACCEPT[0] < acc < PH_ACCEPT[1]):
+        fail("photon-chain: the chain does not recover F0")
+    return res
+
+
+def photon_event_optimize(zmod, pb: dict, seed: int, tmp: str, m: int,
+                          dev) -> dict:
+    """(e) event_optimize on the path's events at full width on the card
+    (PH_PAR, its template seeded by ML, 32 walkers x PH_EO_STEPS steps):
+    it returns 0, writes a (nsteps, nwalkers, ndim) chain (the reference's
+    layout) and a par file that get_model reads; K1 launched exactly twice,
+    each H within H_REL of the float64 plain H of the same model's
+    phases."""
+    import torch
+
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.scripts import event_optimize
+
+    out_par = os.path.join(tmp, "optimized.par")
+    npz = os.path.join(tmp, "chains.npz")
+    hs, restore = record_hmw()
+    zmod.launches = 0
+    try:
+        rc, out = run_main(event_optimize.main, [
+            pb["ev"], pb["par"], "--weightcol", "WEIGHT", "--nsteps",
+            PH_EO_STEPS, "--seed", seed, "--outfile", out_par,
+            "--chains-npz", npz])
+    finally:
+        restore()
+    launches = zmod.launches
+    if rc != 0:
+        fail(f"event-optimize returned {rc}")
+    d = np.load(npz)
+    if d["chain"].shape != (PH_EO_STEPS, 32, 2) or \
+            list(d["labels"]) != ["F0", "F1"]:
+        fail(f"event-optimize: chain {d['chain'].shape} of {d['labels']}")
+    plain = []
+    for par in (pb["par"], out_par):
+        model = get_model(par, device=dev)
+        ph = torch.remainder(model.phase(pb["toas"]).frac, 1.0)
+        plain.append(plain_h(zmod, ph, pb["weights"], m, dev))
+    zmod.launches = 0
+    worst = max(abs(h - p) / max(1.0, p) for h, p in zip(hs, plain))
+    stages = stage_seconds(out)
+    res = {"launches": launches, "h": hs, "h_plain": plain,
+           "h_rel": worst, "stages": stages, "steps": PH_EO_STEPS,
+           "f0": float(model.F0.value), "f1": float(model.F1.value)}
+    print(f"event-optimize: {launches} K1 launches, H {hs} against the "
+          f"float64 plain {plain} ({worst:.3e} relative, limit {H_REL}); "
+          f"stages {stages}")
+    if not (launches == 2 and len(hs) == 2 and worst <= H_REL
+            and stages["device"] == torch.device(dev).type):
+        fail("event-optimize: K1 was not launched exactly twice or an H "
+             "disagrees with the plain version")
+    return res
+
+
+def photon_composite_check(cols: dict, template, seed: int, tmp: str,
+                           dev) -> dict:
+    """(f) CompositeMCMCFitter: COMPOSITE_NTOA gbt 1400 MHz TOAs simulated
+    by the port from PAR with F0 free, plus the first COMPOSITE_N photons,
+    COMPOSITE_WALKERS walkers x COMPOSITE_STEPS steps (tests/test_mcmc.py:
+    188's shape): _lp_batch on the card against the CPU at 8 points
+    (PH_REL), F0 within 5 of its errors of the truth."""
+    import torch
+
+    from pint_tpu_torch.event_toas import get_event_weights, load_fits_TOAs
+    from pint_tpu_torch.mcmc_fitter import CompositeMCMCFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.simulation import make_fake_toas_uniform
+
+    par = PAR.replace("F0 205.53069927\n", "F0 205.53069927 1\n")
+    n = min(COMPOSITE_N, len(cols["TIME"]))
+    head = os.path.join(tmp, "photons_composite.fits")
+    write_events(head, {k: v[:n] for k, v in cols.items()})
+    toas_ev = load_fits_TOAs(head, weightcolumn="WEIGHT", device=dev)
+    w = get_event_weights(toas_ev)
+    radio = make_fake_toas_uniform(
+        56400.0, 56600.0, COMPOSITE_NTOA, get_model(io.StringIO(par),
+                                                    device=dev),
+        error_us=1.0, obs="gbt", freq_mhz=1400.0, add_noise=True,
+        rng=np.random.default_rng(seed), device=dev)
+    fitters = {}
+    for tag, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        fitters[tag] = CompositeMCMCFitter(
+            radio, toas_ev, get_model(io.StringIO(par), device=d), template,
+            weights=w, nwalkers=COMPOSITE_WALKERS,
+            rng=np.random.default_rng(seed + 1))
+    fg = fitters["gpu"]
+    th = fg.theta0[None, :] + 2e-11 * np.random.default_rng(
+        seed + 2).standard_normal((COMPOSITE_WALKERS, 1))
+    lp = {}
+    for tag, f in fitters.items():
+        t0 = time.perf_counter()
+        lp[tag] = f._lp_batch(th)
+        lp[tag + "_s"] = time.perf_counter() - t0
+    rel = rel_err(lp["gpu"], lp["cpu"], PH_REL)
+    t0 = time.perf_counter()
+    lnmax = fg.fit_toas(nsteps=COMPOSITE_STEPS)
+    wall = time.perf_counter() - t0
+    f0, unc = fg.model.F0.value, fg.model.F0.uncertainty
+    res = {"ntoa": COMPOSITE_NTOA, "nphotons": n, "gpu_vs_cpu_rel": rel,
+           "gpu_batch_s": lp["gpu_s"], "cpu_batch_s": lp["cpu_s"],
+           "walkers": COMPOSITE_WALKERS, "steps": COMPOSITE_STEPS,
+           "wall_s": wall, "steps_per_s": COMPOSITE_STEPS / wall,
+           "f0_off_over_err": abs(f0 - F0) / unc, "f0_err": unc,
+           "lnmax": lnmax, "acceptance": fg.sampler.acceptance_fraction}
+    print(f"composite: {COMPOSITE_NTOA} radio TOAs + {n} photons, "
+          f"_lp_batch card vs CPU {rel:.3e} relative (limit {PH_REL}; card "
+          f"{lp['gpu_s']:.3f} s, CPU {lp['cpu_s']:.3f} s); {COMPOSITE_WALKERS}"
+          f" walkers x {COMPOSITE_STEPS} steps in {wall:.3f} s: F0 "
+          f"{res['f0_off_over_err']:.3f} of its error {unc:.3e} from the "
+          f"truth (limit 5)")
+    if not (rel <= PH_REL and np.isfinite(lnmax)
+            and res["f0_off_over_err"] <= 5.0 and 0 < unc < 1e-5):
+        fail("composite: the card's joint posterior disagrees or misses F0")
+    return res
+
+
+def fermi_check(zmod, seed: int, tmp: str, m: int, dev) -> dict:
+    """(g) a Fermi-LAT-like barycentred FT1 file of FERMI_N photons (the
+    path's recipe on Fermi's MJDREF, TELESCOP GLAST, a MODEL_WEIGHT
+    column): fermiphase and photonphase --mission fermi --weightcol
+    MODEL_WEIGHT on the card give bitwise the same phases and H, H within
+    H_REL of the float64 plain H, one K1 launch each."""
+    import torch
+
+    from pint_tpu_torch.scripts import fermiphase, photonphase
+
+    par = os.path.join(tmp, "j0030.par")
+    with open(par, "w") as f:
+        f.write(PAR)
+    ft1 = os.path.join(tmp, "ft1.fits")
+    write_events(ft1, event_columns(FERMI_N, seed, FERMI_MJDREF,
+                                    "MODEL_WEIGHT"), FERMI_MJDREF, "GLAST")
+    runs = {}
+    for name, main, extra in (
+            ("fermiphase", fermiphase.main, []),
+            ("photonphase", photonphase.main,
+             ["--mission", "fermi", "--weightcol", "MODEL_WEIGHT"])):
+        npz = os.path.join(tmp, f"{name}.npz")
+        hs, restore = record_hmw()
+        zmod.launches = 0
+        try:
+            rc, out = run_main(main, [ft1, par, "--npz", npz] + extra)
+        finally:
+            restore()
+        if rc != 0 or len(hs) != 1:
+            fail(f"fermiphase: {name} returned {rc} ({len(hs)} H-tests)")
+        runs[name] = (hs[0], zmod.launches, np.load(npz),
+                      stage_seconds(out))
+    (ha, la, da, sa), (hb, lb, db, sb) = runs.values()
+    same = (ha == hb and np.array_equal(da["phases"], db["phases"])
+            and np.array_equal(da["weights"], db["weights"]))
+    hp = plain_h(zmod, da["phases"], da["weights"], m, dev)
+    zmod.launches = 0
+    rel = abs(ha - hp) / max(1.0, hp)
+    print(f"fermiphase: {FERMI_N} Fermi-LAT-like photons, H {ha!r} "
+          f"(photonphase --mission fermi: {hb!r}, bitwise equal {same}; "
+          f"float64 plain {hp!r}, {rel:.3e} relative, limit {H_REL}); K1 "
+          f"launches {la} and {lb}")
+    if not (same and rel <= H_REL and la == 1 and lb == 1
+            and sa["device"] == sb["device"] == torch.device(dev).type):
+        fail("fermiphase: the runs differ, H disagrees with the plain "
+             "version or K1 was not launched once each")
+    return {"n": FERMI_N, "h": ha, "h_plain": hp, "h_rel": rel,
+            "launches": [la, lb], "stages": {"fermiphase": sa,
+                                             "photonphase": sb}}
+
+
+def batch_numpy(batch) -> dict:
+    out = {k: getattr(batch, k).cpu().numpy() for k in batch._fields
+           if k != "tdb_frac"}
+    out["tdb_frac_hi"] = batch.tdb_frac.hi.cpu().numpy()
+    out["tdb_frac_lo"] = batch.tdb_frac.lo.cpu().numpy()
+    return out
+
+
+def toa_io_check(tmp: str, dev) -> dict:
+    """(h) get_TOAs on NGC6440E.tim with usecache=True twice on the card,
+    both timed: the second from the cache (tim parsing disabled), the two
+    batches bitwise equal; write_TOA_file read back by get_TOAs within
+    1e-16 d of the first batch's TDBs."""
+    from pint_tpu_torch import toa as toamod
+
+    cdir = os.path.join(tmp, "toacache")
+    os.makedirs(cdir)
+    t0 = time.perf_counter()
+    a = toamod.get_TOAs(NGC[1], usecache=True, cachedir=cdir, device=dev)
+    first_s = time.perf_counter() - t0
+    real = toamod.parse_tim
+
+    def no_parse(*args, **kw):
+        fail("toa-io: the second get_TOAs parsed the tim file")
+
+    toamod.parse_tim = no_parse
+    try:
+        t0 = time.perf_counter()
+        b = toamod.get_TOAs(NGC[1], usecache=True, cachedir=cdir, device=dev)
+        second_s = time.perf_counter() - t0
+    finally:
+        toamod.parse_tim = real
+    ba, bb = batch_numpy(a.to_batch()), batch_numpy(b.to_batch())
+    same = all(np.array_equal(ba[k], bb[k], equal_nan=True) for k in ba)
+    tim = os.path.join(tmp, "ngc_written.tim")
+    a.write_TOA_file(tim)
+    c = batch_numpy(toamod.get_TOAs(tim, device=dev).to_batch())
+    dt = float(np.max(np.abs((c["tdb_day"] - ba["tdb_day"])
+                             + (c["tdb_frac_hi"] - ba["tdb_frac_hi"])
+                             + (c["tdb_frac_lo"] - ba["tdb_frac_lo"]))))
+    print(f"toa-io: NGC6440E ({a.ntoas} TOAs) get_TOAs {first_s:.3f} s, from "
+          f"the cache {second_s:.3f} s, batches bitwise equal {same}; "
+          f"write_TOA_file read back within {dt:.3e} d (limit 1e-16)")
+    if not (same and dt <= 1e-16 and os.listdir(cdir)
+            == [".NGC6440E.tim.toacache.npz"]):
+        fail("toa-io: the cache or the tim writer does not round-trip")
+    return {"ntoa": a.ntoas, "first_s": first_s, "cached_s": second_s,
+            "tim_round_trip_d": dt}
+
+
+def photon_sampling_phase(zmod, n: int, m: int, seed: int, dev) -> dict:
+    """Phase 13: photon sampling on `n` photons of the J0030 path's recipe
+    (photon_build; gates (a)-(h)); K1 launches are read for each check and
+    must be 0 outside event_optimize's and the fermiphase/photonphase
+    runs."""
+    secs, k1 = {}, {}
+
+    def timed(name, fn, *args):
+        zmod.launches = 0
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[name] = time.perf_counter() - t0
+        k1[name] = zmod.launches
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pb = timed("build", photon_build, n, seed, tmp, dev)
+        tmpl = timed("templates", photon_templates_check, pb["phases"],
+                     seed + 13, dev)
+        lcfit, template = timed("lcfit", photon_lcfit_check, pb["phases"],
+                                pb["weights"], seed + 13, dev)
+        batch, fitter, _ = timed("batch", photon_batch_check, pb, template,
+                                 seed + 13, tmp, dev)
+        chain = timed("chain", photon_chain_check, pb, fitter, template,
+                      seed + 13, dev)
+        del fitter
+        eo = timed("event_optimize", photon_event_optimize, zmod, pb,
+                   seed + 13, tmp, m, dev)
+        comp = timed("composite", photon_composite_check, pb["cols"],
+                     template, seed + 13, tmp, dev)
+        fermi = timed("fermiphase", fermi_check, zmod, seed + 14, tmp, m,
+                      dev)
+        tio = timed("toa_io", toa_io_check, tmp, dev)
+    k1["event_optimize"], k1["fermiphase"] = eo["launches"], \
+        fermi["launches"]
+    print("photon sampling seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items())
+        + f"; K1 launches {k1} (event_optimize: the initial and final "
+        "H-test; fermiphase and photonphase: one each)")
+    stray = {k: v for k, v in k1.items()
+             if k not in ("event_optimize", "fermiphase") and v}
+    if stray:
+        fail(f"photon sampling: K1 launched where no H-test runs: {stray}")
+    return {"n": len(pb["weights"]), "draw_s": pb["draw_s"],
+            "ingest_s": pb["ingest_s"],
+            "templates": tmpl, "lcfit": lcfit, "batch": batch,
+            "chain": chain, "event_optimize": eo, "composite": comp,
+            "fermiphase": fermi, "toa_io": tio, "k1_launches": k1,
+            "seconds": secs}
 
 
 def fmt(t: dict) -> str:
@@ -3335,6 +4175,12 @@ def main() -> int:
     bayes = bayes_phase(zmod, fit_par_text, toas, step, dev)
     bayes["seconds"]["total"] = time.perf_counter() - t0
 
+    # photon sampling on the photon path's events, and the TOA cache
+    t0 = time.perf_counter()
+    photon = photon_sampling_phase(zmod, args.path_n, args.m, args.seed,
+                                   dev)
+    photon["seconds"]["total"] = time.perf_counter() - t0
+
     # timings at the main path's shape: float32 inputs (the TPU kernel's
     # contract) and float64 inputs (what the H-test hands the kernel)
     n, m = args.n, args.m
@@ -3498,6 +4344,7 @@ def main() -> int:
     print(json.dumps({"zoo_photon": {**zph, "seconds": zoo_s["photon"]}}))
     print(json.dumps({"zoo_sweep": {**zsw, "seconds": zoo_s["sweep"]}}))
     print(json.dumps({"bayes": bayes}))
+    print(json.dumps({"photon_sampling": photon}))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": [{

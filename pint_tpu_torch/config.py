@@ -17,8 +17,9 @@ import os
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["chain_chunk_steps", "clock_dir", "ephem_dir", "grid_chunk",
-           "gwb_chunk", "obs_override", "solve_streaming", "stream_chunk"]
+__all__ = ["chain_chunk_steps", "clock_dir", "energy_draw_chunk",
+           "ephem_dir", "grid_chunk", "gwb_chunk", "obs_override",
+           "photon_walker_chunk", "solve_streaming", "stream_chunk"]
 
 log = logging.getLogger(__name__)
 _WARNED_ENV: set = set()
@@ -152,3 +153,39 @@ def grid_chunk(ntoa: int, nparams: int) -> int:
     while k < 64 and 2 * k * per_node <= GRID_BUDGET_BYTES:
         k *= 2
     return k
+
+
+# the photon likelihood's working set a walker: float64 (N,) blocks alive
+# at once in the vmapped dd phase chain and Gaussian template pdf
+# (measured 24 on an H100: 3,072 MiB for 16 walkers at 1,048,576
+# photons, PERF.md; 32 leaves room), and the budget of a chunk of walkers
+PHOTON_BLOCKS_PER_WALKER = 32
+PHOTON_BUDGET_BYTES = 8 << 30
+
+
+def photon_walker_chunk(nphotons: int) -> int:
+    """Walkers one vmapped photon-likelihood call evaluates
+    (``mcmc_fitter.PhotonMCMCFitter``): the largest count whose working
+    set, PHOTON_BLOCKS_PER_WALKER float64 (nphotons,) blocks a walker,
+    fits PHOTON_BUDGET_BYTES (8 GiB), and at least 2 (a single row would
+    take another reduction order on the CPU). The result does not depend
+    on the chunk."""
+    per_walker = PHOTON_BLOCKS_PER_WALKER * 8 * max(1, int(nphotons))
+    return max(2, PHOTON_BUDGET_BYTES // per_walker)
+
+
+# LCEnergyTemplate.random's working set a (photon, grid node) pair:
+# float64 elements alive at once in the pdf (the wrapped Gaussian's
+# 7 images, a few temporaries each), and the budget of a photon chunk
+ENERGY_DRAW_BLOCKS = 32
+ENERGY_DRAW_BUDGET_BYTES = 2 << 30
+
+
+def energy_draw_chunk(ngrid: int) -> int:
+    """Photons whose (photons, ngrid) pdf matrix one
+    ``LCEnergyTemplate.random`` chunk evaluates: the largest count whose
+    working set, ENERGY_DRAW_BLOCKS float64 elements a matrix entry, fits
+    ENERGY_DRAW_BUDGET_BYTES (2 GiB). Each photon's draw reads only its
+    own row, so the draws do not depend on the chunk."""
+    return max(1, ENERGY_DRAW_BUDGET_BYTES
+               // (ENERGY_DRAW_BLOCKS * 8 * max(1, int(ngrid))))

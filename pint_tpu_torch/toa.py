@@ -1,6 +1,6 @@
 """TOA container and the ingestion pipeline (clock → TDB → posvels)
 (a port of pint_tpu/toa.py; reference: src/pint/toa.py TOA, TOAs,
-get_TOAs_array).
+get_TOAs, get_TOAs_array, save_pickle, load_pickle).
 
 All Earth-frame, clock and ephemeris physics is precomputed once, on the
 host, into flat numpy columns (the reference's host code, copied); the
@@ -9,19 +9,33 @@ made by ``TOAs.to_batch(device)`` with one host→device copy.
 
 Times are carried as (int day f64, fraction as host double-double pair)
 and never squeezed through a single float64.
+
+A processed table persists as a columnar npz (``TOAs.to_npz``/
+``from_npz``; ``get_TOAs(usecache=True)`` keeps one per tim file, keyed
+on the tim content, the pipeline's settings and this package's name and
+version), as a FORMAT-1 tim file (``write_TOA_file``) or as a pickle
+(``save_pickle``/``load_pickle``). A table holds numpy columns only, no
+tensor, so each of them loads on a machine without a GPU; the loaded
+table's device is resolved at load.
 """
 
 from __future__ import annotations
 
 import itertools
+import json
+import os
+import pickle
+import threading
+import uuid
+import zipfile
 from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
 
-from pint_tpu_torch import c_m_s, resolve_device
+from pint_tpu_torch import __version__, c_m_s, config, resolve_device
 from pint_tpu_torch.ephemeris import get_ephemeris
-from pint_tpu_torch.io.tim import TimTOA, parse_tim
+from pint_tpu_torch.io.tim import TimTOA, parse_tim, write_tim
 from pint_tpu_torch.observatory import get_observatory
 from pint_tpu_torch.ops import dd_np
 from pint_tpu_torch.ops.dd import DD
@@ -129,6 +143,14 @@ class TOAs:
 
     def _touch(self):
         """Mark this TOAs state as changed (invalidates model caches)."""
+        self._serial = next(_TOAS_SERIAL)
+
+    def __setstate__(self, d):
+        """A pickled serial is only unique in the ORIGIN process: an
+        unpickled TOAs carrying it could collide with a local TOAs and
+        make TimingModel.get_cache return the wrong batch — reassign a
+        fresh process-local serial on load."""
+        self.__dict__.update(d)
         self._serial = next(_TOAS_SERIAL)
 
     @property
@@ -325,6 +347,154 @@ class TOAs:
         }, dev)
 
 
+    # ---------------- persistence ----------------
+
+    def to_npz(self, path, cache_key=None):
+        """Columnar snapshot of the fully-processed TOA table (reference:
+        TOAs.to_npz; npz: no code execution on load). Photon weights are
+        not stored. The write is atomic: a reader of a shared cache path
+        never sees a half-written file."""
+        arrays = {} if cache_key is None else \
+            {"cache_key": np.array(cache_key)}
+        arrays |= {
+            "mjd_day": self.mjd_day,
+            "mjd_frac_hi": self.mjd_frac[0],
+            "mjd_frac_lo": self.mjd_frac[1],
+            "freq_mhz": self.freq_mhz,
+            "error_us": self.error_us,
+            "obs": np.array(self.obs),
+            "names": np.array(self.names),
+            "flags_json": np.array(json.dumps(self.flags)),
+            "meta_json": np.array(json.dumps({
+                "clock_applied": bool(self.clock_applied),
+                "ephem": self.ephem,
+                "planets": bool(self.planets)})),
+        }
+        for col in ("tdb_day", "ssb_obs_pos", "ssb_obs_vel",
+                    "obs_sun_pos"):
+            v = getattr(self, col)
+            if v is not None:
+                arrays[col] = v
+        if self.tdb_frac is not None:
+            arrays["tdb_frac_hi"] = self.tdb_frac[0]
+            arrays["tdb_frac_lo"] = self.tdb_frac[1]
+        if self.obs_planet_pos is not None:
+            arrays["planet_names"] = np.array(
+                sorted(self.obs_planet_pos))
+            for k, v in self.obs_planet_pos.items():
+                arrays[f"planet_{k}"] = v
+        # the tmp name is unique per process and thread
+        tmp = (f"{path}.{os.getpid()}.{threading.get_ident()}."
+               f"{uuid.uuid4().hex[:8]}.tmp")
+        try:
+            with open(tmp, "wb") as fh:
+                np.savez_compressed(fh, **arrays)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+
+    @classmethod
+    def from_npz(cls, path, expect_key=None, device=None) -> "TOAs":
+        """Load a snapshot onto ``device`` (None means "cuda").
+        ``expect_key``: verify the embedded cache key from the SAME open
+        file the arrays come from (a separate check-then-load would race
+        a concurrent overwrite of the shared cache path)."""
+        dev = resolve_device(device)
+        with np.load(path, allow_pickle=False) as z:
+            if expect_key is not None and (
+                    "cache_key" not in z.files
+                    or str(z["cache_key"]) != expect_key):
+                raise ValueError("cache key mismatch")
+            out = object.__new__(cls)
+            out.device = dev
+            out.weights = None
+            out.mjd_day = z["mjd_day"]
+            out.mjd_frac = (z["mjd_frac_hi"], z["mjd_frac_lo"])
+            out.freq_mhz = z["freq_mhz"]
+            out.error_us = z["error_us"]
+            out.obs = [str(o) for o in z["obs"]]
+            out.names = [str(n) for n in z["names"]]
+            out.flags = json.loads(str(z["flags_json"]))
+            meta = json.loads(str(z["meta_json"]))
+            out.clock_applied = meta["clock_applied"]
+            out.ephem = meta["ephem"]
+            out.planets = meta["planets"]
+            for col in ("tdb_day", "ssb_obs_pos", "ssb_obs_vel",
+                        "obs_sun_pos"):
+                setattr(out, col, z[col] if col in z.files else None)
+            out.tdb_frac = (z["tdb_frac_hi"], z["tdb_frac_lo"]) \
+                if "tdb_frac_hi" in z.files else None
+            out.obs_planet_pos = None
+            if "planet_names" in z.files:
+                out.obs_planet_pos = {
+                    str(k): z[f"planet_{k}"]
+                    for k in z["planet_names"]}
+        out._serial = next(_TOAS_SERIAL)
+        return out
+
+    def write_TOA_file(self, path):
+        """Write a FORMAT-1 tim file (reference: TOAs.write_TOA_file).
+        Clock corrections, if applied, are subtracted so the file holds
+        the original site-clock MJDs (16 digits of the day fraction);
+        the ``clkcorr`` and ``to`` flags are dropped."""
+        day, frac = self.mjd_day, self.mjd_frac
+        if self.clock_applied:
+            corr = np.array(
+                [float(f.get("clkcorr", 0.0)) for f in self.flags])
+            frac = dd_np.sub(frac, dd_np.div_f(dd_np.dd(corr), SECS_PER_DAY))
+        out = []
+        for i in range(self.ntoas):
+            flags = {k: v for k, v in self.flags[i].items()
+                     if k not in ("clkcorr", "to")}
+            out.append(TimTOA(
+                mjd_str=mjdmod.mjd_to_str(day[i], (frac[0][i], frac[1][i])),
+                freq_mhz=float(self.freq_mhz[i])
+                if np.isfinite(self.freq_mhz[i]) else 0.0,
+                error_us=float(self.error_us[i]),
+                obs=self.obs[i], name=self.names[i] or f"toa{i}",
+                flags=flags))
+        write_tim(path, out)
+
+
+def save_pickle(toas: TOAs, picklefilename: str) -> None:
+    """Pickle a TOAs object (reference: toa.save_pickle). It holds numpy
+    columns and a torch.device, no tensor. The npz snapshot
+    (TOAs.to_npz) runs no code on load; prefer it for shared caches."""
+    with open(picklefilename, "wb") as fh:
+        pickle.dump(toas, fh, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def load_pickle(picklefilename: str, device=None) -> TOAs:
+    """Unpickle a TOAs object (reference: toa.load_pickle) onto
+    ``device`` (None means "cuda"). Only load files you wrote yourself:
+    pickle executes code on load."""
+    dev = resolve_device(device)
+    with open(picklefilename, "rb") as fh:
+        out = pickle.load(fh)
+    if not isinstance(out, TOAs):
+        raise TypeError(f"{picklefilename!r} did not contain a TOAs "
+                        f"object (got {type(out).__name__})")
+    out.device = dev
+    return out
+
+
+def _cache_key(timfile, knobs) -> str:
+    """The TOA cache key of a tim file: a hash of its content, every
+    pipeline setting, the clock and ephemeris override directories, and
+    this package's name and version. The name keeps a cache the JAX
+    package wrote (same file name, same version) from ever loading here."""
+    import hashlib
+
+    with open(timfile, "rb") as fh:
+        digest = hashlib.sha256(fh.read())
+    dirs = tuple(None if d is None else str(d)
+                 for d in (config.clock_dir(), config.ephem_dir()))
+    digest.update(repr(("pint_tpu_torch", __version__) + tuple(knobs)
+                       + dirs).encode())
+    return digest.hexdigest()
+
+
 def merge_TOAs(toas_list: List[TOAs]) -> TOAs:
     """Concatenate TOA sets (reference: merge_TOAs). All inputs must be
     at the same pipeline stage; the result takes the first one's
@@ -375,22 +545,53 @@ def merge_TOAs(toas_list: List[TOAs]) -> TOAs:
 
 def get_TOAs(timfile, ephem=None, planets=False, model=None,
              include_gps=True, include_bipm=True, bipm_version="BIPM2021",
-             limits="warn", device=None) -> TOAs:
+             limits="warn", usecache=False, cachedir=None,
+             device=None) -> TOAs:
     """One-call ingestion pipeline for a .tim file: parse → clock → TDB
-    → posvels (reference: get_TOAs, without its npz cache). ``device``
-    (None means "cuda") is where to_batch() puts the batch."""
+    → posvels (reference: get_TOAs). ``device`` (None means "cuda") is
+    where to_batch() puts the batch.
+
+    With ``usecache`` (reference: usepickle), the fully-processed TOAs
+    are stored as a columnar npz next to the tim file (or in
+    ``cachedir``), one file per tim file, keyed as ``_cache_key`` says;
+    a stale, foreign or unreadable cache is rebuilt silently."""
+    dev = resolve_device(device)
     if model is not None:
         if ephem is None:
             ephem = getattr(model, "EPHEM", None) and model.EPHEM.value
         if not planets:
             ps = getattr(model, "PLANET_SHAPIRO", None)
             planets = bool(ps is not None and ps.value)
-    t = TOAs(parse_tim(timfile), device=device)
+    cache_path = cache_key = None
+    if usecache and isinstance(timfile, (str, os.PathLike)):
+        fpath = os.fspath(timfile)
+        try:
+            cache_key = _cache_key(fpath, (ephem, planets, include_gps,
+                                           include_bipm, bipm_version))
+        except OSError:
+            cache_key = None
+        if cache_key is not None:
+            cdir = cachedir or os.path.dirname(os.path.abspath(fpath))
+            cache_path = os.path.join(
+                cdir, f".{os.path.basename(fpath)}.toacache.npz")
+            if os.path.exists(cache_path):
+                try:
+                    return TOAs.from_npz(cache_path, expect_key=cache_key,
+                                         device=dev)
+                except (OSError, ValueError, KeyError, EOFError,
+                        zipfile.BadZipFile):
+                    pass  # stale/foreign/corrupt cache: rebuild below
+    t = TOAs(parse_tim(timfile), device=dev)
     t.apply_clock_corrections(include_gps=include_gps,
                               include_bipm=include_bipm,
                               bipm_version=bipm_version, limits=limits)
     t.compute_TDBs(ephem=ephem)
     t.compute_posvels(ephem=ephem, planets=planets)
+    if cache_path is not None:
+        try:
+            t.to_npz(cache_path, cache_key=cache_key)
+        except OSError:
+            pass  # read-only dir: caching is best-effort
     return t
 
 

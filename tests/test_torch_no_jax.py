@@ -3,7 +3,9 @@ interpreter where ``import jax`` and ``import pint_tpu`` fail, every
 module of pint_tpu_torch imports, and the array plane runs on the CPU (a
 batch solve and one GWB log-likelihood on a tiny synthetic array), and
 so does the Bayesian plane (a DevicePosterior of a tiny simulated
-pulsar, fixed-noise and noise-sampled)."""
+pulsar, fixed-noise and noise-sampled) and the photon plane (a template,
+an LCFitter value and a PhotonMCMCFitter likelihood batch on that
+pulsar's TOAs)."""
 
 import os
 import subprocess
@@ -35,7 +37,10 @@ for name in ("pint_tpu_torch.pta.gwb", "pint_tpu_torch.parallel.pta",
              "pint_tpu_torch.models.priors",
              "pint_tpu_torch.sampling.likelihood",
              "pint_tpu_torch.sampling.posterior",
-             "pint_tpu_torch.sampling.chain"):
+             "pint_tpu_torch.sampling.chain",
+             "pint_tpu_torch.templates", "pint_tpu_torch.templates.energy",
+             "pint_tpu_torch.scripts.event_optimize",
+             "pint_tpu_torch.scripts.fermiphase", "pint_tpu_torch.toa"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu")
@@ -101,6 +106,25 @@ for noise in (False, True):
                            rng=np.random.default_rng(2), scatter=0.1)
     lp = post.lnpost_batch(torch.as_tensor(p0))
     assert lp.shape == (len(p0),) and torch.all(torch.isfinite(lp)), lp
+
+from pint_tpu_torch.mcmc_fitter import CompositeMCMCFitter, PhotonMCMCFitter
+from pint_tpu_torch.templates import LCFitter, make_template
+from pint_tpu_torch.templates.energy import LCEnergyTemplate
+from pint_tpu_torch.toa import load_pickle, save_pickle
+
+tmpl = make_template([("gaussian", 0.6, 0.4, 0.05)], device="cpu")
+ph = tmpl.random(64, rng=np.random.default_rng(3))
+assert np.isfinite(LCFitter(tmpl, ph, device="cpu").loglikelihood())
+assert LCEnergyTemplate(tmpl, device="cpu")(ph, np.ones(64)).shape == (64,)
+photon = PhotonMCMCFitter(toas, model, tmpl, nwalkers=8, mode="host")
+ll = photon._photon_lnlike_batch(np.repeat(photon.theta0[None], 8, 0))
+assert ll.shape == (8,) and np.all(np.isfinite(ll)), ll
+assert CompositeMCMCFitter.__mro__[1] is PhotonMCMCFitter
+import tempfile, os
+with tempfile.TemporaryDirectory() as d:
+    save_pickle(toas, os.path.join(d, "t.pickle"))
+    assert load_pickle(os.path.join(d, "t.pickle"), device="cpu").ntoas \
+        == toas.ntoas
 print("OK", len(names))
 """
 
