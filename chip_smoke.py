@@ -257,7 +257,53 @@ Phases, each fatal on failure:
    toa-io: get_TOAs(NGC6440E.tim, usecache=True) twice on the card, the
      second from the cache, bitwise the same batch; write_TOA_file read
      back within 1e-16 d of the TDBs;
-14. print the card's name and power limit, and one JSON line of kernel
+14. the dispatch runtime (pint_tpu_torch.runtime) on the fit cell at full
+   width; after each earlier phase the global supervisor's snapshot is
+   printed, and any failover, timeout, breaker rejection or lost device
+   there fails the smoke (g):
+   runtime-hang (a): Fault(match="gls.fit", kind="hang") of RT_HANG_S
+     against a RT_DEADLINE_S deadline on that key, into
+     DeviceDownhillGLSFitter on the card: the fit fails over to
+     DownhillGLSFitter on the CPU, bitwise fit-downhill's CPU fit (chi2,
+     values, uncertainties, covariance), in less wall than the hang,
+     with timeouts, failovers and abandoned workers counted;
+   runtime-sticky (b): a child process (this script, --sticky-child)
+     fits the same cell with DeviceDownhillGLSFitter on the card, its
+     first gls.fit_step dispatch triggering a real device-side assert (an
+     out-of-range CUDA index read with .item()): the fit finishes on the
+     CPU bitwise fit-downhill's CPU fit, the cuda:0 breaker is latched
+     LOST, a later dispatch on the card short-circuits without calling
+     its function (cooldown 0), and the counters label the episode;
+   runtime-breaker (c): two injected transient errors at gls.solve are
+     retried and the solve equals the unfaulted one bitwise; errors past
+     breaker_threshold trip the breaker, a flight dump is written, the
+     solve fails over to the numpy mirror of the CPU pass (bitwise), a
+     later dispatch short-circuits to its fallback and Fitter.auto gives
+     the host fitter on a CPU model;
+   runtime-nan (d): Fault(match="gls.fit", kind="nan"): the device fit
+     fails over to DownhillGLSFitter on the card, bitwise fit-downhill's
+     GPU fit;
+   runtime-gwb (e): config 5's GWB likelihood on the card, every sweep
+     chunk after the first hanging: each completes by the numpy mirror,
+     the sweep within 1e-9 of the CPU sweep, labelled host-failover;
+   runtime-chain (e): the bayes-moments pulsar's chain (32 x 600, chunks
+     of RT_CHAIN_CHUNK) on the card with every chunk from chunk 2 on
+     failing: it continues on the CPU posterior from the carried state,
+     and its positions equal an all-CPU chain's bitwise;
+   runtime-cost (f): the fit step, a Bayesian chain step and a photon
+     half-ensemble each supervised and with guard=False: median ms,
+     launches (device kernels, equal in both) and idle share; whether the
+     profiler sees the fit_step.* spans of a guarded step;
+   runtime-deadlines: each dispatch key's largest wall against its
+     deadline on the card, and the measured CUDA round trip;
+   runtime-crossover: WLS and GLS solves (one supervised pass each) on
+     the card and on the CPU at 62 (NGC6440E), 1,000 and 10,000 TOAs;
+   config3-16-digit: BASELINE config 3 written by TOAs.write_TOA_file (16
+     digits of the day fraction), fitted by Fitter.auto on the card and
+     on the CPU with every downhill decision logged (proposed step,
+     trial chi2, accepted halving): the first decision that differs, and
+     the largest difference of one step in sigma;
+15. print the card's name and power limit, and one JSON line of kernel
    measurements.
 
 The last line of standard output is {"ok": true, "device": {...}}. The
@@ -478,6 +524,14 @@ PTA_TRUTH_SIGMA = 5.0                # bench_pta.py's recovered
 GWB_RTOL = 1e-9                      # tests/test_gwb.py:235
 GWB_GRID = 8                         # bench_pta.py's 8 x 8 sweep
 POST_WALKERS, POST_STEPS, POST_BURN = 32, 600, 200
+# the runtime phase: (a)'s injected hang against the short deadline on
+# the faulted key, the chain chunk of (e), the sizes of the solve
+# crossover, and the headroom every key's largest wall must leave
+RT_HANG_S, RT_DEADLINE_S = 300.0, 5.0
+RT_CHAIN_CHUNK = 64
+RT_CROSSOVER_NTOA = (1_000,)     # and NGC6440E's 62, the fit cell's 10,000
+RT_HEADROOM = 10.0
+STEP_SIGMA_LIMIT = 1e-7           # one downhill step, card vs CPU (ROADMAP §3)
 H100_F64_OPS_PER_S = 67e12           # float64 on the tensor cores (DGEMM)
 
 # The Bayesian path on the fit cell: 40 timing parameters + ECORR1.log10,
@@ -1420,7 +1474,8 @@ def fit_downhill(par: str, toas, dev, label: str = "fit-downhill",
             and fg.stats.iterations == fc.stats.iterations):
         fail(f"{label}: the GPU fit does not reach the CPU optimum")
     return {"iterations": fg.stats.iterations, "gpu_s": tg, "cpu_s": tc,
-            "chi2": cg, "dp_sigma": dev_sigma, "fitter": fg}
+            "chi2": cg, "dp_sigma": dev_sigma, "fitter": fg,
+            "cpu_fitter": fc}
 
 
 def fit_pintempo(tmp: str) -> dict:
@@ -1504,6 +1559,7 @@ def binary_downhill(par: str, toas, sigma: dict, dev) -> dict:
         start.get_param(nm).add_delta((3.0 if i % 2 == 0 else -3.0)
                                       * float(sigma[nm]))
     out = fit_downhill(start.as_parfile(), toas, dev, "binary-downhill")
+    out.pop("cpu_fitter")
     fitted, truth = out.pop("fitter"), get_model(io.StringIO(par),
                                                  device="cpu")
     dev_truth = {nm: abs(fitted.model.get_param(nm).value
@@ -2496,9 +2552,10 @@ def posterior_check(problems, dparams, cov, dev) -> dict:
     return res
 
 
-def pta_phase(ntoa: int, nfreq: int, dev) -> dict:
+def pta_phase(ntoa: int, nfreq: int, dev, keep: dict = None) -> dict:
     """Phase 10: BASELINE config 5 built, solved, noise-solved, fitted,
-    its GWB likelihood swept and its per-pulsar posteriors sampled."""
+    its GWB likelihood swept and its per-pulsar posteriors sampled.
+    `keep`, when given, receives the problems and pulsar positions."""
     import torch
 
     from pint_tpu_torch.parallel import build_problem
@@ -2516,6 +2573,8 @@ def pta_phase(ntoa: int, nfreq: int, dev) -> dict:
     torch.cuda.synchronize()
     secs["build_problems"] = time.perf_counter() - t0
     positions = pulsar_positions([m for m, _, _ in pulsars])
+    if keep is not None:
+        keep.update(problems=problems, positions=positions)
     t0 = time.perf_counter()
     solve = pta_solve_check(problems, dev, "pta-solve")
     secs["solve"] = time.perf_counter() - t0
@@ -2706,6 +2765,8 @@ def bayes_time(par: str, sigma: dict, toas, dev) -> dict:
     chunk(x, lp, seed, 1, 0)
     step = device_busy(lambda: chunk(x, lp, seed, 1, 0),
                        "bayes chain step")
+    cost = supervision_cost(lambda: chunk(x, lp, seed, 1, 0),
+                            "sampling.chain", dev, "Bayesian chain step")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2722,7 +2783,7 @@ def bayes_time(par: str, sigma: dict, toas, dev) -> dict:
            "lnpost_batch_ms": one["wall_ms"], "lnpost_batch_busy_ms":
            one["busy_ms"], "step": step, "peak_mib": peak / 2 ** 20,
            "acceptance": smp.acceptance_fraction, "chi2": chi2,
-           "noise_estimates": fitter.noise_estimates}
+           "noise_estimates": fitter.noise_estimates, "supervision": cost}
     print(f"bayes-time: MCMCFitter(sample_noise=True), {nw} "
           f"walkers x {post.nparams} dimensions x {BAYES_TIMED_STEPS} steps "
           f"on N = {toas.ntoas}: {wall:.3f} s ({res['steps_per_s']:.3f} "
@@ -2986,6 +3047,7 @@ def zoo_fit_phase(label: str, par: str, model, toas, dev, offsets,
         start.get_param(nm).add_delta((3.0 if i % 2 == 0 else -3.0)
                                       * float(step["sigma"][nm]))
     out = fit_downhill(start.as_parfile(), toas, dev, f"{label} downhill")
+    out.pop("cpu_fitter")
     fitted, truth = out.pop("fitter"), get_model(io.StringIO(par),
                                                  device="cpu")
     dev_truth = {nm: abs(fitted.model.get_param(nm).value
@@ -3569,6 +3631,8 @@ def photon_batch_check(pb: dict, template, seed: int, tmp: str,
                        f"photon lnpost_batch ({PH_WALKERS} walkers x "
                        f"{len(w)} photons)")
     _, peak = peak_mib(lambda: fitter.lnpost_batch(half))
+    cost = supervision_cost(lambda: fitter.lnpost_batch(half),
+                            "sampling.chain", dev, "photon half-ensemble")
     chunk = config.photon_walker_chunk(len(w))
     per_wp = peak * 2 ** 20 / (PH_WALKERS * len(w) * 8)
     res = {"walkers": PH_WALKERS, "n": len(w), "n_cpu_check": n,
@@ -3577,7 +3641,8 @@ def photon_batch_check(pb: dict, template, seed: int, tmp: str,
            "host_ms": float(np.median(times)), "host_ms_min_max":
            [min(times), max(times)], **prof, "peak_mib": peak,
            "peak_float64_per_walker_photon": per_wp, "walker_chunk": chunk,
-           "lnlike_range": [float(host.min()), float(host.max())]}
+           "lnlike_range": [float(host.min()), float(host.max())],
+           "supervision": cost}
     print(f"photon-batch: {PH_WALKERS} walkers, card vs CPU on {n} photons "
           f"{rel:.3e} relative (limit {PH_REL}); device core == host "
           f"_lp_batch at {len(w)} photons: {same}; a half-ensemble "
@@ -3939,6 +4004,764 @@ def photon_sampling_phase(zmod, n: int, m: int, seed: int, dev) -> dict:
             "seconds": secs}
 
 
+# ------------------------------------------------------ the dispatch runtime
+
+
+def supervisor_clean(label: str) -> dict:
+    """(g) The global supervisor's counters after a phase that injects no
+    fault: any failover, timeout, breaker rejection or lost device is a
+    hidden fallback, and fails the smoke."""
+    from pint_tpu_torch.runtime import get_supervisor
+
+    snap = get_supervisor().snapshot()
+    keys = ("dispatches", "guarded", "failovers", "timeouts",
+            "breaker_rejections", "device_lost", "retries")
+    out = {k: snap[k] for k in keys}
+    print(f"supervisor after {label}: {out}")
+    bad = {k: out[k] for k in ("failovers", "timeouts", "breaker_rejections",
+                               "device_lost") if out[k]}
+    if bad:
+        fail(f"{label}: a phase without injected faults fell back: {bad}")
+    return out
+
+
+@contextlib.contextmanager
+def short_deadline(match: str, seconds: float):
+    """Dispatches whose key holds `match` get a `seconds` deadline (the
+    injected wedge's); every other dispatch a 600 s one (a plan makes CPU
+    dispatches guarded, and a real CPU pass must not time out)."""
+    from pint_tpu_torch.runtime.supervisor import DispatchSupervisor
+
+    real = DispatchSupervisor._deadline_s
+
+    def deadline(self, key, steps, backend, depth=1):
+        return seconds * max(1, depth) if match in key else 600.0
+
+    DispatchSupervisor._deadline_s = deadline
+    try:
+        yield
+    finally:
+        DispatchSupervisor._deadline_s = real
+
+
+def fit_state(f) -> dict:
+    """A fitter's outcome: chi2, the free parameters' values and
+    uncertainties, the covariance."""
+    m = f.model
+    return {"chi2": f.stats.chi2,
+            "values": [m.get_param(n).value for n in m.free_params],
+            "errors": [m.get_param(n).uncertainty for n in m.free_params],
+            "cov": np.asarray(f.parameter_covariance_matrix)}
+
+
+def same_fit(got: dict, want: dict) -> bool:
+    return (got["chi2"] == want["chi2"] and got["values"] == want["values"]
+            and got["errors"] == want["errors"]
+            and np.array_equal(got["cov"], want["cov"]))
+
+
+def runtime_hang(par: str, toas, cpu_ref: dict, dev) -> dict:
+    """(a) A wedged gls.fit: the device fit fails over to the CPU host fit,
+    bitwise the CPU fit, within the deadline, labelled."""
+    from pint_tpu_torch.gls import DeviceDownhillGLSFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.runtime import Fault, FaultPlan, get_supervisor, \
+        reset_runtime
+
+    reset_runtime()
+    fit = DeviceDownhillGLSFitter(toas, get_model(io.StringIO(par),
+                                                  device=dev))
+    plan = FaultPlan([Fault(match="gls.fit", kind="hang",
+                            seconds=RT_HANG_S)])
+    t0 = time.perf_counter()
+    with short_deadline("gls.fit", RT_DEADLINE_S), plan.active(), \
+            warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        fit.fit_toas()
+    wall = time.perf_counter() - t0
+    snap = get_supervisor().snapshot()
+    got = fit_state(fit)
+    labelled = [str(w.message) for w in rec
+                if "fell back to DownhillGLSFitter on cpu" in str(w.message)]
+    res = {"wall_s": wall, "hang_s": RT_HANG_S, "deadline_s": RT_DEADLINE_S,
+           "bitwise_cpu_fit": same_fit(got, cpu_ref),
+           "model_device": str(fit.model.device), "applied": plan.applied,
+           **{k: snap[k] for k in ("timeouts", "failovers",
+                                   "abandoned_workers")}}
+    print(f"runtime-hang: {plan.applied} -> {fit.model.device} in "
+          f"{wall:.3f} s (hang {RT_HANG_S} s, deadline {RT_DEADLINE_S} s); "
+          f"chi2 {got['chi2']!r} vs the CPU fit's {cpu_ref['chi2']!r}, "
+          f"bitwise {res['bitwise_cpu_fit']}; timeouts {snap['timeouts']}, "
+          f"failovers {snap['failovers']}, abandoned workers "
+          f"{snap['abandoned_workers']}; labelled: {bool(labelled)}")
+    if not (res["bitwise_cpu_fit"] and wall < RT_HANG_S and labelled
+            and fit.model.device.type == "cpu"
+            and min(snap["timeouts"], snap["failovers"],
+                    snap["abandoned_workers"]) >= 1):
+        fail("runtime-hang: the wedged device fit did not fail over to the "
+             "CPU fit")
+    return res
+
+
+def sticky_child(tmp: str) -> int:
+    """(b), in a child process: the device fit of the cell in `tmp`, its
+    first gls.fit_step dispatch hitting a real device-side assert. Writes
+    sticky.json and sticky.npz; exits 0 only when every check holds."""
+    import torch
+
+    import pint_tpu_torch.parallel as par_mod
+    from pint_tpu_torch.gls import DeviceDownhillGLSFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.runtime import LOST, breaker_for, get_supervisor
+    from pint_tpu_torch.toa import load_pickle
+
+    os.environ["PINT_TPU_BREAKER_COOLDOWN_S"] = "0"
+    dev = torch.device("cuda", 0)
+    with open(os.path.join(tmp, "cell.par")) as f:
+        par = f.read()
+    toas = load_pickle(os.path.join(tmp, "cell.pickle"), device=dev)
+    model = get_model(io.StringIO(par), device=dev)
+    real = par_mod.build_fit_loop
+    fired = []
+
+    def build_fit_loop(*a, **kw):
+        loop_fn, args, names = real(*a, **kw)
+
+        def poisoned(*x, **k):
+            if not fired:
+                fired.append(1)
+                idx = torch.tensor([7], device=dev)
+                torch.arange(4, device=dev)[idx].sum().item()
+            return loop_fn(*x, **k)
+
+        return poisoned, args, names
+
+    par_mod.build_fit_loop = build_fit_loop
+    fit = DeviceDownhillGLSFitter(toas, model)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        fit.fit_toas()
+    par_mod.build_fit_loop = real
+    touched = []
+    later = get_supervisor().dispatch(
+        lambda: touched.append(1) or torch.ones(1, device=dev).item(),
+        key="gls.fit_step", device=dev, fallback=lambda: "host")
+    snap = get_supervisor().snapshot()
+    state = fit_state(fit)
+    out = {"assert_fired": bool(fired),
+           "model_device": str(fit.model.device),
+           "breaker": breaker_for("cuda:0").snapshot(),
+           "later_dispatch": later, "later_touched_card": bool(touched),
+           "counters": {k: snap[k] for k in (
+               "device_lost", "failovers", "breaker_rejections", "retries",
+               "transient_errors", "timeouts")},
+           "warnings": [str(w.message)[:200] for w in rec
+                        if issubclass(w.category, RuntimeWarning)],
+           "chi2": state["chi2"]}
+    ok = (out["assert_fired"] and fit.model.device.type == "cpu"
+          and out["breaker"]["state"] == LOST and later == "host"
+          and not touched and snap["device_lost"] == 1
+          and snap["failovers"] >= 2 and snap["breaker_rejections"] >= 1
+          and snap["retries"] == 0)
+    out["ok"] = ok
+    np.savez(os.path.join(tmp, "sticky.npz"), values=state["values"],
+             errors=state["errors"], cov=state["cov"])
+    with open(os.path.join(tmp, "sticky.json"), "w") as f:
+        json.dump(out, f)
+    return 0 if ok else 1
+
+
+def runtime_sticky(par: str, toas, cpu_ref: dict, tmp: str) -> dict:
+    """(b) The sticky error, in a child process so this one keeps its CUDA
+    context: its CPU result against the CPU fit, bitwise."""
+    from pint_tpu_torch.toa import save_pickle
+
+    with open(os.path.join(tmp, "cell.par"), "w") as f:
+        f.write(par)
+    save_pickle(toas, os.path.join(tmp, "cell.pickle"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--sticky-child", tmp],
+        capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    try:
+        with open(os.path.join(tmp, "sticky.json")) as f:
+            out = json.load(f)
+        npz = np.load(os.path.join(tmp, "sticky.npz"))
+    except OSError:
+        print(proc.stdout[-3000:], proc.stderr[-3000:])
+        fail(f"runtime-sticky: the child wrote no result (rc "
+             f"{proc.returncode})")
+    got = {"chi2": out["chi2"], "values": npz["values"].tolist(),
+           "errors": npz["errors"].tolist(), "cov": npz["cov"]}
+    out.update(child_rc=proc.returncode, child_wall_s=wall,
+               bitwise_cpu_fit=same_fit(got, cpu_ref))
+    print(f"runtime-sticky: child rc {proc.returncode} in {wall:.3f} s; "
+          f"assert fired {out['assert_fired']}, model on "
+          f"{out['model_device']}, breaker {out['breaker']}, a later dispatch "
+          f"on the card gave {out['later_dispatch']!r} (card touched: "
+          f"{out['later_touched_card']}), counters {out['counters']}; chi2 "
+          f"{out['chi2']!r}, bitwise the CPU fit {out['bitwise_cpu_fit']}")
+    if proc.returncode != 0 or not (out["ok"] and out["bitwise_cpu_fit"]):
+        print(proc.stderr[-3000:])
+        fail("runtime-sticky: the lost context did not end in the CPU fit "
+             "with the breaker latched")
+    return out
+
+
+def runtime_breaker(par: str, toas, dev, tmp: str) -> dict:
+    """(c) Injected transient errors at gls.solve: retried and recovered;
+    then past breaker_threshold: tripped, a flight dump, the solve by the
+    CPU mirror, later dispatches short-circuited, Fitter.auto on the
+    host."""
+    from pint_tpu_torch import config, obs
+    from pint_tpu_torch.fitter import Fitter
+    from pint_tpu_torch.gls import GLSFitter, _gls_host_failover_solve
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.runtime import OPEN, Fault, FaultPlan, breaker_for, \
+        get_supervisor, reset_runtime
+
+    reset_runtime()
+    fdir = os.path.join(tmp, "flight")
+    obs.configure(flight_dir=fdir)
+    sup = get_supervisor()
+    gf = GLSFitter(toas, get_model(io.StringIO(par), device=dev))
+    want = gf._solve_once()
+    plan = FaultPlan([Fault(match="gls.solve", kind="error", count=2)])
+    with plan.active():
+        got = gf._solve_once()
+    retried = {k: sup.snapshot()[k] for k in ("retries", "transient_errors",
+                                              "failovers")}
+    same = (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+            and got[2] == want[2])
+    plan = FaultPlan([Fault(match="gls.solve", kind="error")])
+    with plan.active(), warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        tripped = gf._solve_once()
+    br = breaker_for("cuda:0")
+    state = br.state
+    M, r, nvec, F, phi, _, _ = gf._system("cpu")
+    x, cov, chi2, _ = _gls_host_failover_solve(
+        M.numpy(), F.numpy(), phi.numpy(), r.numpy(), nvec.numpy())
+    mirror = (np.array_equal(tripped[0], -x) and
+              np.array_equal(tripped[1], cov) and tripped[2] == chi2)
+    dumps = sorted(os.listdir(fdir)) if os.path.isdir(fdir) else []
+    touched = []
+    short = sup.dispatch(lambda: touched.append(1), key="gls.solve",
+                         device=dev, fallback=lambda: "host")
+    with warnings.catch_warnings(record=True) as rec2:
+        warnings.simplefilter("always")
+        auto = Fitter.auto(toas, get_model(io.StringIO(par), device=dev))
+    snap = sup.snapshot()
+    res = {"recovered": retried, "recovered_bitwise": same,
+           "threshold": config.breaker_threshold(), "state": state,
+           "trips": br.trips, "flight_dumps": dumps,
+           "mirror_bitwise": mirror, "short_circuit": short,
+           "card_touched": bool(touched),
+           "auto": [type(auto).__name__, str(auto.device)],
+           "rejections": snap["breaker_rejections"],
+           "failovers": snap["failovers"],
+           "rehome_warned": any("moves to the CPU" in str(w.message)
+                                for w in list(rec) + list(rec2))}
+    print(f"runtime-breaker: 2 injected errors retried {retried}, bitwise "
+          f"the unfaulted solve {same}; then every attempt failing: breaker "
+          f"{state} after {config.breaker_threshold()} failures, flight "
+          f"dumps {dumps}, the solve by the CPU mirror bitwise {mirror}; a "
+          f"later dispatch gave {short!r} (card touched {bool(touched)}); "
+          f"Fitter.auto gave {res['auto']}; rejections "
+          f"{snap['breaker_rejections']}, failovers {snap['failovers']}")
+    if not (same and retried["retries"] == 2 and retried["failovers"] == 0
+            and state == OPEN and mirror and short == "host" and not touched
+            and any("breaker_open" in d for d in dumps)
+            and res["auto"] == ["DownhillGLSFitter", "cpu"]
+            and res["rehome_warned"]):
+        fail("runtime-breaker: retry, trip, dump or short-circuit failed")
+    obs.reset()
+    reset_runtime()
+    return res
+
+
+def runtime_nan(par: str, toas, gpu_ref: dict, dev) -> dict:
+    """(d) NaN readback from gls.fit: the fit fails over to the host
+    fitter on the card, bitwise fit-downhill's GPU fit."""
+    from pint_tpu_torch.gls import DeviceDownhillGLSFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.runtime import Fault, FaultPlan, get_supervisor, \
+        reset_runtime
+
+    reset_runtime()
+    fit = DeviceDownhillGLSFitter(toas, get_model(io.StringIO(par),
+                                                  device=dev))
+    plan = FaultPlan([Fault(match="gls.fit", kind="nan")])
+    with plan.active(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fit.fit_toas()
+    snap = get_supervisor().snapshot()
+    got = fit_state(fit)
+    res = {"bitwise_gpu_fit": same_fit(got, gpu_ref),
+           "model_device": str(fit.model.device), "applied": plan.applied,
+           "failovers": snap["failovers"]}
+    print(f"runtime-nan: {plan.applied[:1]} -> host fitter on "
+          f"{fit.model.device}, chi2 {got['chi2']!r}, bitwise the GPU "
+          f"DownhillGLSFitter {res['bitwise_gpu_fit']}, failovers "
+          f"{snap['failovers']}")
+    if not (res["bitwise_gpu_fit"] and snap["failovers"] == 1
+            and fit.model.device.type == "cuda"):
+        fail("runtime-nan: the NaN step did not fail over to the host fit")
+    reset_runtime()
+    return res
+
+
+def runtime_gwb(problems, positions, nfreq: int, dev) -> dict:
+    """(e) Config 5's sweep losing the device after its first chunk: every
+    chunk completes, by the numpy mirror from the chunk boundary, within
+    GWB_RTOL of the CPU sweep, labelled."""
+    from pint_tpu_torch.pta import GWBLikelihood
+    from pint_tpu_torch.runtime import Fault, FaultPlan, get_supervisor, \
+        reset_runtime
+
+    reset_runtime()
+    K = 8
+    la = np.linspace(-15.0, -13.5, 3 * K)
+    ga = np.full(3 * K, 13.0 / 3.0)
+    t0 = time.perf_counter()
+    cpu_vals = GWBLikelihood(problems=problems, positions=positions,
+                             nfreq=nfreq, device="cpu").loglik_grid(
+        la, ga, chunk=K)
+    cpu_s = time.perf_counter() - t0
+    like = GWBLikelihood(problems=problems, positions=positions, nfreq=nfreq,
+                         device=dev)
+    info = {}
+    plan = FaultPlan([Fault(match="pta.gwb/", kind="hang", after=1,
+                            seconds=RT_HANG_S)])
+    t0 = time.perf_counter()
+    with short_deadline("pta.gwb/", RT_DEADLINE_S), plan.active():
+        vals = like.loglik_grid(la, ga, chunk=K, info=info)
+    wall = time.perf_counter() - t0
+    snap = get_supervisor().snapshot()
+    worst = float(np.max(np.abs(vals - cpu_vals) / np.abs(cpu_vals)))
+    res = {"points": len(la), "chunk": K, "applied": plan.applied,
+           "used_pool": info.get("used_pool"), "wall_s": wall,
+           "cpu_sweep_s": cpu_s, "vs_cpu_rel": worst,
+           **{k: snap[k] for k in ("timeouts", "failovers")}}
+    print(f"runtime-gwb: {len(la)} points in chunks of {K} on {dev}, "
+          f"{plan.applied} -> used_pool {info.get('used_pool')}, "
+          f"{wall:.3f} s; against the CPU sweep ({cpu_s:.3f} s) "
+          f"{worst:.3e} relative (limit {GWB_RTOL}); timeouts "
+          f"{snap['timeouts']}, failovers {snap['failovers']}")
+    if not (info.get("used_pool") == "host-failover" and worst <= GWB_RTOL
+            and np.all(np.isfinite(vals)) and snap["failovers"] >= 1
+            and wall < RT_HANG_S):
+        fail("runtime-gwb: the sweep did not finish on the host")
+    reset_runtime()
+    return res
+
+
+def runtime_chain(dev) -> dict:
+    """(e) The moments pulsar's chain on the card failing from chunk 2 on:
+    each failed chunk re-runs on the CPU posterior from the carried state;
+    the positions equal an all-CPU chain's bitwise."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.runtime import Fault, FaultPlan, get_supervisor, \
+        reset_runtime
+    from pint_tpu_torch.sampling import DeviceEnsembleSampler, \
+        DevicePosterior
+    from pint_tpu_torch.simulation import make_fake_toas_uniform
+
+    reset_runtime()
+    toas = make_fake_toas_uniform(
+        54000, 56000, 60, get_model(io.StringIO(MOMENT_PAR), device="cpu"),
+        error_us=1.0, freq_mhz=1400.0, add_noise=True,
+        rng=np.random.default_rng(11), device="cpu")
+    posts = {tag: DevicePosterior(get_model(io.StringIO(MOMENT_PAR),
+                                            device=d), toas)
+             for tag, d in (("gpu", dev), ("cpu", "cpu"))}
+    p0 = posts["cpu"].init_walkers(POST_WALKERS,
+                                   rng=np.random.default_rng(12))
+    os.environ["PINT_TPU_CHAIN_CHUNK"] = str(RT_CHAIN_CHUNK)
+    try:
+        t0 = time.perf_counter()
+        cpu = DeviceEnsembleSampler(POST_WALKERS, posts["cpu"].nparams,
+                                    posts["cpu"].lnpost_batch, device="cpu")
+        cpu.run_mcmc(p0, POST_STEPS, seed=13)
+        cpu_s = time.perf_counter() - t0
+        s = DeviceEnsembleSampler(POST_WALKERS, posts["gpu"].nparams,
+                                  posts["gpu"].lnpost_batch, device=dev,
+                                  host_lnpost_batch=posts["cpu"].lnpost_batch)
+        plan = FaultPlan([Fault(match="sampling.chain", kind="error",
+                                after=2)])
+        t0 = time.perf_counter()
+        with plan.active():
+            s.run_mcmc(p0, POST_STEPS, seed=13)
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ["PINT_TPU_CHAIN_CHUNK"]
+    snap = get_supervisor().snapshot()
+    same = bool(np.array_equal(s.chain, cpu.chain))
+    lnp_rel = float(np.max(np.abs(s.lnprob - cpu.lnprob)
+                           / np.maximum(np.abs(cpu.lnprob), 1e-300)))
+    nchunks = -(-POST_STEPS // RT_CHAIN_CHUNK)
+    res = {"walkers": POST_WALKERS, "steps": POST_STEPS,
+           "chunk": RT_CHAIN_CHUNK, "chunks": s.dispatches,
+           "failovers": snap["failovers"],
+           "positions_bitwise_cpu_chain": same, "lnprob_max_rel": lnp_rel,
+           "acceptance": [s.acceptance_fraction, cpu.acceptance_fraction],
+           "wall_s": wall, "cpu_chain_s": cpu_s}
+    print(f"runtime-chain: {POST_WALKERS} x {POST_STEPS} in {nchunks} chunks "
+          f"of {RT_CHAIN_CHUNK}, chunks 2.. failed ({snap['failovers']} "
+          f"failovers) in {wall:.3f} s; positions bitwise the all-CPU "
+          f"chain's ({cpu_s:.3f} s) {same}, lnprob within {lnp_rel:.3e} "
+          f"(chunks 0-1 scored on the card), acceptance "
+          f"{s.acceptance_fraction:.4f} / {cpu.acceptance_fraction:.4f}")
+    if not (same and s.dispatches == nchunks
+            and snap["failovers"] == nchunks - 2):
+        fail("runtime-chain: the failed-over chain is not the CPU chain")
+    reset_runtime()
+    return res
+
+
+def supervision_cost(fn, key: str, dev, label: str, reps: int = 6) -> dict:
+    """(f) `fn` dispatched under `key` on the card, supervised (the guarded
+    worker and its host read) and with guard=False (inline, its outputs
+    left on the card): host-clock ms of `reps` calls of each, in turns
+    (supervised, unguarded, unguarded, supervised, ...), each ending in a
+    synchronize, before any profiler runs; then two profiled calls of
+    each, in turns: the kernel launches on the host and the kernels on
+    the device (the profiler sees both whichever thread launched them;
+    the larger count of the two windows, as a window may drop events),
+    device busy time and idle share, and the fit_step.* spans recorded
+    (record_function ranges stay with the thread that opened them). The
+    launch counts must be equal."""
+    from pint_tpu_torch.runtime import get_supervisor
+
+    sup = get_supervisor()
+    calls = {tag: (lambda guard=guard: sup.dispatch(fn, key=key, device=dev,
+                                                    guard=guard))
+             for tag, guard in (("supervised", None), ("unguarded", False))}
+    times = {tag: [] for tag in calls}
+    for call in calls.values():
+        call()
+    order = ["supervised", "unguarded"]
+    for r in range(reps):
+        for tag in (order if r % 2 == 0 else order[::-1]):
+            sync(dev)
+            t0 = time.perf_counter()
+            calls[tag]()
+            sync(dev)
+            times[tag].append((time.perf_counter() - t0) * 1e3)
+    out = {tag: {"median_ms": float(np.median(ts)),
+                 "min_max_ms": [min(ts), max(ts)], "launches": 0,
+                 "kernels": 0, "fit_step_spans": []}
+           for tag, ts in times.items()}
+    for tag in order + order[::-1]:
+        _, wall_ms, spans, work, launches = profile_window(calls[tag], 1)
+        kernels = sum(1 for *_, n in work
+                      if not n.startswith(("Memcpy", "Memset")))
+        o = out[tag]
+        if kernels >= o["kernels"]:
+            busy = sum(b - a for a, b, _ in work) / 1e3
+            o.update(kernels=kernels, busy_ms=busy, profiled_ms=wall_ms,
+                     idle_share=1 - busy / wall_ms if work else None)
+        o["launches"] = max(o["launches"], launches)
+        o["fit_step_spans"] = sorted(set(o["fit_step_spans"]) | {
+            n for n in spans if n.startswith("fit_step.")})
+    s, u = out["supervised"], out["unguarded"]
+    out["overhead_ms"] = s["median_ms"] - u["median_ms"]
+    print(f"runtime-cost, {label}: supervised {s['median_ms']:.3f} ms "
+          f"(min {s['min_max_ms'][0]:.3f}), guard=False "
+          f"{u['median_ms']:.3f} ms (min {u['min_max_ms'][0]:.3f}), {reps} "
+          f"each in turns: {out['overhead_ms']:+.3f} ms; launches "
+          f"{s['launches']} / {u['launches']}, device kernels "
+          f"{s['kernels']} / {u['kernels']}; idle share {s['idle_share']} / "
+          f"{u['idle_share']}; fit_step spans seen supervised "
+          f"{len(s['fit_step_spans'])}, unguarded {len(u['fit_step_spans'])}"
+          + (" (a guarded call's spans stay on its worker thread: the "
+             "fit-time windows profile the step called directly)"
+             if u["fit_step_spans"] and not s["fit_step_spans"] else ""))
+    if s["launches"] != u["launches"] or not s["launches"]:
+        fail(f"runtime-cost, {label}: the supervised call launches other "
+             "kernels")
+    return out
+
+
+def carry_cost(dev) -> dict:
+    """The host carry between chunks, alone: the state read back and
+    placed again (median of 20, ms), for the streaming accumulator of the
+    stream cell (p = 37, q = 30: Sigma (p+q)^2 and eight vectors) and for
+    the Bayesian chain's (pos, lp) (88 walkers x 43 dimensions)."""
+    import torch
+
+    from pint_tpu_torch.parallel.streaming import _init_state
+
+    states = {"stream_state": _init_state(37, 30, dev),
+              "chain_state": (torch.zeros((88, 43), dtype=torch.float64,
+                                          device=dev),
+                              torch.zeros(88, dtype=torch.float64,
+                                          device=dev))}
+    out = {}
+    for name, st in states.items():
+        times = []
+        for _ in range(21):
+            sync(dev)
+            t0 = time.perf_counter()
+            host = [x.cpu() for x in st]
+            st = tuple(x.to(dev) for x in host)
+            sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"bytes": sum(x.numel() * 8 for x in st),
+                     "ms": float(np.median(times[1:]))}
+    print(f"runtime-carry: {out}")
+    return out
+
+
+def runtime_deadlines() -> dict:
+    """Each dispatch key's largest wall on the card against its steady
+    deadline (and its first call's wall against the first-call deadline);
+    the measured CUDA round trip."""
+    from pint_tpu_torch import config
+    from pint_tpu_torch.runtime import get_supervisor
+
+    sup = get_supervisor()
+    rtt = config.dispatch_rtt_ms("cuda:0")
+    lat = sup.snapshot().get("latency", {})
+    rows = {}
+    for row, metrics in sorted(lat.items()):
+        backend, key = row.split("/", 1)
+        if not backend.startswith("cuda"):
+            continue
+        # the chunk keys of one sweep or chain are one row: "<tag>/chunk<c>"
+        name = key.split("/chunk")[0] + ("/chunk*" if "/chunk" in key
+                                         else "")
+        wall_ms = metrics["dispatch_wall"]["max_ms"]
+        dl_ms = sup._deadline_s(key, 1, backend) * 1e3
+        r = rows.setdefault(name, {"count": 0, "max_wall_ms": 0.0,
+                                   "deadline_ms": dl_ms})
+        r["count"] += metrics["dispatch_wall"]["count"]
+        r["max_wall_ms"] = max(r["max_wall_ms"], wall_ms)
+        r["deadline_ms"] = min(r["deadline_ms"], dl_ms)
+        r["headroom"] = r["deadline_ms"] / max(r["max_wall_ms"], 1e-9)
+    worst = min(rows.items(), key=lambda kv: kv[1]["headroom"]) \
+        if rows else (None, {"headroom": math.inf})
+    print(f"runtime-deadlines: CUDA round trip {rtt * 1e3:.1f} us (drift "
+          f"floor 5 ms); {len(rows)} dispatch sites on the card; least "
+          f"headroom "
+          f"{worst[1]['headroom']:.1f}x at {worst[0]}")
+    for key, r in rows.items():
+        print(f"  {key}: {r['count']} calls, largest wall "
+              f"{r['max_wall_ms']:.3f} ms, deadline {r['deadline_ms']:.0f} "
+              f"ms, headroom {r['headroom']:.1f}x")
+    if worst[1]["headroom"] < RT_HEADROOM:
+        fail(f"runtime-deadlines: {worst[0]} ran within {RT_HEADROOM}x of "
+             "its deadline")
+    return {"rtt_ms": rtt, "keys": rows}
+
+
+def runtime_crossover(fit_par: str, fit_toas) -> dict:
+    """WLS and GLS solves (one supervised linearized pass each) on the card
+    and on the CPU, each device's model from the same par text and the
+    same TOAs: NGC6440E's 62 TOAs, the fit cell's recipe at 1,000 TOAs
+    (2 DMX) and the fit cell itself; median of 3 after a warm-up."""
+    import torch
+
+    from pint_tpu_torch.fitter import WLSFitter
+    from pint_tpu_torch.gls import GLSFitter
+    from pint_tpu_torch.models import get_model, get_model_and_toas
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, ngc_toas = get_model_and_toas(NGC[0], NGC[1], device="cpu")
+    with open(NGC[0]) as f:
+        ngc_par = f.read()
+    mid_par, _, mid_toas = fit_build(RT_CROSSOVER_NTOA[0], 2, 1, "cpu")
+    out = {}
+    for par, toas in ((ngc_par, ngc_toas), (mid_par, mid_toas),
+                      (fit_par, fit_toas)):
+        row = {}
+        for tag, d in (("gpu", torch.device("cuda")), ("cpu", "cpu")):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                m = get_model(io.StringIO(par), device=d)
+            for name, fn in (("wls", lambda: WLSFitter(toas, m)._solve(None)),
+                             ("gls", lambda: GLSFitter(toas, m)._solve_once())):
+                fn()
+                times = []
+                for _ in range(3):
+                    sync(d)
+                    t0 = time.perf_counter()
+                    fn()
+                    sync(d)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                row[f"{name}_{tag}_ms"] = float(np.median(times))
+        out[str(toas.ntoas)] = row
+        print(f"runtime-crossover, {toas.ntoas} TOAs: WLS card "
+              f"{row['wls_gpu_ms']:.2f} ms, CPU {row['wls_cpu_ms']:.2f} ms; "
+              f"GLS card {row['gls_gpu_ms']:.2f} ms, CPU "
+              f"{row['gls_cpu_ms']:.2f} ms")
+    return out
+
+
+def downhill_log(f) -> list:
+    """Wrap fitter `f` so each downhill decision lands in the returned
+    list: ("solve", proposed step) and ("trial", chi2)."""
+    log = []
+    solve, chi2_here = f._solve_once, f._chi2_here
+
+    def logged_solve(*a, **kw):
+        out = solve(*a, **kw)
+        log.append(("solve", np.array(out[0])))
+        return out
+
+    def logged_chi2():
+        c = chi2_here()
+        log.append(("trial", c))
+        return c
+
+    f._solve_once, f._chi2_here = logged_solve, logged_chi2
+    return log
+
+
+def decisions(log: list) -> list:
+    """[(step, [trial chi2], accepted halving or None)] of a downhill log:
+    the first trial is the entry chi2; each iteration's solve is followed
+    by its trials, the first within 1e-12 of the best accepted."""
+    best = log[0][1]
+    out, cur = [], None
+    for kind, v in log[1:]:
+        if kind == "solve":
+            cur = [v, [], None]
+            out.append(cur)
+        elif cur is not None:
+            cur[1].append(v)
+            if cur[2] is None and v <= best + 1e-12:
+                cur[2] = len(cur[1]) - 1
+                best = v
+    return out
+
+
+def config3_decisions(w_model, w_toas, dev, tmp: str) -> dict:
+    """ROADMAP §3's suspicion: config 3 written by TOAs.write_TOA_file (16
+    digits), Fitter.auto's WidebandDownhillFitter on the card and on the
+    CPU with every decision logged; the first decision that differs and
+    the largest difference of one step in sigma. The first step (both
+    devices at the same start) is taken apart: the stacked systems
+    (design, residuals) of both devices solved on the CPU, so its
+    difference splits into the solve's arithmetic on identical inputs,
+    what the residuals' differences move and what the design's move."""
+    import torch
+
+    from pint_tpu_torch.fitter import Fitter
+    from pint_tpu_torch.gls import _gls_kernel
+    from pint_tpu_torch.models import get_model_and_toas
+
+    par = os.path.join(tmp, "config3_16.par")
+    tim = os.path.join(tmp, "config3_16.tim")
+    with open(par, "w") as f:
+        f.write(w_model.as_parfile())
+    w_toas.write_TOA_file(tim)
+    runs, start = {}, {}
+    for tag, d in (("gpu", dev), ("cpu", "cpu")):
+        m, t = get_model_and_toas(par, tim, device=d)
+        f = Fitter.auto(t, m)
+        M, r, nvec, F, phi, _, _ = f._system(d)
+        start[tag] = [x.cpu() for x in (M, r, nvec, F, phi)]
+        log = downhill_log(f)
+        chi2 = f.fit_toas()
+        runs[tag] = (f, chi2, decisions(log))
+    (fg, cg, dg), (fc, cc, dc) = runs["gpu"], runs["cpu"]
+
+    def step(M, r, nvec, F, phi):
+        out = _gls_kernel(M, F, phi, r, nvec)
+        return -out[0].numpy(), out[1].numpy()
+
+    Mg, rg, nvg, Fg, phig = start["gpu"]
+    Mc, rc, nvc, Fc, phic = start["cpu"]
+    x_c, cov_c = step(Mc, rc, nvc, Fc, phic)
+    x_gc, _ = step(Mg, rg, nvg, Fg, phig)     # the card's inputs, CPU solve
+    x_mix, _ = step(Mc, rg, nvc, Fc, phic)    # CPU design, card residuals
+    s0 = np.sqrt(np.abs(np.diag(cov_c)))
+
+    def in_sigma(a, b):
+        return float(np.max(np.abs(a - b) / s0))
+
+    err_s = torch.sqrt(nvc)
+    first_step = {
+        "card_vs_cpu": in_sigma(dg[0][0], x_c),
+        "solve_arithmetic": in_sigma(dg[0][0], x_gc),
+        "moved_by_residuals": in_sigma(x_mix, x_c),
+        "moved_by_design": in_sigma(x_gc, x_mix),
+        "resid_max_abs": float(torch.max(torch.abs(rg - rc))),
+        "resid_max_sigma": float(torch.max(torch.abs(rg - rc) / err_s)),
+        "design_max_rel": float(torch.max(torch.abs(Mg - Mc))
+                                / torch.max(torch.abs(Mc)))}
+    names = fc.model.free_params
+    sig = np.array([fc.errors[n] for n in names])
+    steps, first = [], None
+    for k in range(max(len(dg), len(dc))):
+        if k >= len(dg) or k >= len(dc):
+            first = first or {"iteration": k, "what": "iteration count",
+                              "gpu": len(dg), "cpu": len(dc)}
+            break
+        xg, xc = dg[k][0], dc[k][0]
+        noff = len(xg) - len(names)
+        steps.append(float(np.max(np.abs(xg[noff:] - xc[noff:]) / sig)))
+        if first is None and (dg[k][2] != dc[k][2]
+                              or len(dg[k][1]) != len(dc[k][1])):
+            first = {"iteration": k, "what": "accepted halving",
+                     "gpu": dg[k][2], "cpu": dc[k][2],
+                     "gpu_trials": dg[k][1], "cpu_trials": dc[k][1]}
+    dev_sigma = max(abs(fg.model.get_param(n).value
+                        - fc.model.get_param(n).value) / fc.errors[n]
+                    for n in names)
+    worst_step = max(steps) if steps else 0.0
+    res = {"iterations": [len(dg), len(dc)], "chi2": [cg, cc],
+           "fit_sigma": dev_sigma, "step_sigma": steps,
+           "worst_step_sigma": worst_step, "first_difference": first,
+           "halvings": [[x[2] for x in dg], [x[2] for x in dc]],
+           "first_step": first_step}
+    print(f"config3-16-digit: card {len(dg)} iterations, CPU {len(dc)}; "
+          f"accepted halvings {res['halvings'][0]} / {res['halvings'][1]}; "
+          f"each step card vs CPU {['%.2e' % s for s in steps]} sigma "
+          f"(limit {STEP_SIGMA_LIMIT}); first decision that differs: "
+          f"{first}; the fits part by {dev_sigma:.3e} sigma; the first step "
+          f"(same start) taken apart: {first_step}")
+    return res
+
+
+def runtime_phase(par: str, toas, downhill: dict, step: dict, array: dict,
+                  nfreq: int, costs: dict, dev) -> dict:
+    """Phase 14's (a)-(f) and the deadline and crossover records."""
+    secs = {}
+    deadlines = runtime_deadlines()
+    cpu_ref = fit_state(downhill["cpu_fitter"])
+    gpu_ref = fit_state(downhill["fitter"])
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    costs["fit_step"] = timed("cost", supervision_cost,
+                              lambda: step["step"](*step["args"]),
+                              "gls.fit_step", dev, "fit step")
+    with tempfile.TemporaryDirectory() as tmp:
+        hang = timed("hang", runtime_hang, par, toas, cpu_ref, dev)
+        sticky = timed("sticky", runtime_sticky, par, toas, cpu_ref, tmp)
+        brk = timed("breaker", runtime_breaker, par, toas, dev, tmp)
+    nan = timed("nan", runtime_nan, par, toas, gpu_ref, dev)
+    gwb = timed("gwb", runtime_gwb, array["problems"], array["positions"],
+                nfreq, dev)
+    chain = timed("chain", runtime_chain, dev)
+    carry = carry_cost(dev)
+    cross = timed("crossover", runtime_crossover, par, toas)
+    print("runtime seconds: " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in secs.items()))
+    return {"hang": hang, "sticky": sticky, "breaker": brk, "nan": nan,
+            "gwb": gwb, "chain": chain, "cost": costs,
+            "deadlines": deadlines, "crossover": cross, "carry": carry,
+            "seconds": secs}
+
+
 def fmt(t: dict) -> str:
     return (f"{t['median']:.4f} ms median of 20 (min {t['min']:.4f}, "
             f"max {t['max']:.4f})")
@@ -3971,6 +4794,10 @@ def main() -> int:
     ap.add_argument("--baseline-src", default=None,
                     help="also time a kernel built from this .cu source "
                          "with the earlier float32-only interface")
+    ap.add_argument("--sticky-child", default=None, metavar="DIR",
+                    help="(internal) the runtime phase's child process: "
+                         "fit the cell in DIR through a real device-side "
+                         "assert")
     args = ap.parse_args()
 
     import torch
@@ -3978,6 +4805,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 2
+    if args.sticky_child:
+        # the child's CUDA context is lost by design: leave without the
+        # interpreter's teardown touching it
+        rc = sticky_child(args.sticky_child)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)
     from pint_tpu_torch.ops import z2_harmonics as zmod
 
     dev = torch.device("cuda")
@@ -4020,6 +4854,7 @@ def main() -> int:
         downhill = fit_downhill(fit_par_text, toas, dev)
         tempo = fit_pintempo(tmp)
     fit_phases_s = time.perf_counter() - t0
+    clean = {"photon_and_fit": supervisor_clean("the photon and fit paths")}
 
     # the binary path: BASELINE config 2 (ELL1), its DD twin, the zoo of
     # every binary model and config 4's dense full-covariance solve
@@ -4054,6 +4889,7 @@ def main() -> int:
     full = fullcov(dev)
     full_s = time.perf_counter() - t1
     binary_phases_s = time.perf_counter() - t0
+    clean["binary"] = supervisor_clean("the binary path")
     print(f"binary path seconds: build {b_build_s:.3f}, step checks and "
           f"timings {b_step_s:.3f}, downhill {b_downhill_s:.3f}, zoo "
           f"{zoo_s:.3f}, fullcov {full_s:.3f}; total {binary_phases_s:.3f} "
@@ -4083,7 +4919,9 @@ def main() -> int:
                                   "wideband-config3 downhill",
                                   fitter=WidebandDownhillFitter,
                                   tim=w_tim_path)
+        c3_16 = config3_decisions(w_model, w_toas, dev, tmp)
     w_downhill.pop("fitter")
+    w_downhill.pop("cpu_fitter")
     w3_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     _, tw_model, tw_toas = wideband_twin_build(args.fit_ntoa, args.fit_ndmx,
@@ -4100,6 +4938,7 @@ def main() -> int:
     tw_time = fit_time(tw_step["step"], tw_step["args"], "wideband twin step")
     tw_s = time.perf_counter() - t0
     ddsum = dd_sum_check(dev)
+    clean["wideband"] = supervisor_clean("the wideband path")
     print(f"wideband path seconds: config 3 {w3_s:.3f} (downhill "
           f"{w_downhill['gpu_s']:.3f} GPU, {w_downhill['iterations']} "
           f"iterations), twin {tw_s:.3f}")
@@ -4140,10 +4979,14 @@ def main() -> int:
     secs["stream"] = time.perf_counter() - t0
     print("device-fit and streaming seconds: " + ", ".join(
         f"{k} {v:.3f}" for k, v in secs.items()))
+    clean["device_fit_streaming"] = supervisor_clean(
+        "the device fit and streaming")
 
     # the pulsar array: BASELINE config 5, its GWB likelihood and its
     # per-pulsar posteriors
-    pta = pta_phase(args.pta_ntoa, args.pta_nfreq, dev)
+    array: dict = {}
+    pta = pta_phase(args.pta_ntoa, args.pta_nfreq, dev, keep=array)
+    clean["pta"] = supervisor_clean("the pulsar array")
 
     # the rest of the model zoo
     zoo_s = {}
@@ -4169,17 +5012,30 @@ def main() -> int:
     zoo_s["sweep"] = time.perf_counter() - t0
     print("zoo seconds: " + ", ".join(f"{k} {v:.3f}"
                                       for k, v in zoo_s.items()))
+    clean["zoo"] = supervisor_clean("the model zoo")
 
     # the Bayesian path on the fit cell
     t0 = time.perf_counter()
     bayes = bayes_phase(zmod, fit_par_text, toas, step, dev)
     bayes["seconds"]["total"] = time.perf_counter() - t0
+    clean["bayes"] = supervisor_clean("the Bayesian path")
 
     # photon sampling on the photon path's events, and the TOA cache
     t0 = time.perf_counter()
     photon = photon_sampling_phase(zmod, args.path_n, args.m, args.seed,
                                    dev)
     photon["seconds"]["total"] = time.perf_counter() - t0
+    clean["photon_sampling"] = supervisor_clean("photon sampling")
+
+    # the dispatch runtime: (a)-(f) on the fit cell, the deadlines and the
+    # solve crossover (after every earlier phase: (g) reads their counters)
+    t0 = time.perf_counter()
+    runtime = runtime_phase(
+        fit_par_text, toas, downhill, step, array, args.pta_nfreq,
+        {"chain_step": bayes["time"]["supervision"],
+         "half_ensemble": photon["batch"]["supervision"]}, dev)
+    runtime["clean"] = clean
+    runtime["seconds"]["total"] = time.perf_counter() - t0
 
     # timings at the main path's shape: float32 inputs (the TPU kernel's
     # contract) and float64 inputs (what the H-test hands the kernel)
@@ -4273,7 +5129,8 @@ def main() -> int:
         "gpu_vs_cpu": {k: step[k] for k in (
             "dp_sigma", "cov_rel", "chi2_rel", "resid_s")},
         "hybrid_vs_step": step["hybrid_vs_step"],
-        "downhill": {k: v for k, v in downhill.items() if k != "fitter"},
+        "downhill": {k: v for k, v in downhill.items()
+                     if k not in ("fitter", "cpu_fitter")},
         "pintempo": tempo}}))
     print(f"binary path: N = {b_toas.ntoas}, step "
           f"{b_time['host_ms'][0]:.3f} ms (host) / "
@@ -4329,7 +5186,7 @@ def main() -> int:
                     "hybrid_vs_step": w_step["hybrid_vs_step"],
                     "downhill": w_downhill},
         "twin": wb_cell(tw_toas.ntoas, tw_build_s, tw_time, tw_step, tw_s),
-        "dd_sum": ddsum}}))
+        "dd_sum": ddsum, "config3_16_digit": c3_16}}))
     print(json.dumps({"nu_inf": nu_inf}))
     print(json.dumps({"device_fit": {"stress": dfit,
                                      "stress_wideband": dfit_wb,
@@ -4345,6 +5202,7 @@ def main() -> int:
     print(json.dumps({"zoo_sweep": {**zsw, "seconds": zoo_s["sweep"]}}))
     print(json.dumps({"bayes": bayes}))
     print(json.dumps({"photon_sampling": photon}))
+    print(json.dumps({"runtime": runtime}, default=str))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": [{

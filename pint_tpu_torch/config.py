@@ -8,6 +8,13 @@ the port calls).
 - $PINT_TPU_STREAM_CHUNK  : chunk length of the streaming accumulator
 - $PINT_TPU_CHAIN_CHUNK   : MCMC steps a chain chunk runs
 - $PINT_TPU_GWB_CHUNK     : GWB grid points a sweep chunk evaluates
+- $PINT_TPU_DISPATCH_*, $PINT_TPU_BREAKER_*: the dispatch supervisor
+  (``runtime``): deadline, retries, backoff, compile allowance, the
+  RTT override; breaker threshold, cooldown and probe timeout
+- $PINT_TPU_HOST_SOLVE_MAX_TOA: TOA count below which a fit's solves
+  run on the CPU (default 0: never)
+- $PINT_TPU_TRACE, $PINT_TPU_TRACE_STREAM, $PINT_TPU_TRACE_RING,
+  $PINT_TPU_FLIGHT_DIR, $PINT_TPU_LOCK_TRACE: the obs core
 """
 
 from __future__ import annotations
@@ -19,7 +26,15 @@ from typing import Optional
 
 __all__ = ["chain_chunk_steps", "clock_dir", "energy_draw_chunk",
            "ephem_dir", "grid_chunk", "gwb_chunk", "obs_override",
-           "photon_walker_chunk", "solve_streaming", "stream_chunk"]
+           "photon_walker_chunk", "solve_streaming", "stream_chunk",
+           "dispatch_rtt_override_ms", "dispatch_rtt_ms",
+           "auto_steps_per_dispatch", "remeasure_dispatch_rtt",
+           "dispatch_deadline_ms", "dispatch_retries",
+           "dispatch_backoff_ms", "dispatch_compile_allowance_ms",
+           "breaker_threshold", "breaker_cooldown_s",
+           "breaker_probe_timeout_s", "solve_device", "solve_scope",
+           "trace_enabled", "trace_stream_path", "trace_ring_size",
+           "flight_dir", "lock_trace_enabled"]
 
 log = logging.getLogger(__name__)
 _WARNED_ENV: set = set()
@@ -189,3 +204,252 @@ def energy_draw_chunk(ngrid: int) -> int:
     own row, so the draws do not depend on the chunk."""
     return max(1, ENERGY_DRAW_BUDGET_BYTES
                // (ENERGY_DRAW_BLOCKS * 8 * max(1, int(ngrid))))
+
+
+# ------------------------------------------------- dispatch supervision
+# (copies of pint_tpu/config.py's parsers, same names and validation;
+# the RTT is measured per device, the reference's per backend)
+
+_RTT_MS: dict = {}
+
+
+def _env_number(name: str, default, cast=float):
+    """A numeric env override, warning once per distinct bad value
+    instead of silently ignoring a typo."""
+    raw = os.environ.get(name)
+    if not raw:
+        return default
+    try:
+        return cast(raw)
+    except ValueError:
+        if (name, raw) not in _WARNED_ENV:
+            _WARNED_ENV.add((name, raw))
+            log.warning("unparsable $%s=%r; using %r", name, raw,
+                        default)
+        return default
+
+
+def _env_bool(name: str, flag=None, default: bool = False,
+              context: str = "") -> bool:
+    """Tri-state on/off env parser: an explicit ``flag`` wins;
+    truthy/falsy values map; anything else warns once and yields
+    ``default``."""
+    if flag is not None:
+        return bool(flag)
+    raw = os.environ.get(name, "")
+    v = raw.lower()
+    if v in ("1", "on", "true", "yes"):
+        return True
+    if v in ("", "0", "off", "false", "no"):
+        return False
+    if (name, raw) not in _WARNED_ENV:
+        _WARNED_ENV.add((name, raw))
+        log.warning("unparsable $%s=%r (want on/off)%s", name, raw,
+                    f"; {context}" if context else "")
+    return default
+
+
+def dispatch_rtt_override_ms():
+    """The validated $PINT_TPU_DISPATCH_RTT_MS override, or None: the
+    one parser ``dispatch_rtt_ms`` and the supervisor's deadline/drift
+    logic share. The value must be a finite positive float; anything
+    else warns (once per distinct bad value) and is ignored."""
+    import math
+
+    val = _env_number("PINT_TPU_DISPATCH_RTT_MS", None)
+    if val is None:
+        return None
+    val = float(val)
+    if not math.isfinite(val) or val <= 0.0:
+        raw = os.environ.get("PINT_TPU_DISPATCH_RTT_MS")
+        key = ("PINT_TPU_DISPATCH_RTT_MS", f"range:{raw}")
+        if key not in _WARNED_ENV:
+            _WARNED_ENV.add(key)
+            log.warning("$PINT_TPU_DISPATCH_RTT_MS=%r is not a "
+                        "finite positive RTT; ignoring the override",
+                        raw)
+        return None
+    return val
+
+
+def dispatch_rtt_ms(device: str = "cpu") -> float:
+    """Round trip of ONE trivial call on ``device`` (ms): the minimum
+    of three one-element float64 adds read back with ``.item()``, after
+    one warm-up, cached per device per process. $PINT_TPU_DISPATCH_RTT_MS
+    (validated, read before the cache) skips the measurement."""
+    import time
+
+    import torch
+
+    env = dispatch_rtt_override_ms()
+    if env is not None:
+        return env
+    device = str(device)
+    if device in _RTT_MS:
+        return _RTT_MS[device]
+    x = torch.zeros((), dtype=torch.float64, device=device)
+    (x + 1.0).item()  # first launch
+    ts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        (x + 1.0).item()  # launch + read: the round trip
+        ts.append(time.perf_counter() - t0)
+    _RTT_MS[device] = min(ts) * 1e3
+    return _RTT_MS[device]
+
+
+def auto_steps_per_dispatch(device: str = "cpu") -> int:
+    """Downhill iterations to chain per call, sized from the measured
+    round trip: 1 on the CPU; on a CUDA device the smallest power of
+    two >= rtt/8 ms, clamped to [4, 32] (a quantized K keeps the set of
+    chained programs small). Only the supervisor's drift re-pick reads
+    it: ``DeviceDownhillGLSFitter`` keeps K = 1 unless asked (each call
+    is the same eager host loop, so K changes neither result nor
+    cost)."""
+    if str(device) == "cpu":
+        return 1
+    raw = dispatch_rtt_ms(device) / 8.0
+    for k in (4, 8, 16):
+        if raw <= k:
+            return k
+    return 32
+
+
+def remeasure_dispatch_rtt(device: str = "cpu") -> float:
+    """Drop the cached round trips and measure ``device``'s again — the
+    supervisor's drift response (it runs this under its watchdog). The
+    env override still wins."""
+    _RTT_MS.clear()
+    return dispatch_rtt_ms(device)
+
+
+def dispatch_deadline_ms() -> Optional[float]:
+    """Hard watchdog-deadline override for every supervised dispatch
+    [ms] ($PINT_TPU_DISPATCH_DEADLINE_MS). Default None: the supervisor
+    takes 8 x RTT x steps with a floor (1 s on the CPU, 300 s on CUDA)
+    plus a first-call compile allowance. The override is PER DISPATCH:
+    a pipelined dispatch issued at in-flight depth d waits d x this
+    value."""
+    v = _env_number("PINT_TPU_DISPATCH_DEADLINE_MS", None)
+    return None if v is None else float(v)
+
+
+def dispatch_retries() -> int:
+    """Retries for TRANSIENT dispatch errors before failing over
+    ($PINT_TPU_DISPATCH_RETRIES, default 2). Timeouts and sticky CUDA
+    errors never retry."""
+    return max(0, int(_env_number("PINT_TPU_DISPATCH_RETRIES", 2,
+                                  cast=int)))
+
+
+def dispatch_backoff_ms() -> float:
+    """Base retry backoff [ms], doubled per attempt with +0-50%
+    jitter ($PINT_TPU_DISPATCH_BACKOFF_MS, default 50)."""
+    return max(0.0, float(_env_number("PINT_TPU_DISPATCH_BACKOFF_MS",
+                                      50.0)))
+
+
+def dispatch_compile_allowance_ms() -> float:
+    """Extra deadline budget for the FIRST dispatch per call-site key
+    ($PINT_TPU_DISPATCH_COMPILE_ALLOWANCE_MS, default 10 min): it covers
+    the ``nvcc`` build of a kernel and ``torch.func`` start-up, so a
+    cold call does not read as a hang."""
+    return max(0.0, float(_env_number(
+        "PINT_TPU_DISPATCH_COMPILE_ALLOWANCE_MS", 600_000.0)))
+
+
+def breaker_threshold() -> int:
+    """Consecutive dispatch failures that trip a device's circuit
+    breaker OPEN ($PINT_TPU_BREAKER_THRESHOLD, default 3)."""
+    return max(1, int(_env_number("PINT_TPU_BREAKER_THRESHOLD", 3,
+                                  cast=int)))
+
+
+def breaker_cooldown_s() -> float:
+    """Seconds an OPEN breaker short-circuits dispatches before the
+    next bounded half-open re-probe ($PINT_TPU_BREAKER_COOLDOWN_S,
+    default 60); doubles per failed re-probe, capped at 8 minutes."""
+    return max(0.0, float(_env_number("PINT_TPU_BREAKER_COOLDOWN_S",
+                                      60.0)))
+
+
+def breaker_probe_timeout_s() -> float:
+    """Kill timer on the half-open subprocess device probe
+    ($PINT_TPU_BREAKER_PROBE_TIMEOUT_S, default 150, at least 1)."""
+    return max(1.0, float(_env_number(
+        "PINT_TPU_BREAKER_PROBE_TIMEOUT_S", 150.0)))
+
+
+def solve_device(ntoa: int, device="cpu"):
+    """The CPU device when a fit of ``ntoa`` TOAs on the CUDA ``device``
+    should run its solves on the CPU, else None. Opt-in:
+    $PINT_TPU_HOST_SOLVE_MAX_TOA (default 0 = never) pins every fit
+    below that many TOAs. The reference pins below 1,024 TOAs by default
+    on an accelerator, where a dispatch costs 0.1-250 ms; here entry
+    points run on the card unless the caller asks otherwise, and the
+    crossover on the card is measured (PERF.md) before any default."""
+    import torch
+
+    if torch.device(device).type == "cpu":
+        return None
+    thresh = _env_int("PINT_TPU_HOST_SOLVE_MAX_TOA", 0)
+    if thresh <= 0 or ntoa >= thresh:
+        return None
+    return torch.device("cpu")
+
+
+def solve_scope(ntoa: int, device="cpu"):
+    """Context manager form of ``solve_device``: ``torch.device("cpu")``
+    as the default device when the solve is pinned, else a no-op."""
+    import contextlib
+
+    dev = solve_device(ntoa, device)
+    return dev if dev is not None else contextlib.nullcontext()
+
+
+# ---------------------------------------------------- observability
+
+
+def trace_enabled() -> bool:
+    """Structured span tracing ($PINT_TPU_TRACE, default OFF): every
+    supervised dispatch and device fit emits causally-linked spans
+    into the process tracer's ring (``pint_tpu_torch.obs``). Off, the
+    hot path pays a single branch per instrumentation point."""
+    return os.environ.get("PINT_TPU_TRACE", "").lower() in (
+        "1", "on", "true", "yes")
+
+
+def trace_stream_path():
+    """JSONL span-stream path ($PINT_TPU_TRACE_STREAM; None =
+    disabled): completed spans/events are appended one JSON object per
+    line as they complete. Implies tracing."""
+    p = os.environ.get("PINT_TPU_TRACE_STREAM")
+    return p if p else None
+
+
+def trace_ring_size() -> int:
+    """Span-ring capacity ($PINT_TPU_TRACE_RING, default 16384, at
+    least 256)."""
+    return max(256, int(_env_number("PINT_TPU_TRACE_RING", 16384,
+                                    cast=int)))
+
+
+def flight_dir():
+    """Flight-recorder dump directory ($PINT_TPU_FLIGHT_DIR; None =
+    disabled): on a breaker opening (or a device lost) the tracer's
+    recent-span ring is dumped to a timestamped JSON file there.
+    Arming it turns on span recording even when $PINT_TPU_TRACE is
+    off."""
+    d = os.environ.get("PINT_TPU_FLIGHT_DIR")
+    return d if d else None
+
+
+def lock_trace_enabled(flag: Optional[bool] = None) -> bool:
+    """Traced-lock sanitizer armed? ($PINT_TPU_LOCK_TRACE, default
+    OFF.) Armed, ``runtime.locks`` hands out TracedLock/TracedRLock
+    wrappers that record per-thread acquisition order into the process
+    lock-order graph; disarmed, the bare stdlib primitives. An explicit
+    ``flag`` wins; an unrecognized env value warns once and is
+    ignored."""
+    return _env_bool("PINT_TPU_LOCK_TRACE", flag,
+                     context="lock tracing stays off")

@@ -5,11 +5,17 @@ src/pint/fitter.py Fitter, WLSFitter, DownhillFitter family).
 Residuals, the design matrix and the solve stay on the model's device
 as float64 tensors; the host keeps the parameter bookkeeping (exact dd
 parameter values, updated by add_delta) and the accept/reject logic.
+
+Each linearized pass (residuals, design matrix and solve) is one
+supervised dispatch (``runtime``, key ``wls.solve``); its host failover
+rebuilds the pass on the CPU from host state and solves with the numpy
+mirror ``_wls_solve_np``, so it never reads from the card.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Dict, List
 
@@ -20,7 +26,8 @@ from pint_tpu_torch.residuals import Residuals
 
 __all__ = ["Fitter", "WLSFitter", "DownhillWLSFitter", "fit_summary",
            "FitStats", "ConvergenceFailure", "MaxiterReached",
-           "StepProblem", "DegeneracyWarning"]
+           "StepProblem", "DegeneracyWarning", "rehome_to_cpu",
+           "cpu_copy"]
 
 
 class DegeneracyWarning(UserWarning):
@@ -97,6 +104,63 @@ def _wls_solve(M, r, err_s, threshold=None):
     return x, cov, torch.sum(resid_post ** 2)
 
 
+def _wls_solve_np(M, r, err_s, threshold=None):
+    """Pure-numpy mirror of _wls_solve — the supervised dispatch's
+    host-failover path (identical two-stage scaling + thresholded SVD;
+    a copy of the reference's)."""
+    w = 1.0 / err_s
+    colmax = np.max(np.abs(M), axis=0)
+    colmax[colmax == 0] = 1.0
+    Mw = (M / colmax[None, :]) * w[:, None]
+    rw = r * w
+    norm = np.sqrt(np.sum(Mw * Mw, axis=0))
+    norm[norm == 0] = 1.0
+    Mn = Mw / norm[None, :]
+    U, s, Vt = np.linalg.svd(Mn, full_matrices=False)
+    thresh = (threshold if threshold is not None
+              else np.finfo(np.float64).eps * max(M.shape))
+    keep = s > thresh * s[0]
+    with np.errstate(divide="ignore"):
+        s_inv = np.where(keep, 1.0 / np.where(s == 0, 1.0, s), 0.0)
+    x_n = Vt.T @ (s_inv * (U.T @ rw))
+    x = x_n / colmax / norm
+    cov_n = (Vt.T * (s_inv ** 2)[None, :]) @ Vt
+    cov = cov_n / np.outer(colmax, colmax) / np.outer(norm, norm)
+    resid_post = rw - Mn @ x_n
+    return x, cov, float(np.sum(resid_post ** 2))
+
+
+def rehome_to_cpu(model, cause, what: str = "device fit") -> bool:
+    """Move ``model`` to the CPU after its device failed a fit: set its
+    device and drop every per-device cache, with a labelled
+    RuntimeWarning. Nothing is read from the old device (the caches
+    are rebuilt from host state). Returns False when the model is on
+    the CPU already."""
+    if model.device.type == "cpu":
+        return False
+    warnings.warn(
+        f"{what} unavailable on {model.device} ({type(cause).__name__}: "
+        f"{cause}); the model moves to the CPU", RuntimeWarning,
+        stacklevel=3)
+    model.device = torch.device("cpu")
+    model.invalidate_cache()
+    return True
+
+
+def cpu_copy(model):
+    """A deep copy of ``model`` on the CPU made from host state only: the
+    per-device caches are left behind, never read from the card."""
+    import copy
+
+    skip = {id(model.__dict__[k]): None
+            for k in ("_cache", "_noise_device_cache")
+            if model.__dict__.get(k) is not None}
+    out = copy.deepcopy(model, memo=skip)
+    out.device = torch.device("cpu")
+    out.invalidate_cache()
+    return out
+
+
 class Fitter:
     """Base fitter: parameter bookkeeping + the fit_toas contract
     (reference: Fitter). Runs on the model's device."""
@@ -114,12 +178,91 @@ class Fitter:
         self.converged = False
         self.stats = None  # FitStats, set by fit_toas
 
-    def _residuals(self) -> Residuals:
-        return Residuals(self.toas, self.model, track_mode=self.track_mode)
+    def _residuals(self, device=None) -> Residuals:
+        return Residuals(self.toas, self.model, track_mode=self.track_mode,
+                         device=device)
 
-    def _errors_s(self) -> torch.Tensor:
+    def _errors_s(self, device=None) -> torch.Tensor:
         return torch.as_tensor(self.toas.get_errors() * 1e-6,
-                               dtype=torch.float64, device=self.device)
+                               dtype=torch.float64,
+                               device=self.device if device is None
+                               else device)
+
+    def _solve_scope(self):
+        """Context manager scoping a pinned solve: the CPU as torch's
+        default device when ``config.solve_device`` pins this problem
+        ($PINT_TPU_HOST_SOLVE_MAX_TOA), else a no-op."""
+        from pint_tpu_torch.config import solve_scope
+
+        return solve_scope(self.toas.ntoas, self.device)
+
+    def _solve_pinned(self) -> bool:
+        """True when this problem's solves are pinned to the CPU."""
+        from pint_tpu_torch.config import solve_device
+
+        return solve_device(self.toas.ntoas, self.device) is not None
+
+    def _pass_device(self) -> torch.device:
+        """The device a supervised linearized pass runs on."""
+        return torch.device("cpu") if self._solve_pinned() else self.device
+
+    def _after_failover(self, key: str, cause) -> None:
+        """Count and label a per-solve host failover. When the device's
+        breaker is open (or latched after a lost context) the rest of
+        the fit cannot use the card either — its residual passes run on
+        the model's device — so the model moves to the CPU."""
+        from pint_tpu_torch.runtime import backend_of, breaker_for, \
+            get_supervisor
+
+        get_supervisor().note_failover(key, cause)
+        if self.device.type != "cpu" and \
+                breaker_for(backend_of(self.device)).is_open:
+            self._rehome(cause)
+
+    def _rehome(self, cause) -> None:
+        """Move the model, and this fitter, to the CPU."""
+        rehome_to_cpu(self.model, cause, f"{type(self).__name__}")
+        self.device = self.model.device
+
+    def _wls_dispatch(self, threshold):
+        """One linearized WLS pass — residuals, design matrix and the
+        ``_wls_solve`` — as a supervised dispatch on the pass's device
+        (key ``wls.solve``; reference: _wls_dispatch). Its host failover
+        rebuilds the pass on the CPU and solves with ``_wls_solve_np``.
+        Returns (correction (p,), cov (p, p), names, residuals)."""
+        from pint_tpu_torch import obs
+        from pint_tpu_torch.runtime import DispatchError, get_supervisor
+
+        dev = self._pass_device()
+
+        def run():
+            with self._solve_scope():
+                res = self._residuals(dev)
+                M, names, _ = self.model.designmatrix(
+                    self.toas, incoffset=True, device=dev)
+                x, cov, _ = _wls_solve(M, res.time_resids,
+                                       self._errors_s(dev), threshold)
+                # r ≈ M·(θ−θ_true): the parameter correction is −x
+                return -x, cov, names, res
+
+        def host():
+            res = self._residuals("cpu")
+            M, names, _ = self.model.designmatrix(
+                self.toas, incoffset=True, device="cpu")
+            x, cov, _ = _wls_solve_np(
+                M.numpy(), res.time_resids.numpy(),
+                self.toas.get_errors() * 1e-6, threshold)
+            return torch.from_numpy(-x), torch.from_numpy(cov), names, res
+
+        with obs.span("wls.solve", ntoa=self.toas.ntoas):
+            try:
+                x, cov, names, res = get_supervisor().dispatch(
+                    run, key="wls.solve", device=dev,
+                    pinned=self._solve_pinned())
+            except DispatchError as e:
+                self._after_failover("wls.solve", e)
+                x, cov, names, res = host()
+        return x.cpu().numpy(), cov.cpu().numpy(), names, res
 
     def _dof(self) -> int:
         """Degrees of freedom of the fit's chi2."""
@@ -162,10 +305,18 @@ class Fitter:
         means False: the reference turns it on only on a TPU backend.
         Pass ``whole_fit=``/``pipeline=`` through ``kw``.
 
+        While the circuit breaker of the model's device is open (the
+        card timed out or failed repeatedly, or lost its context), the
+        model moves to the CPU first, with a labelled RuntimeWarning, and
+        the fitter picked runs there (reference: the breaker check of
+        Fitter.auto).
+
         The ``serve=`` route is not ported yet and raises
         NotImplementedError (ValueError for wideband TOAs, which the
         reference refuses there)."""
         from pint_tpu_torch.config import solve_streaming
+        from pint_tpu_torch.runtime import BackendUnavailable, \
+            backend_of, breaker_for
         from pint_tpu_torch.wideband import has_wideband_dm
 
         wideband = has_wideband_dm(toas)
@@ -178,7 +329,11 @@ class Fitter:
                     "the fit. Use Fitter.auto without serve=")
             raise NotImplementedError(
                 "Fitter.auto(serve=): the serve path; pint_tpu_torch does "
-                "not have it yet: ROADMAP.md queue 1 item 11")
+                "not have it yet: ROADMAP.md item 11c")
+        backend = backend_of(model.device)
+        if backend != "cpu" and breaker_for(backend).is_open:
+            rehome_to_cpu(model, BackendUnavailable(
+                f"the {backend} circuit breaker is open"), "Fitter.auto")
         if streaming is None:
             thresh = solve_streaming()
             streaming = (downhill and not wideband and device is not True
@@ -253,12 +408,8 @@ class WLSFitter(Fitter):
     """Weighted least squares via SVD (reference: WLSFitter)."""
 
     def _solve(self, threshold):
-        self.resids = self._residuals()
-        M, names, _ = self.get_designmatrix()
-        x, cov, _ = _wls_solve(M, self.resids.time_resids,
-                               self._errors_s(), threshold)
-        # r ≈ M·(θ−θ_true): the parameter correction is −x
-        return (-x).cpu().numpy(), cov.cpu().numpy(), names
+        x, cov, names, self.resids = self._wls_dispatch(threshold)
+        return x, cov, names
 
     def fit_toas(self, maxiter=1, threshold=None):
         t0 = time.perf_counter()

@@ -22,6 +22,16 @@ cross-check of the Woodbury algebra; it is never the default.
 ``StreamingGLSFitter`` each trial as one pass of the matrix-free
 streaming GLS (``parallel.streaming``); both search with ``downhill_dd``
 and keep the parameter state on the host in exact dd.
+
+Every device call is a supervised dispatch (``runtime``) under the
+reference's keys: ``gls.solve``, ``gls.svd`` and ``gls.fullcov`` (each
+a whole linearized pass: residuals, design matrix, noise and solve),
+``gls.chi2``, ``gls.fit_step``/``gls.fit_loop`` and the streaming
+``stream.chunk``/``stream.solve``. A failover never reads from the
+card: a solve's host path rebuilds the pass on the CPU and solves with
+the numpy mirrors (``gls_solve_np``, ``_gls_svd_np``,
+``_gls_chi2_np``), a whole fit reruns on a CPU-homed model
+(``fitter.rehome_to_cpu``).
 """
 
 from __future__ import annotations
@@ -34,12 +44,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pint_tpu_torch import resolve_device
 from pint_tpu_torch.fitter import Fitter, MaxiterReached, warn_degenerate
 from pint_tpu_torch.ops import dd_np
 from pint_tpu_torch.residuals import Residuals
+from pint_tpu_torch.runtime import DispatchError, get_supervisor
 
 __all__ = ["GLSFitter", "DownhillGLSFitter", "DeviceDownhillGLSFitter",
-           "StreamingGLSFitter", "NonFiniteStepError", "gls_chi2"]
+           "StreamingGLSFitter", "NonFiniteStepError", "gls_chi2",
+           "gls_solve_np"]
 
 
 class NonFiniteStepError(ValueError):
@@ -197,22 +210,171 @@ def _gls_kernel_fullcov(M, F, phi, r, nvec):
     return xhat / norm, inv / torch.outer(norm, norm), chi2, noise_resid
 
 
+def _gls_chi2_np(F, phi, r, nvec) -> float:
+    """Numpy mirror of _gls_chi2_kernel — the supervised dispatch's
+    host-failover path (same Woodbury-in-basis-space algebra with
+    scipy cho_factor; a copy of the reference's)."""
+    from scipy.linalg import cho_factor as _cf, cho_solve as _cs
+
+    w = 1.0 / nvec
+    bF = (F * w[:, None]).T @ r
+    Sff = F.T @ (F * w[:, None]) + np.diag(1.0 / phi)
+    d = np.sqrt(np.diagonal(Sff)).copy()
+    d[(d == 0) | ~np.isfinite(d)] = 1.0
+    cf = _cf(Sff / np.outer(d, d), lower=True)
+    return float(np.sum(r * r * w)
+                 - bF @ (_cs(cf, bF / d) / d))
+
+
+def gls_solve_np(M, F, phi, r, nvec):
+    """Pure-numpy mirror of _gls_kernel: the same two-stage
+    equilibration, Jacobi-scaled Cholesky and chi2 with scipy (a copy
+    of the reference's). Returns (dparams, cov, chi2, noise_resid)."""
+    from scipy.linalg import cho_factor as _cf, cho_solve as _cs
+
+    p = M.shape[1]
+    w = 1.0 / nvec
+    colmax = np.max(np.abs(M), axis=0)
+    colmax[colmax == 0] = 1.0
+    Ms = M / colmax[None, :]
+    norm = np.sqrt(np.sum(Ms * Ms * w[:, None], axis=0))
+    norm[norm == 0] = 1.0
+    Mn = Ms / norm[None, :]
+    big = np.concatenate([Mn, F], axis=1)
+    bigw = big * w[:, None]
+    Sigma = big.T @ bigw + np.diag(
+        np.concatenate([np.zeros(p), 1.0 / phi]))
+    b = bigw.T @ r
+    d = np.sqrt(np.diagonal(Sigma)).copy()
+    d[(d == 0) | ~np.isfinite(d)] = 1.0
+    cf = _cf(Sigma / np.outer(d, d), lower=True)
+    xhat = _cs(cf, b / d) / d
+    inv = _cs(cf, np.eye(Sigma.shape[0])) / np.outer(d, d)
+    chi2 = float(np.sum(r * r * w) - xhat @ b)
+    scale = colmax * norm
+    return (xhat[:p] / scale, inv[:p, :p] / np.outer(scale, scale), chi2,
+            F @ xhat[p:])
+
+
+def _gls_svd_np(M, F, phi, r, nvec, threshold=1e-12):
+    """Pure-numpy mirror of _gls_kernel_svd (Jacobi-preconditioned eigh,
+    small-eigenvalue dropping; a copy of the reference's)."""
+    p = M.shape[1]
+    w = 1.0 / nvec
+    colmax = np.max(np.abs(M), axis=0)
+    colmax[colmax == 0] = 1.0
+    Ms = M / colmax[None, :]
+    norm = np.sqrt(np.sum(Ms * Ms * w[:, None], axis=0))
+    norm[norm == 0] = 1.0
+    Mn = Ms / norm[None, :]
+    big = np.concatenate([Mn, F], axis=1)
+    bigw = big * w[:, None]
+    Sigma = big.T @ bigw + np.diag(
+        np.concatenate([np.zeros(p), 1.0 / phi]))
+    b = bigw.T @ r
+    d = np.sqrt(np.diagonal(Sigma)).copy()
+    d[(d == 0) | ~np.isfinite(d)] = 1.0
+    Sp = Sigma / np.outer(d, d)
+    s, U = np.linalg.eigh(Sp)
+    keep = s > threshold * s[-1]
+    s_inv = np.where(keep, 1.0 / np.where(keep, s, 1.0), 0.0)
+    xhat = (U @ (s_inv * (U.T @ (b / d)))) / d
+    inv = ((U * s_inv[None, :]) @ U.T) / np.outer(d, d)
+    chi2 = float(np.sum(r * r * w) - xhat @ b)
+    scale = colmax * norm
+    return (xhat[:p] / scale, inv[:p, :p] / np.outer(scale, scale),
+            chi2, F @ xhat[p:])
+
+
+def _gls_host_failover_solve(M, F, phi, r, nvec, threshold=None,
+                             what="normal matrix"):
+    """Mode-aware host failover solve (a copy of the reference's):
+    honor an explicit SVD threshold; try the Cholesky mirror otherwise;
+    degrade to the eigh mirror — with the DegeneracyWarning the device
+    path emits — when the system is singular enough that Cholesky
+    raises or returns non-finites. The full_cov mode lands here too:
+    the basis-Woodbury mirror is the same algebra."""
+    if threshold is not None:
+        return _gls_svd_np(M, F, phi, r, nvec, threshold=float(threshold))
+    try:
+        x, cov, chi2, noise = gls_solve_np(M, F, phi, r, nvec)
+        if np.all(np.isfinite(x)) and np.isfinite(chi2):
+            return x, cov, chi2, noise
+    except np.linalg.LinAlgError:
+        pass
+    warn_degenerate(what)
+    return _gls_svd_np(M, F, phi, r, nvec)
+
+
+def _resids_on(toas, model, resids, device):
+    """The time residuals on ``device``: ``resids`` (a Residuals, a
+    tensor, or None) when it lies there already, else a fresh pass on
+    ``device`` from host state (with the Residuals' settings) — never a
+    read from another device."""
+    if isinstance(resids, Residuals):
+        if resids.device == device:
+            return resids.time_resids
+        return Residuals(toas, model, track_mode=resids.track_mode,
+                         subtract_mean=resids.subtract_mean,
+                         use_weighted_mean=resids.use_weighted_mean,
+                         device=device).time_resids
+    if resids is not None and resids.device == device:
+        return resids
+    return Residuals(toas, model, device=device).time_resids
+
+
 def gls_chi2(model, toas, resids=None, device=None) -> float:
     """GLS chi2 of current residuals (basis-marginalized), on ``device``
-    (the model's by default)."""
-    dev = model.device if device is None else device
-    r = resids if resids is not None else \
-        Residuals(toas, model, device=dev).time_resids
-    nvec, F, phi = model.noise_device(toas, r.device)
-    if F.shape[1] == 0:
+    (the model's by default): one supervised dispatch (``gls.chi2``)
+    whose host failover recomputes the residuals on the CPU and takes
+    the numpy mirror. ``resids`` is a Residuals (evaluated inside the
+    dispatch when it has not been yet), a residual tensor, or None (a
+    fresh pass)."""
+    from pint_tpu_torch import obs
+    from pint_tpu_torch.config import solve_device
+
+    dev = model.device if device is None else resolve_device(device)
+    pinned = solve_device(toas.ntoas, dev) is not None
+    if pinned:
+        dev = torch.device("cpu")
+    if not model.has_correlated_errors:
+        r = _resids_on(toas, model, resids, dev)
+        nvec, _, _ = model.noise_device(toas, dev)
         return float(torch.sum(r ** 2 / nvec))
-    return float(_gls_chi2_kernel(F, phi, r, nvec))
+
+    def run():
+        r = _resids_on(toas, model, resids, dev)
+        nvec, F, phi = model.noise_device(toas, dev)
+        return _gls_chi2_kernel(F, phi, r, nvec)
+
+    def host():
+        cpu = torch.device("cpu")
+        r = _resids_on(toas, model, resids, cpu)
+        nvec, F, phi = model.noise_device(toas, cpu)
+        return _gls_chi2_np(F.numpy(), phi.numpy(), r.numpy(),
+                            nvec.numpy())
+
+    with obs.span("gls.chi2", ntoa=toas.ntoas):
+        out = get_supervisor().dispatch(run, key="gls.chi2", device=dev,
+                                        pinned=pinned, fallback=host)
+    return float(out)
 
 
 class GLSFitter(Fitter):
     """GLS fit with correlated noise marginalized in basis space
     (reference: GLSFitter); with ``full_cov`` every solve uses the dense
-    N x N covariance instead."""
+    N x N covariance instead.
+
+    Each linearized solve is one supervised dispatch of the whole pass
+    (``_system`` and the kernel) under the reference's keys
+    (``gls.solve``; ``gls.svd`` for the threshold route and the
+    degenerate retry; ``gls.fullcov``). A timed-out, broken or
+    breaker-open device fails the solve over to the host: the pass
+    rebuilt on the CPU and the numpy mirror
+    (``_gls_host_failover_solve``), labelled and counted."""
+
+    _KEY = "gls"                  # dispatch-key prefix
+    _WHAT = "normal matrix"       # the DegeneracyWarning's subject
 
     def __init__(self, toas, model, residuals=None, track_mode=None,
                  full_cov=False):
@@ -221,33 +383,86 @@ class GLSFitter(Fitter):
         self.full_cov = full_cov
         self.noise_resids: Optional[torch.Tensor] = None
 
-    def _system(self):
-        """(M, r, nvec, F, phi, names) of the linearized problem at the
-        current parameters, float64 tensors on the model's device."""
-        self.resids = self._residuals()
-        M, names, _ = self.get_designmatrix()
-        nvec, Fb, phi = self.model.noise_device(self.toas, self.device)
-        return M, self.resids.time_resids, nvec, Fb, phi, names
+    def _system(self, device=None):
+        """(M, r, nvec, F, phi, names, state) of the linearized problem
+        at the current parameters, float64 tensors on ``device`` (the
+        model's by default); ``state`` holds the residual objects the
+        fitter keeps ({"resids": ...})."""
+        dev = self.device if device is None else device
+        res = self._residuals(dev)
+        M, names, _ = self.model.designmatrix(self.toas, incoffset=True,
+                                              device=dev)
+        nvec, Fb, phi = self.model.noise_device(self.toas, dev)
+        return M, res.time_resids, nvec, Fb, phi, names, {"resids": res}
 
     def _solve_once(self, threshold=None):
-        """One linearized solve of ``_system`` at the current parameters:
-        (x, cov, chi2, noise_resid, names), x and cov as numpy for the
-        host's parameter update, noise_resid the N time-channel rows."""
-        M, r, nvec, Fb, phi, names = self._system()
-        if self.full_cov:
-            x, cov, chi2, noise = _gls_kernel_fullcov(M, Fb, phi, r, nvec)
-        elif threshold is not None:
-            x, cov, chi2, noise, _ = _gls_kernel_svd(
-                M, Fb, phi, r, nvec, threshold=float(threshold))
-        else:
-            x, cov, chi2, noise, _, ok = _gls_kernel(M, Fb, phi, r, nvec)
-            if not bool(ok):
-                warn_degenerate()
-                x, cov, chi2, noise, _ = _gls_kernel_svd(M, Fb, phi, r,
-                                                         nvec)
+        """One linearized solve at the current parameters: (x, cov, chi2,
+        noise_resid, names), x and cov numpy for the host's parameter
+        update, noise_resid the N time-channel rows as a CPU tensor."""
+        try:
+            out = self._solve_once_device(threshold)
+        except DispatchError as e:
+            # host failover: the same pass on the CPU and the numpy
+            # mirror of the same algebra (mode-aware: the eigh mirror
+            # for the threshold route and degenerate systems)
+            self._after_failover(f"{self._KEY}.solve", e)
+            out = self._solve_once_host(threshold)
+        x, cov, chi2, noise, names, state = out
+        for k, v in state.items():
+            setattr(self, k, v)
+        return x, cov, chi2, noise, names
+
+    def _solve_once_device(self, threshold):
+        from pint_tpu_torch import obs
+
+        sup = get_supervisor()
+        pinned = self._solve_pinned()
+        dev = self._pass_device()
+        n = self.toas.ntoas
+
+        def run(kernel, **kw):
+            with self._solve_scope():
+                M, r, nvec, Fb, phi, names, state = self._system(dev)
+                return kernel(M, Fb, phi, r, nvec, **kw), names, state
+
+        def go(key, kernel, **kw):
+            return sup.dispatch(run, kernel, kw=kw, key=key, device=dev,
+                                pinned=pinned)
+
+        with obs.span(f"{self._KEY}.solve_once",
+                      fitter=type(self).__name__, ntoa=n):
+            if self.full_cov:
+                (x, cov, chi2, noise), names, state = go(
+                    f"{self._KEY}.fullcov", _gls_kernel_fullcov)
+            elif threshold is not None:
+                (x, cov, chi2, noise, _), names, state = go(
+                    f"{self._KEY}.svd", _gls_kernel_svd,
+                    threshold=float(threshold))
+            else:
+                (x, cov, chi2, noise, _, ok), names, state = go(
+                    f"{self._KEY}.solve", _gls_kernel)
+                if not bool(ok):
+                    # the designed degenerate route: warn + eigh retry
+                    # (a second pass: the first one's device tensors
+                    # do not outlive its dispatch)
+                    warn_degenerate(self._WHAT)
+                    (x, cov, chi2, noise, _), names, state = go(
+                        f"{self._KEY}.svd", _gls_kernel_svd)
         # r ≈ M (θ − θ_true): the correction is −x
         return ((-x).cpu().numpy(), cov.cpu().numpy(), float(chi2),
-                noise[:self.toas.ntoas], names)
+                noise[:n].cpu(), names, state)
+
+    def _solve_once_host(self, threshold):
+        """The host path: the pass on the CPU, solved by the numpy
+        mirrors (the full_cov mode by the Woodbury mirror, the same
+        algebra)."""
+        M, r, nvec, Fb, phi, names, state = self._system(
+            torch.device("cpu"))
+        x, cov, chi2, noise = _gls_host_failover_solve(
+            M.numpy(), Fb.numpy(), phi.numpy(), r.numpy(), nvec.numpy(),
+            threshold=threshold, what=self._WHAT)
+        return (-x, cov, float(chi2),
+                torch.from_numpy(noise[:self.toas.ntoas]), names, state)
 
     def fit_toas(self, maxiter=1, threshold=None):
         t0 = time.perf_counter()
@@ -394,9 +609,13 @@ class StreamingGLSFitter(GLSFitter):
     pass. The parameter state advances on the host in exact dd and the
     model is synced once at the end. A CG or basis-Cholesky failure on
     the first pass raises ``NonFiniteStepError`` (the dense fitters
-    carry the SVD fallback); on a later pass it rejects the trial. The
-    reference's failover to its numpy mirror belongs to the dispatch
-    supervisor, which is not ported: an error in a pass propagates."""
+    carry the SVD fallback); on a later pass it rejects the trial.
+
+    Each chunk of a pass and each CG finalize is a supervised dispatch
+    (``stream.chunk``, ``stream.solve``); a timed-out, broken or
+    breaker-open device fails the WHOLE fit over to the numpy streaming
+    mirror on a CPU-homed model (``_fit_host_mirror``), labelled and
+    counted (reference: the same degradation contract)."""
 
     def __init__(self, toas, model, residuals=None, track_mode=None,
                  chunk=None, **step_flags):
@@ -412,10 +631,28 @@ class StreamingGLSFitter(GLSFitter):
 
     def fit_toas(self, maxiter=20, min_lambda=1e-3,
                  required_chi2_decrease=1e-2, cg_tol=1e-13):
-        from pint_tpu_torch.parallel.streaming import StreamingGLS
+        from pint_tpu_torch import obs
 
         t0 = time.perf_counter()
         self.passes = None
+        try:
+            with obs.span("fit.streaming", ntoa=self.toas.ntoas,
+                          maxiter=maxiter):
+                return self._fit_stream(maxiter, min_lambda,
+                                        required_chi2_decrease, cg_tol,
+                                        t0)
+        except DispatchError as e:
+            get_supervisor().note_failover("gls.stream_fit", e)
+            with obs.span("fit.stream_host_failover",
+                          cause=f"{type(e).__name__}: {e}"):
+                return self._fit_host_mirror(
+                    maxiter, min_lambda, required_chi2_decrease, cg_tol,
+                    e, t0)
+
+    def _fit_stream(self, maxiter, min_lambda, required_chi2_decrease,
+                    cg_tol, t0):
+        from pint_tpu_torch.parallel.streaming import StreamingGLS
+
         sg = StreamingGLS(self.model, self.toas, chunk=self.chunk,
                           device=self.device, **self.step_flags)
         names = sg.names
@@ -456,6 +693,83 @@ class StreamingGLSFitter(GLSFitter):
                 f"iterations (model left at the best point found)")
         return best
 
+    def _fit_host_mirror(self, maxiter, min_lambda,
+                         required_chi2_decrease, cg_tol, cause, t0):
+        """Degraded-but-correct (a port of the reference's): the model
+        moves to the CPU, and the same downhill loop runs through the
+        pure-numpy streaming mirror (the pass rebuilt on the CPU, the
+        chunked numpy accumulate and the numpy CG), the model synced
+        before every trial pass — labelled, never silent."""
+        from pint_tpu_torch.parallel.streaming import StreamingGLS
+
+        self._rehome(cause)
+        warnings.warn(
+            f"streaming device fit unavailable ({type(cause).__name__}"
+            f": {cause}); failed over to the numpy streaming mirror",
+            RuntimeWarning, stacklevel=3)
+        sg = StreamingGLS(self.model, self.toas, chunk=self.chunk,
+                          device="cpu", **self.step_flags)
+        names = sg.names
+        noff = 1 if names and names[0] == "Offset" else 0
+        effort: list = []
+        self.cg_budget = sg.default_budget
+
+        def one_pass():
+            out = sg.solve_np(tol=cg_tol)
+            effort.append((int(out[6]), float(out[7])))
+            return out
+
+        def apply(x, sign=1.0):
+            self.update_model(sign * np.concatenate(
+                [np.zeros(noff), x]), names)
+
+        dp, cov, _, best, xf, ok, iters, rel = one_pass()
+        if not ok or not np.all(np.isfinite(dp)):
+            raise NonFiniteStepError(
+                "streaming host-mirror solve failed (singular/"
+                "degenerate system?)")
+        iterations = 0
+        converged = False
+        maxed_out = False
+        npass = 1
+        for _ in range(maxiter):
+            iterations += 1
+            d = np.asarray(dp[noff:], np.float64)
+            lam, accepted = 1.0, False
+            while lam >= min_lambda:
+                apply(lam * d)
+                dpc, covc, _, chic, xfc, okc, iters, rel = one_pass()
+                npass += 1
+                if okc and np.isfinite(chic) and chic <= best + 1e-12:
+                    accepted = True
+                    break
+                apply(lam * d, sign=-1.0)
+                lam /= 2.0
+            if not accepted:
+                converged = True
+                break
+            improved = best - chic
+            dp, cov, best, xf = dpc, covc, chic, xfc
+            if improved < required_chi2_decrease:
+                converged = True
+                break
+        else:
+            maxed_out = True
+        self.cg_iters = int(iters)
+        self.cg_rel_residual = float(rel)
+        self.cg_iters_per_pass = [it for it, _ in effort]
+        self.passes = npass
+        self.set_uncertainties(cov, names)
+        self.noise_resids = sg.noise_realization(xf)
+        self.resids = self._residuals()
+        self.converged = converged
+        self._record_stats(best, max(1, iterations), t0)
+        if maxed_out:
+            raise MaxiterReached(
+                f"no convergence in {maxiter} streaming downhill "
+                f"iterations (host mirror)")
+        return best
+
 
 class DeviceDownhillGLSFitter(GLSFitter):
     """Downhill GLS where every trial is the one-function fit step
@@ -478,11 +792,22 @@ class DeviceDownhillGLSFitter(GLSFitter):
     same host loop over device tensors, so they change neither the
     result nor the cost.
 
-    The step is Cholesky-only: a non-finite first step raises
-    ``NonFiniteStepError`` inside, and the fit falls back, with a
-    labelled ``RuntimeWarning``, to ``DownhillGLSFitter`` (or
-    ``WidebandDownhillFitter``) on the same device, whose solve carries
-    the SVD fallback."""
+    Each call of the loop is one supervised dispatch: ``gls.fit_step``
+    at K = 1, ``gls.fit_loop`` at K > 1 (with ``pipeline=True`` the next
+    call is issued by ``dispatch_async`` while the host replays the
+    ledger). The whole fit fails over, labelled and counted, to
+    ``DownhillGLSFitter`` (or ``WidebandDownhillFitter``):
+
+    - on the CPU, the model moved there first (``fitter.rehome_to_cpu``),
+      when the device timed out, broke, lost its context or its breaker
+      is open (a ``DispatchError``);
+    - on the same device when the Cholesky-only step gave a non-finite
+      first step (``NonFiniteStepError``): the card works, and the host
+      fitter's solve carries the SVD fallback the step lacks.
+
+    The model moves only after the device loop completes, so a failover
+    starts from the pre-fit state and equals the host fitter run
+    directly."""
 
     def __init__(self, toas, model, residuals=None, track_mode=None,
                  wideband=False, whole_fit=None, pipeline=None,
@@ -508,20 +833,33 @@ class DeviceDownhillGLSFitter(GLSFitter):
         unless whole-fit mode is asked for, here or at construction.
         The model moves only after the device loop completes, so a
         fallback starts from the pre-fit state."""
+        from pint_tpu_torch import obs
+
         t0 = time.perf_counter()
+        # reset BEFORE the attempt: after a failover the count reads
+        # None (no device evaluations ran), not the previous fit's
         self.step_evals = None
         try:
-            return self._fit_device(maxiter, min_lambda,
-                                    required_chi2_decrease,
-                                    steps_per_dispatch, t0, whole_fit)
-        except NonFiniteStepError as e:
-            return self._fit_host_fallback(maxiter, min_lambda,
-                                           required_chi2_decrease, e, t0)
+            with obs.span("fit.device", fitter=type(self).__name__,
+                          ntoa=self.toas.ntoas, maxiter=maxiter):
+                return self._fit_device(maxiter, min_lambda,
+                                        required_chi2_decrease,
+                                        steps_per_dispatch, t0,
+                                        whole_fit, pipeline)
+        except (DispatchError, NonFiniteStepError) as e:
+            get_supervisor().note_failover("gls.device_fit", e)
+            with obs.span("fit.host_failover",
+                          cause=f"{type(e).__name__}: {e}"):
+                return self._fit_host_failover(
+                    maxiter, min_lambda, required_chi2_decrease, e, t0)
 
-    def _fit_host_fallback(self, maxiter, min_lambda,
+    def _fit_host_failover(self, maxiter, min_lambda,
                            required_chi2_decrease, cause, t0):
-        """Rerun the fit through the host downhill fitter on the same
-        device and adopt its fitted state."""
+        """Rerun the fit through the host downhill fitter — on the CPU
+        after a ``DispatchError``, on the same device after a
+        non-finite step — and adopt its fitted state."""
+        if isinstance(cause, DispatchError):
+            self._rehome(cause)
         if self.wideband:
             from pint_tpu_torch.wideband_fitter import WidebandDownhillFitter
 
@@ -554,10 +892,12 @@ class DeviceDownhillGLSFitter(GLSFitter):
         return chi2
 
     def _fit_device(self, maxiter, min_lambda, required_chi2_decrease,
-                    steps_per_dispatch, t0, whole_fit=None):
+                    steps_per_dispatch, t0, whole_fit=None, pipeline=None):
         from pint_tpu_torch.parallel import build_fit_loop
 
         whole = bool(whole_fit if whole_fit is not None else self.whole_fit)
+        if pipeline is None:
+            pipeline = self.pipeline
         if steps_per_dispatch is None:
             steps_per_dispatch = 1
             if whole:
@@ -576,18 +916,31 @@ class DeviceDownhillGLSFitter(GLSFitter):
         th0 = args[0].cpu().numpy()
         tl0 = args[1].cpu().numpy()
         th, tl = th0.copy(), tl0.copy()
+        sup = get_supervisor()
+        key = "gls.fit_loop" if K > 1 else "gls.fit_step"
 
         def on_device(x):
             return torch.as_tensor(x, dtype=torch.float64, device=dev)
 
+        def run(th_, tl_, budget_, entry_):
+            """One call of the loop on the device: (th, tl) and the
+            entry step placed inside the dispatch (a guarded dispatch
+            hands back host tensors)."""
+            ent = None if entry_ is None else \
+                tuple(on_device(x) for x in entry_)
+            return loop_fn(on_device(th_), on_device(tl_), *body,
+                           budget_, entry=ent)
+
         iterations = nevals = 0
         converged = maxed_out = False
-        entry = None
+        budget = min(K, maxiter)
+        handle = None
+        out = sup.dispatch(run, th, tl, budget, None, key=key,
+                           steps=budget, device=dev)
         while True:
-            budget = min(K, maxiter - iterations)
-            out = loop_fn(on_device(th), on_device(tl), *body, budget,
-                          entry=entry)
-            entry = out[2:5]
+            if handle is not None:
+                out = handle.result()
+                handle = None
             dp = out[2].cpu().numpy()
             best = float(out[4])
             if iterations == 0 and (not np.isfinite(float(out[5]))
@@ -595,10 +948,21 @@ class DeviceDownhillGLSFitter(GLSFitter):
                 raise NonFiniteStepError(
                     "device fit step produced non-finite values (singular "
                     "system? use GLSFitter's SVD fallback)")
-            niter, done = out[6], out[7]
-            nevals += out[10]
+            niter, done = int(out[6]), bool(out[7])
+            nevals += int(out[10])
             deltas = out[8].cpu().numpy()
             lams = out[9].cpu().numpy()
+            will_continue = not done and iterations + niter < maxiter
+            if will_continue:
+                budget = min(K, maxiter - iterations - niter)
+                if pipeline:
+                    # issue the next call NOW from the device-advanced
+                    # (th', tl'), bitwise the host replay below (the
+                    # loop's dd two-sum mirrors dd_np.add), so the
+                    # replay overlaps it
+                    handle = sup.dispatch_async(
+                        run, out[0], out[1], budget, out[2:5], key=key,
+                        steps=budget, device=dev)
             # exact host replay of the accepted updates
             for k in range(niter):
                 if lams[k] > 0.0:
@@ -610,6 +974,9 @@ class DeviceDownhillGLSFitter(GLSFitter):
             if iterations >= maxiter:
                 maxed_out = True
                 break
+            if handle is None:
+                out = sup.dispatch(run, th, tl, budget, out[2:5], key=key,
+                                   steps=budget, device=dev)
         cov = out[3].cpu().numpy()
         self.step_evals = nevals
         # the model goes to the accepted point even when about to raise:

@@ -52,6 +52,25 @@ def _run_sampler(fitter, p0, nsteps: int, progress: bool):
                                 mode=fitter.mode, progress=progress)
 
 
+def _lazy_host_posterior(model, toas, sample_noise: bool):
+    """The chain's failover posterior on the CPU, built from a CPU copy of
+    ``model`` at its first call (a chain that never fails over never
+    builds it); None on a CPU model, whose sampler reuses its own."""
+    if model.device.type == "cpu":
+        return None
+    built: list = []
+
+    def lnpost_batch(x):
+        if not built:
+            from pint_tpu_torch.fitter import cpu_copy
+
+            built.append(DevicePosterior(cpu_copy(model), toas,
+                                         sample_noise=sample_noise))
+        return built[0].lnpost_batch(x)
+
+    return lnpost_batch
+
+
 class MCMCFitter(Fitter):
     """Posterior sampling over the model's free parameters (reference:
     MCMCFitter), on the model's device. fit_toas runs the ensemble and
@@ -99,7 +118,9 @@ class MCMCFitter(Fitter):
         else:
             self.sampler = DeviceEnsembleSampler(
                 self.nwalkers, ndim, self.post.lnpost_batch,
-                device=model.device)
+                device=model.device,
+                host_lnpost_batch=_lazy_host_posterior(
+                    model, toas, sample_noise))
 
     def _init_walkers(self, scatter):
         if self.post is not None:

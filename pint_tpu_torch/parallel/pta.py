@@ -34,9 +34,6 @@ STACK_KEYS = ("M", "F", "phi", "r", "nvec", "valid", "pvalid")
 
 MESH_REFUSAL = ("a device mesh is not ported: sharding the pulsar axis "
                 "over several GPUs is ROADMAP.md item 11")
-SUPERVISOR_REFUSAL = ("the dispatch supervisor is not ported: supervised "
-                      "device calls with host failover are ROADMAP.md "
-                      "item 11")
 
 
 class PTAFitResult(list):
@@ -275,14 +272,27 @@ def pta_solve_np(stacked: dict):
 
 def pta_solve(stacked: dict, device=None, mesh=None):
     """Solve the whole stacked batch on ``device`` (the GPU by default):
-    one upload, one batched solve, one read back. Returns host
-    (dparams (P, p), cov (P, p, p), chi2 (P,), chi2r (P,)). A slot whose
-    normal matrix is not positive definite comes back NaN, as the
-    reference's compiled solve gives it; a device error raises."""
+    one upload, one batched solve, one read back, as one supervised
+    dispatch (key ``pta.batch``) whose host failover is
+    ``pta_solve_np``. Returns host (dparams (P, p), cov (P, p, p), chi2
+    (P,), chi2r (P,)). A slot whose normal matrix is not positive
+    definite comes back NaN, as the reference's compiled solve gives
+    it."""
+    from pint_tpu_torch import obs
+    from pint_tpu_torch.runtime import get_supervisor
+
     if mesh is not None:
         raise NotImplementedError(MESH_REFUSAL)
-    st = upload(stacked, STACK_KEYS, resolve_device(device))
-    return read_back(_solve_one(*(st[k] for k in STACK_KEYS)))
+    dev = resolve_device(device)
+
+    def run():
+        st = upload(stacked, STACK_KEYS, dev)
+        return read_back(_solve_one(*(st[k] for k in STACK_KEYS)))
+
+    with obs.span("pta.solve", npulsars=len(stacked["M"])):
+        return get_supervisor().dispatch(
+            run, key="pta.batch", device=dev,
+            fallback=lambda: pta_solve_np(stacked))
 
 
 def fit_pta(pairs: Sequence[Tuple], maxiter: int = 2, mesh=None,

@@ -684,39 +684,66 @@ class StreamingGLS:
 
     def accumulate(self, th, tl):
         """One streaming pass at the parameter point (th, tl) (host
-        float64 arrays in the step's slots): the accumulator state, on
-        the device."""
+        float64 arrays in the step's slots): ceil(N/C) supervised chunk
+        dispatches (``stream.chunk``). Returns the accumulator state:
+        host tensors after a guarded dispatch (the state, ~(p+q)^2
+        float64, goes to the host between chunks, as in the reference,
+        so the watchdog covers each chunk's device work). A DispatchError
+        propagates to the fitter's failover boundary."""
+        from pint_tpu_torch.runtime import get_supervisor
+
+        sup = get_supervisor()
         dev = self.device
-        th = torch.as_tensor(np.asarray(th, np.float64), device=dev)
-        tl = torch.as_tensor(np.asarray(tl, np.float64), device=dev)
-        state = _init_state(self.p, self.q, dev)
-        for k in range(self.nchunks):
+        th = np.asarray(th, np.float64)
+        tl = np.asarray(tl, np.float64)
+
+        def run(state, k):
+            if state is None:
+                state = _init_state(self.p, self.q, dev)
+            else:
+                state = tuple(x.to(dev) for x in state)
+            th_d = torch.as_tensor(th, device=dev)
+            tl_d = torch.as_tensor(tl, device=dev)
             batch_c, sc_c, F_c, nvec_c, valid_c, eid_c, plan = \
                 self._chunk(k)
             with record_function("stream.chunk"):
                 M, Fv, r0, nvec2, valid2, _, tmask = self.parts_fn(
-                    th, tl, self._fh, self._fl, batch_c, sc_c, F_c,
+                    th_d, tl_d, self._fh, self._fl, batch_c, sc_c, F_c,
                     self._phi, nvec_c, valid_c, eid_c, self._jvar)
                 if plan is None:
-                    state = _acc_chunk(state, M, Fv, r0, nvec2, valid2,
-                                       tmask)
-                else:
-                    state = _acc_chunk(state, M, Fv, r0, nvec2, valid2,
-                                       tmask, plan[0], self._jvar, plan[1])
+                    return _acc_chunk(state, M, Fv, r0, nvec2, valid2,
+                                      tmask)
+                return _acc_chunk(state, M, Fv, r0, nvec2, valid2,
+                                  tmask, plan[0], self._jvar, plan[1])
+
+        state = None
+        for k in range(self.nchunks):
+            state = sup.dispatch(run, state, k, key="stream.chunk",
+                                 device=dev)
         return state
 
     def solve(self, state, budget: Optional[int] = None,
               tol: float = 1e-13):
-        """CG-finalize an accumulated state: (dparams, cov, chi2, chi2r,
-        xf, ok, iters, rel_resid) on the host, dparams the correction
+        """CG-finalize an accumulated state (one supervised dispatch,
+        ``stream.solve``): (dparams, cov, chi2, chi2r, xf, ok, iters,
+        rel_resid) on the host, dparams the correction
         to add, aligned with ``self.names``; chi2 the linearized
         post-fit chi2, chi2r the basis-marginalized chi2 at the point
         (``Residuals.chi2``'s meaning), xf the ML basis amplitudes."""
+        from pint_tpu_torch.runtime import get_supervisor
+
         if budget is None:
             budget = self.default_budget
-        with record_function("stream.solve"):
-            dp, cov, chi2, chi2r, xf, ok, iters, resid = _finalize_kernel(
-                state, self._phi, int(budget), float(tol), self.incoffset)
+        dev = self.device
+
+        def run():
+            with record_function("stream.solve"):
+                return _finalize_kernel(
+                    tuple(x.to(dev) for x in state), self._phi,
+                    int(budget), float(tol), self.incoffset)
+
+        dp, cov, chi2, chi2r, xf, ok, iters, resid = \
+            get_supervisor().dispatch(run, key="stream.solve", device=dev)
         return (dp.cpu().numpy(), cov.cpu().numpy(), float(chi2),
                 float(chi2r), xf.cpu().numpy(), bool(ok), iters,
                 float(resid))

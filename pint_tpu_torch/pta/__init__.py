@@ -6,12 +6,13 @@ the unit of work:
 - ``gwb``: the Hellings–Downs cross-correlated gravitational-wave-
   background likelihood — per-pulsar inner blocks from the SAME joint
   normal assembly the batch fit uses, a second-stage Schur complement
-  over the (Npsr*m)^2 cross-correlated outer system, and a numpy mirror
-  as the CPU oracle;
-- ``metrics``: the plane's counters (``block_assemblies`` /
-  ``hd_outer_solves`` / ``gwb_solves``);
+  over the (Npsr*m)^2 cross-correlated outer system, each stage a
+  supervised dispatch with the numpy mirror as its host failover (and
+  the CPU oracle);
+- ``metrics``: the plane's registry-backed counters
+  (``block_assemblies`` / ``hd_outer_solves`` / ``gwb_solves``);
 - ``shard``: ``pad_batch``. Mesh compilation (``batch_sharding``,
-  ``compile_with_plan``) is ROADMAP.md item 11.
+  ``compile_with_plan``) stays refused on one GPU (ROADMAP.md).
 """
 
 from pint_tpu_torch.pta.gwb import (  # noqa: F401

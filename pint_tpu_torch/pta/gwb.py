@@ -55,7 +55,6 @@ from pint_tpu_torch.models.noise import (
 from pint_tpu_torch.parallel.pta import (
     MESH_REFUSAL,
     STACK_KEYS,
-    SUPERVISOR_REFUSAL,
     PulsarProblem,
     _assemble_normal,
     _outer,
@@ -361,8 +360,10 @@ class GWBLikelihood:
     Blocks are assembled ONCE on ``device`` (the GPU by default; the
     hyperparameters never touch the inner stage), then ``loglik_grid``
     sweeps (log10_A, gamma) points through chunks of the outer Schur
-    system. ``pool="host"`` runs the numpy mirror instead, by the
-    caller's choice; a device error raises."""
+    system. Every device call rides the dispatch supervisor
+    (``supervisor``, the process-global one by default) with the numpy
+    mirror as labelled host failover; ``pool="host"`` runs the mirror
+    instead, by the caller's choice."""
 
     def __init__(self, pairs: Optional[Sequence] = None,
                  problems: Optional[Sequence[PulsarProblem]] = None,
@@ -373,8 +374,6 @@ class GWBLikelihood:
                  supervisor=None, track_mode=None):
         if mesh is not None:
             raise NotImplementedError(MESH_REFUSAL)
-        if supervisor is not None:
-            raise NotImplementedError(SUPERVISOR_REFUSAL)
         self.device = resolve_device(device)
         if problems is None:
             if pairs is None:
@@ -415,6 +414,7 @@ class GWBLikelihood:
             self.U[k, :Uk.shape[0], :] = Uk
         self.metrics = metrics if metrics is not None else \
             PTAMetrics()
+        self._supervisor = supervisor
         self._blocks = None
         self.blocks_info: dict = {}
 
@@ -422,40 +422,71 @@ class GWBLikelihood:
     def npulsars(self) -> int:
         return len(self.problems)
 
+    def _sup(self):
+        if self._supervisor is not None:
+            return self._supervisor
+        from pint_tpu_torch.runtime import get_supervisor
+
+        return get_supervisor()
+
     def build_blocks(self, pool: str = "device", force: bool = False):
-        """Assemble (A, x, rdr_sum, ld_sum) as host arrays: on the
-        device, one upload, one batched assembly and one read back; with
-        ``pool="host"``, the numpy mirror. Cached: the GWB
-        hyperparameters never reach this stage.
-        ``blocks_info['used_pool']`` labels who served."""
+        """Assemble (A, x, rdr_sum, ld_sum) as host arrays in ONE
+        supervised dispatch (key ``pta.gwb_blocks``): on the device, one
+        upload, one batched assembly and one read back, with the numpy
+        mirror as host failover; with ``pool="host"``, the mirror,
+        pinned. Cached: the GWB hyperparameters never reach this stage.
+        ``blocks_info['used_pool']`` labels who served ("device",
+        "host" or "host-failover")."""
+        from pint_tpu_torch import obs
+
         if self._blocks is not None and not force:
             return self._blocks
-        if pool == "host":
-            A, x, rdr, ld = gwb_blocks_np(self.stacked, self.U)
-        else:
+        fell_over = []
+
+        def run():
             arrs = dict(self.stacked, U=self.U)
             keys = STACK_KEYS + ("U",)
             st = upload(arrs, keys, self.device)
-            A, x, rdr, ld = read_back(
-                _gwb_block_batch(*(st[k] for k in keys)))
-        self.blocks_info = {"used_pool": pool}
+            return read_back(_gwb_block_batch(*(st[k] for k in keys)))
+
+        def host():
+            return gwb_blocks_np(self.stacked, self.U)
+
+        def host_counted():
+            fell_over.append(True)
+            return host()
+
+        with obs.span("pta.gwb_blocks", npulsars=self.npulsars, m=self.m):
+            if pool == "host":
+                A, x, rdr, ld = self._sup().dispatch(
+                    host, key="pta.gwb_blocks", pinned=True)
+            else:
+                A, x, rdr, ld = self._sup().dispatch(
+                    run, key="pta.gwb_blocks", device=self.device,
+                    fallback=host_counted)
+        used = "host" if pool == "host" else \
+            ("host-failover" if fell_over else "device")
+        self.blocks_info = {"used_pool": used}
         self.metrics.bump("block_assemblies")
         self._blocks = (A, x, float(np.sum(rdr)), float(np.sum(ld)))
         return self._blocks
 
     def loglik_grid(self, log10A, gamma, chunk: Optional[int] = None,
                     pool: str = "device", sync: bool = True,
-                    info: Optional[dict] = None, progress=None):
+                    info: Optional[dict] = None, progress=None,
+                    key_tag: str = "pta.gwb"):
         """log L at each grid point, swept in chunks of
-        ``config.gwb_chunk()`` points. ``sync=False`` returns a zero-arg
-        collect, with chunk 0 already enqueued on the device."""
+        ``config.gwb_chunk()`` supervised dispatches (a chunk boundary
+        is a failover and deadline boundary). ``sync=False`` returns a
+        zero-arg collect, with chunk 0 already issued."""
         from pint_tpu_torch import config
 
         K = int(chunk) if chunk else config.gwb_chunk()
         collect = gwb_sweep_driver(
             self, np.asarray(log10A, dtype=np.float64).ravel(),
             np.asarray(gamma, dtype=np.float64).ravel(), K, pool=pool,
-            sync=sync, info=info, progress=progress)
+            sync=sync, info=info, progress=progress,
+            supervisor=self._sup(), key_tag=key_tag)
         if sync:
             return collect()
         return collect
@@ -469,66 +500,101 @@ class GWBLikelihood:
 def gwb_sweep_driver(like: GWBLikelihood, log10A: np.ndarray,
                      gamma: np.ndarray, K: int, pool: str = "device",
                      sync: bool = True, info: Optional[dict] = None,
-                     progress=None, supervisor=None):
-    """Chunked sweep of the outer Schur system: each chunk of K grid
-    points is one batched evaluation on the likelihood's device (or of
-    the numpy mirror with ``pool="host"``), read back before
-    ``progress`` (points done) fires. The last chunk pads by repeating
-    the final point (dropped on gather). The blocks, Gamma, the
-    frequencies and the whole padded grid go to the device in one copy.
-    ``sync=False`` enqueues chunk 0 at once and returns ``collect``,
+                     progress=None, supervisor=None,
+                     key_tag: str = "pta.gwb"):
+    """Chunked supervised sweep of the outer Schur system: each chunk of
+    K grid points is its own deadline-bounded dispatch (key
+    ``<key_tag>/chunk<c>``) on the likelihood's device, with the numpy
+    outer mirror as host failover (the blocks are host arrays already,
+    so a device that dies mid-sweep finishes on the host from the chunk
+    boundary); ``pool="host"`` runs the mirror, pinned. Each chunk's
+    values are read back before ``progress`` (points done) fires, and
+    ``info['used_pool']`` labels who served. The last chunk pads by
+    repeating the final point (dropped on gather). The blocks, Gamma
+    and the frequencies go to the device once. ``sync=False`` issues
+    chunk 0 on the supervisor's async path and returns ``collect``,
     which reads it and runs the rest."""
-    if supervisor is not None:
-        raise NotImplementedError(SUPERVISOR_REFUSAL)
+    from pint_tpu_torch import obs
+
+    if supervisor is None:
+        supervisor = like._sup()
     if info is None:
         info = {}
     npts = len(log10A)
     if npts == 0:
         def empty():
-            info["used_pool"] = pool
+            info["used_pool"] = pool if pool == "host" else "device"
             return np.zeros(0)
         return empty
     nchunks = -(-npts // K)
     A, x, rdr_sum, ld_sum = like.build_blocks(pool=pool)
+    if like.blocks_info.get("used_pool") == "host-failover":
+        info["used_pool"] = "host-failover"
     la = np.full(nchunks * K, log10A[npts - 1])
     ga = np.full(nchunks * K, gamma[npts - 1])
     la[:npts] = log10A
     ga[:npts] = gamma
+    fell_over: List[bool] = []
     placed: dict = {}
 
-    def issue(c):
-        """Chunk c's (K,) log L: a device tensor (not yet read) or, on
-        the host pool, a numpy array."""
+    def closures(c):
         sl = slice(c * K, (c + 1) * K)
-        if pool == "host":
-            out = _gwb_outer_np(A, x, rdr_sum, ld_sum, like.Gamma,
-                                like.fcols, like.tspan, la[sl], ga[sl])
-        else:
+
+        def run():
             if not placed:
                 placed.update(upload(
-                    {"A": A, "x": x, "G": like.Gamma, "f": like.fcols,
-                     "la": la, "ga": ga},
-                    ("A", "x", "G", "f", "la", "ga"), like.device))
-            out = _gwb_outer_batch(
+                    {"A": A, "x": x, "G": like.Gamma, "f": like.fcols},
+                    ("A", "x", "G", "f"), like.device))
+            la_c, ga_c = (torch.from_numpy(a[sl]).to(like.device)
+                          for a in (la, ga))
+            return _gwb_outer_batch(
                 placed["A"], placed["x"], rdr_sum, ld_sum, placed["G"],
-                placed["f"], like.tspan, placed["la"][sl],
-                placed["ga"][sl])
-        like.metrics.bump("gwb_solves")
-        like.metrics.bump("hd_outer_solves", K)
-        return out
+                placed["f"], like.tspan, la_c, ga_c)
+
+        def run_pinned():
+            return _gwb_outer_np(A, x, rdr_sum, ld_sum, like.Gamma,
+                                 like.fcols, like.tspan, la[sl], ga[sl])
+
+        def host_counted():
+            fell_over.append(True)
+            return run_pinned()
+
+        return run, run_pinned, host_counted
+
+    def issue(c, asynchronous=False):
+        run, run_pinned, host_counted = closures(c)
+        key = f"{key_tag}/chunk{c}"
+        if pool == "host":
+            return supervisor.dispatch(run_pinned, key=key, steps=K,
+                                       pinned=True)
+        if asynchronous:
+            return supervisor.dispatch_async(
+                run, key=key, steps=K, fallback=host_counted,
+                device=like.device)
+        return supervisor.dispatch(run, key=key, steps=K,
+                                   fallback=host_counted,
+                                   device=like.device)
 
     def gather(first):
         vals: List[np.ndarray] = []
         for c in range(nchunks):
-            out = first if c == 0 and first is not None else issue(c)
+            with obs.span("pta.gwb_sweep", chunk=c, points=K, pool=pool):
+                out = first.result() if c == 0 and first is not None \
+                    else issue(c)
+            like.metrics.bump("gwb_solves")
+            like.metrics.bump("hd_outer_solves", K)
             vals.append(out.cpu().numpy() if torch.is_tensor(out)
                         else np.asarray(out))
             if progress is not None:
                 progress(min(npts, (c + 1) * K))
-        info["used_pool"] = pool
+        if pool == "host":
+            info["used_pool"] = "host"
+        elif info.get("used_pool") != "host-failover":
+            info["used_pool"] = "host-failover" if fell_over else "device"
         return np.concatenate(vals)[:npts]
 
-    if sync:
+    if sync or pool == "host":
         return lambda: gather(None)
-    first = issue(0)
+    with obs.span("pta.gwb_sweep.issue", chunk=0, points=K):
+        first = issue(0, asynchronous=True)
     return lambda: gather(first)

@@ -1,6 +1,12 @@
-"""Counters of the array likelihood plane (a port of
-pint_tpu/pta/metrics.py, as plain per-instance counters: the reference's
-process-wide metrics registry is ROADMAP.md item 11)."""
+"""Registry-bound counters for the array likelihood plane (a port of
+pint_tpu/pta/metrics.py).
+
+Same contract as the supervisor's ``RuntimeMetrics``: each
+``PTAMetrics`` instance holds bound children of the process-global
+``obs.metrics`` registry (``pint_tpu_pta_<name>_total``, labelled by a
+per-instance scope), ``snapshot()`` is a derived view of the same
+values, and every mutation goes through ``bump()``.
+"""
 
 from __future__ import annotations
 
@@ -14,24 +20,32 @@ class PTAMetrics:
       (one per ``GWBLikelihood.build_blocks`` evaluation);
     - ``hd_outer_solves``: cross-correlated (Npsr*m)^2 outer-system
       factorizations evaluated (grid points swept, padding included);
-    - ``gwb_solves``: sweep chunks evaluated.
+    - ``gwb_solves``: supervised sweep-chunk dispatches.
     """
 
     _COUNTERS = ("gwb_solves", "block_assemblies", "hd_outer_solves")
 
     def __init__(self):
-        self._c = dict.fromkeys(self._COUNTERS, 0)
+        from pint_tpu_torch.obs import metrics as om
+
+        self.scope = om.new_scope("pta")
+        self._c = {
+            name: om.counter(
+                f"pint_tpu_pta_{name}_total",
+                f"GWB plane {name.replace('_', ' ')}"
+            ).child(scope=self.scope)
+            for name in self._COUNTERS}
 
     def bump(self, name: str, n: int = 1):
-        if name not in self._c:
-            raise KeyError(name)
-        self._c[name] += int(n)
+        self._c[name].inc(n)
 
-    def __getattr__(self, name: str):
+    def __getattr__(self, name):
         c = self.__dict__.get("_c", {})
         if name in c:
-            return c[name]
+            return int(c[name].value())
         raise AttributeError(name)
 
     def snapshot(self) -> dict:
-        return dict(self._c)
+        """Derived view of the registry children."""
+        return {name: int(child.value())
+                for name, child in self._c.items()}

@@ -121,7 +121,8 @@ class Residuals:
         if self.model.has_correlated_errors:
             from pint_tpu_torch.gls import gls_chi2
 
-            return gls_chi2(self.model, self.toas, resids=self.time_resids,
+            # the residual pass itself runs inside gls_chi2's dispatch
+            return gls_chi2(self.model, self.toas, resids=self,
                             device=self.device)
         err_s = self._tensor(self.model.scaled_toa_uncertainty(self.toas))
         return float(torch.sum((self.time_resids / err_s) ** 2))

@@ -235,10 +235,22 @@ class SampledNoiseLikelihood:
         self.lnlike_core = lnlike_core
 
     def lnlikelihood(self, theta, eta) -> float:
-        """One point on the model's device (the oracle surface)."""
+        """One point on the model's device (the oracle surface),
+        supervised like every other device call (key
+        ``sampling.lnlike``; no host failover, as in the reference)."""
+        from pint_tpu_torch import obs
+        from pint_tpu_torch.runtime import get_supervisor
+
         dev = self.device
         tl_eff = self.tl0 + (np.asarray(theta, dtype=np.float64)
                              - self.theta0)
-        return float(self.lnlike_core(
-            torch.as_tensor(tl_eff, device=dev),
-            torch.as_tensor(np.asarray(eta, dtype=np.float64), device=dev)))
+
+        def run():
+            return self.lnlike_core(
+                torch.as_tensor(tl_eff, device=dev),
+                torch.as_tensor(np.asarray(eta, dtype=np.float64),
+                                device=dev))
+
+        with obs.span("sampling.lnlike"):
+            return float(get_supervisor().dispatch(
+                run, key="sampling.lnlike", device=dev))

@@ -35,8 +35,8 @@ import torch
 
 from pint_tpu_torch import resolve_device
 from pint_tpu_torch.gls import cho_factor, cho_solve, jacobi
-from pint_tpu_torch.parallel.pta import STACK_KEYS, SUPERVISOR_REFUSAL, \
-    _assemble_normal, _outer, stack_problems, upload
+from pint_tpu_torch.parallel.pta import STACK_KEYS, _assemble_normal, \
+    _outer, stack_problems, upload
 from pint_tpu_torch.sampling.kernel import build_stretch_chunk, normals
 
 __all__ = ["make_posterior_slot", "posterior_chunk_driver",
@@ -129,21 +129,37 @@ def make_posterior_slot(W: int, K: int, thin: int = 1,
 def posterior_chunk_driver(fnv, stacked: dict, seeds, nsteps,
                            W: int, K: int, thin: int, device=None,
                            sync: bool = True, progress=None,
-                           supervisor=None):
-    """Drive one padded batch through its chunks on ``device`` and
-    return per-slot results.
+                           supervisor=None,
+                           key_tag: str = "sampling.post_direct",
+                           pool: str = "device",
+                           info: Optional[dict] = None):
+    """Drive one padded batch through its chunks and return per-slot
+    results.
 
     ``fnv`` is ``make_posterior_slot``'s function; ``seeds``/``nsteps``
-    are per slot. The problem batch goes to the device once and its
-    posterior system is built once; the ensemble state stays on the
-    device from chunk to chunk, and each chunk's acceptance count is read
-    back before ``progress`` (steps completed per slot) fires. Returns a
-    zero-arg ``collect``; its call yields (chain (P, S_total, W, p),
-    lnprob, naccept (P,), rows_done (P,)) host arrays. ``sync=False``
-    enqueues chunk 0 at once; ``collect`` runs the rest."""
-    if supervisor is not None:
-        raise NotImplementedError(SUPERVISOR_REFUSAL)
+    are per slot. Each chunk is its OWN supervised dispatch (key
+    ``<key_tag>/chunk<c>``, on ``supervisor``, the process-global one by
+    default) on ``device``: the problem batch goes there once and its
+    posterior system is built once, the ensemble state (pos, lp) comes
+    back to the host after every chunk, and a device that dies mid-chain
+    fails the chunk over to the same chunk on the CPU, continuing from
+    the carried state — labelled in ``info['used_pool']`` ("device",
+    "host" or "host-failover"). ``pool="host"`` runs every chunk on the
+    CPU, pinned. ``progress`` (steps completed per slot) fires after
+    each chunk. Returns a zero-arg ``collect``; its call yields (chain
+    (P, S_total, W, p), lnprob, naccept (P,), rows_done (P,)) host
+    arrays. ``sync=False`` issues chunk 0 on the supervisor's async
+    path; ``collect`` runs the rest."""
+    from pint_tpu_torch import obs
+    from pint_tpu_torch.runtime import get_supervisor
+
+    if supervisor is None:
+        supervisor = get_supervisor()
+    if info is None:
+        info = {}
+    info.setdefault("pool", pool)
     dev = resolve_device(device)
+    cpu = torch.device("cpu")
     P = stacked["M"].shape[0]
     seeds = np.asarray(seeds, dtype=np.int64)
     nsteps = np.asarray(nsteps, dtype=np.int64)
@@ -151,34 +167,74 @@ def posterior_chunk_driver(fnv, stacked: dict, seeds, nsteps,
     nchunks = max(1, -(-kmax // K))
     budgets = np.clip(nsteps[None, :] - K * np.arange(nchunks)[:, None],
                       0, K)
-    ints = torch.from_numpy(np.concatenate([seeds, budgets.ravel()])
-                            ).to(dev)
-    seeds_t, budgets_t = ints[:P], ints[P:].view(nchunks, P)
-    st = upload(stacked, STACK_KEYS, dev)
-    system = posterior_system(*(st[k] for k in STACK_KEYS))
+    fell_over: List[bool] = []
+    # the problem batch, its posterior system, the seeds and budgets,
+    # placed ONCE per device; a failover builds the CPU copy from the
+    # host arrays, never from the device's
+    placed: dict = {}
 
-    def issue(c, pos, lp):
-        return fnv(system, seeds_t, budgets_t[c], pos, lp, c == 0, c * K)
+    def system_on(d):
+        if str(d) not in placed:
+            ints = torch.from_numpy(np.concatenate(
+                [seeds, budgets.ravel()])).to(d)
+            st = upload(stacked, STACK_KEYS, d)
+            placed[str(d)] = (posterior_system(*(st[k] for k in STACK_KEYS)),
+                              ints[:P], ints[P:].view(nchunks, P))
+        return placed[str(d)]
+
+    def closures(c, pos_h, lp_h):
+        def call(d):
+            system, seeds_t, budgets_t = system_on(d)
+            pos = lp = None
+            if c:
+                pos, lp = pos_h.to(d), lp_h.to(d)
+            return fnv(system, seeds_t, budgets_t[c], pos, lp, c == 0,
+                       c * K)
+
+        def run_pinned():
+            return call(cpu)
+
+        def host_counted():
+            fell_over.append(True)
+            return run_pinned()
+
+        return (lambda: call(dev)), run_pinned, host_counted
+
+    def issue(c, pos_h, lp_h, asynchronous=False):
+        run, run_pinned, host_counted = closures(c, pos_h, lp_h)
+        key = f"{key_tag}/chunk{c}"
+        if pool == "host":
+            return supervisor.dispatch(run_pinned, key=key, steps=K,
+                                       pinned=True)
+        if asynchronous:
+            return supervisor.dispatch_async(
+                run, key=key, steps=K, fallback=host_counted, device=dev)
+        return supervisor.dispatch(run, key=key, steps=K,
+                                   fallback=host_counted, device=dev)
 
     def run(first):
         pos = lp = None
         acc = np.zeros(P, np.int64)
         rows_done = np.zeros(P, np.int64)
-        chains: List[torch.Tensor] = []
-        lnps: List[torch.Tensor] = []
+        chains: List[np.ndarray] = []
+        lnps: List[np.ndarray] = []
         for c in range(nchunks):
-            out = first if c == 0 and first is not None \
-                else issue(c, pos, lp)
-            pos, lp, nacc, chain, lnp = out
-            acc += nacc.cpu().numpy()
-            chains.append(chain)
-            lnps.append(lnp)
+            with obs.span("posterior.chunk", chunk=c, steps=K, pool=pool):
+                out = first.result() if c == 0 and first is not None \
+                    else issue(c, pos, lp)
+            # the carried state on the host: a later chunk's failover
+            # continues from it without reading the device
+            pos, lp, nacc, chain, lnp = (x.cpu() for x in out)
+            acc += nacc.numpy()
+            chains.append(chain.numpy())
+            lnps.append(lnp.numpy())
             rows_done += budgets[c] // thin
             if progress is not None:
                 progress(np.minimum(nsteps, (c + 1) * K))
-        return _gather(torch.cat(chains, dim=1).cpu().numpy(),
-                       torch.cat(lnps, dim=1).cpu().numpy(), acc,
-                       rows_done)
+        info["used_pool"] = "host" if pool == "host" else \
+            ("host-failover" if fell_over else "device")
+        return _gather(np.concatenate(chains, axis=1),
+                       np.concatenate(lnps, axis=1), acc, rows_done)
 
     def _gather(chain, lnp, acc, rows_done):
         """Per-slot row gather: chunk c's valid rows for slot k are its
@@ -201,9 +257,10 @@ def posterior_chunk_driver(fnv, stacked: dict, seeds, nsteps,
                 got += nkeep
         return chain_out, lnp_out, acc, rows_done
 
-    if sync:
+    if sync or pool == "host":
         return lambda: run(None)
-    first = issue(0, None, None)
+    with obs.span("posterior.chunk.issue", chunk=0, steps=K):
+        first = issue(0, None, None, asynchronous=True)
     return lambda: run(first)
 
 

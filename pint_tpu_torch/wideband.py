@@ -47,25 +47,30 @@ def has_wideband_dm(toas) -> bool:
 
 class DMResiduals:
     """DM-channel residuals: measured DM (flags) minus the model DM at
-    each TOA (reference: residuals.DMResiduals), on the model's
-    device."""
+    each TOA (reference: residuals.DMResiduals), on ``device`` (the
+    model's by default)."""
 
-    def __init__(self, toas, model, subtract_mean: bool = False):
+    def __init__(self, toas, model, subtract_mean: bool = False,
+                 device=None):
+        from pint_tpu_torch import resolve_device
+
         self.toas = toas
         self.model = model
+        self.device = model.device if device is None \
+            else resolve_device(device)
         self.subtract_mean = subtract_mean
         self._resids: Optional[torch.Tensor] = None
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x, np.float64),
-                               device=self.model.device)
+                               device=self.device)
 
     def model_dm(self) -> torch.Tensor:
         """Model DM at each TOA [pc/cm^3], summed over every component
         with a DM contribution (DM polynomial, DMX, DMJUMP with the
         reference's -DMJUMP model-side sign) by the one DM function
         (TimingModel.build_dm_fn)."""
-        return self.model.total_dm(self.toas)
+        return self.model.total_dm(self.toas, self.device)
 
     def calc_resids(self) -> torch.Tensor:
         measured, _ = get_wideband_dm(self.toas)

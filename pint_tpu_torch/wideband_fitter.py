@@ -18,8 +18,10 @@ through both channels. The stack is a taller whitened least-squares
 problem, solved by the GLS kernel unchanged, as float64 tensors on the
 model's device.
 
-The reference's dispatch supervisor and its host failover (``runtime/``)
-are not ported: a failed solve raises, and nothing takes its place.
+Each stacked solve is one supervised dispatch of the whole pass (keys
+``wideband.solve`` and ``wideband.svd``, GLSFitter's machinery); a
+timed-out, broken or breaker-open device fails it over to the numpy
+mirror on the same stacked system rebuilt on the CPU.
 """
 
 from __future__ import annotations
@@ -57,6 +59,9 @@ class WidebandTOAFitter(GLSFitter):
     """Joint TOA+DM GLS fit (reference: WidebandTOAFitter): GLSFitter's
     solve and loop over the stacked system of ``_system``."""
 
+    _KEY = "wideband"
+    _WHAT = "wideband normal matrix"
+
     def __init__(self, toas, model, residuals=None, track_mode=None):
         get_wideband_dm(toas)  # validate the flags up front
         super().__init__(toas, model, residuals=residuals,
@@ -64,19 +69,19 @@ class WidebandTOAFitter(GLSFitter):
         self.dm_resids = DMResiduals(toas, model)
         self._noise_stack = None
 
-    def _stacked_noise(self):
-        """(nvec, F, phi) of the stacked system as float64 tensors on the
-        model's device: the TOA then the scaled DM variances, and the
+    def _stacked_noise(self, device):
+        """(nvec, F, phi) of the stacked system as float64 tensors on
+        ``device``: the TOA then the scaled DM variances, and the
         time-channel noise basis over its DM-channel block. Made once
-        per noise basis (the bases are static during a least-squares
-        fit) and kept."""
+        per noise basis and device (the bases are static during a
+        least-squares fit) and kept."""
         pairs = self.model.noise_model_basis_weight_pairs(self.toas)
         nvec = np.concatenate([
             self.model.scaled_toa_uncertainty(self.toas) ** 2,
             self.model.scaled_dm_uncertainty(self.toas) ** 2])
         cached = self._noise_stack
         if cached is not None and cached[0] is pairs and \
-                np.array_equal(cached[1], nvec):
+                cached[3] == str(device) and np.array_equal(cached[1], nvec):
             return cached[2]
         n = self.toas.ntoas
         F_t = self.model.noise_model_designmatrix(self.toas)
@@ -88,20 +93,24 @@ class WidebandTOAFitter(GLSFitter):
                 [F_t, self.model.noise_model_dm_designmatrix(self.toas)],
                 axis=0)
         out = tuple(torch.as_tensor(np.asarray(x, np.float64),
-                                    device=self.device)
+                                    device=device)
                     for x in (nvec, F, phi))
-        self._noise_stack = (pairs, nvec, out)
+        self._noise_stack = (pairs, nvec, out, str(device))
         return out
 
-    def _system(self):
-        """The stacked [time; DM] problem at the current parameters."""
-        self.resids = self._residuals()
-        self.dm_resids = DMResiduals(self.toas, self.model)
-        M_t, names, _ = self.get_designmatrix()
-        M_dm = -build_dm_designmatrix(self.model, self.toas, names)
-        r = torch.cat([self.resids.time_resids, self.dm_resids.resids])
-        nvec, F, phi = self._stacked_noise()
-        return torch.cat([M_t, M_dm]), r, nvec, F, phi, names
+    def _system(self, device=None):
+        """The stacked [time; DM] problem at the current parameters, on
+        ``device`` (the model's by default)."""
+        dev = self.device if device is None else device
+        res = self._residuals(dev)
+        dm_res = DMResiduals(self.toas, self.model, device=dev)
+        M_t, names, _ = self.model.designmatrix(self.toas, incoffset=True,
+                                                device=dev)
+        M_dm = -build_dm_designmatrix(self.model, self.toas, names, dev)
+        r = torch.cat([res.time_resids, dm_res.resids])
+        nvec, F, phi = self._stacked_noise(dev)
+        return (torch.cat([M_t, M_dm]), r, nvec, F, phi, names,
+                {"resids": res, "dm_resids": dm_res})
 
     @property
     def chi2_dm(self) -> float:
@@ -121,7 +130,6 @@ class WidebandDownhillFitter(WidebandTOAFitter, DownhillGLSFitter):
     def _chi2_here(self) -> float:
         """The time channel's GLS chi2 plus the DM channel's white chi2,
         as the reference sums them."""
-        r = Residuals(self.toas, self.model,
-                      track_mode=self.track_mode).time_resids
+        r = Residuals(self.toas, self.model, track_mode=self.track_mode)
         return gls_chi2(self.model, self.toas, resids=r) + \
             DMResiduals(self.toas, self.model).chi2

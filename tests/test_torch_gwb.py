@@ -288,8 +288,13 @@ def test_refusals_name_item_11(like3):
     kw = dict(problems=like3.problems, nfreq=2, device=CPU)
     with pytest.raises(NotImplementedError, match="item 11"):
         GWBLikelihood(mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        GWBLikelihood(supervisor=object(), **kw)
+    # supervisor= is no longer refused: the likelihood's dispatches
+    # ride the given supervisor
+    from pint_tpu_torch.runtime import DispatchSupervisor
+
+    sup = DispatchSupervisor()
+    GWBLikelihood(supervisor=sup, **kw).loglik(-14.0, 4.0)
+    assert sup.metrics.dispatches == 2   # the blocks and one chunk
     with pytest.raises(ValueError):
         GWBLikelihood(problems=like3.problems[:1], device=CPU)
     bare = [PulsarProblem(pr.M, pr.r, pr.nvec, pr.F, pr.phi, pr.names)

@@ -5,7 +5,9 @@ batch solve and one GWB log-likelihood on a tiny synthetic array), and
 so does the Bayesian plane (a DevicePosterior of a tiny simulated
 pulsar, fixed-noise and noise-sampled) and the photon plane (a template,
 an LCFitter value and a PhotonMCMCFitter likelihood batch on that
-pulsar's TOAs)."""
+pulsar's TOAs), and so do the runtime and the obs core (a GLS fit whose
+solves hang under a fault plan and fail over to the numpy mirror, the
+registry's exposition, a span)."""
 
 import os
 import subprocess
@@ -40,7 +42,14 @@ for name in ("pint_tpu_torch.pta.gwb", "pint_tpu_torch.parallel.pta",
              "pint_tpu_torch.sampling.chain",
              "pint_tpu_torch.templates", "pint_tpu_torch.templates.energy",
              "pint_tpu_torch.scripts.event_optimize",
-             "pint_tpu_torch.scripts.fermiphase", "pint_tpu_torch.toa"):
+             "pint_tpu_torch.scripts.fermiphase", "pint_tpu_torch.toa",
+             "pint_tpu_torch.logging", "pint_tpu_torch.runtime",
+             "pint_tpu_torch.runtime.breaker",
+             "pint_tpu_torch.runtime.faults",
+             "pint_tpu_torch.runtime.locks",
+             "pint_tpu_torch.runtime.supervisor", "pint_tpu_torch.obs",
+             "pint_tpu_torch.obs.tracer", "pint_tpu_torch.obs.hist",
+             "pint_tpu_torch.obs.flight", "pint_tpu_torch.obs.metrics"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu")
@@ -125,6 +134,29 @@ with tempfile.TemporaryDirectory() as d:
     save_pickle(toas, os.path.join(d, "t.pickle"))
     assert load_pickle(os.path.join(d, "t.pickle"), device="cpu").ntoas \
         == toas.ntoas
+import os as _os
+
+from pint_tpu_torch import obs
+from pint_tpu_torch.gls import GLSFitter
+from pint_tpu_torch.obs import metrics as om
+from pint_tpu_torch.runtime import Fault, FaultPlan, get_supervisor
+
+_os.environ["PINT_TPU_DISPATCH_DEADLINE_MS"] = "200"
+obs.configure(enabled=True)
+with FaultPlan([Fault(match="gls.solve", kind="hang", seconds=1.0)]).active():
+    with obs.span("no-jax"), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        chi2 = GLSFitter(toas, model).fit_toas()
+assert np.isfinite(chi2)
+snap = get_supervisor().snapshot()
+assert snap["failovers"] == 2 and snap["timeouts"] == 2, snap
+assert "pint_tpu_dispatch_failovers_total" in om.render()
+assert any(r["name"] == "dispatch.failover" for r in
+           obs.get_tracer().records())
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
 print("OK", len(names))
 """
 

@@ -104,8 +104,15 @@ def test_chunk_driver_progress_and_async(problems):
     chain, lnp, acc, rows = sync
     np.testing.assert_array_equal(rows, [40, 24, 0])
     assert acc[2] == 0 and chain.shape == (3, 40, 16, 3)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        posterior_chunk_driver(*args, device=CPU, supervisor=object())
+    # supervisor= is no longer refused: each chunk is one of its
+    # dispatches, and the chain is the same
+    from pint_tpu_torch.runtime import DispatchSupervisor
+
+    sup = DispatchSupervisor()
+    got = posterior_chunk_driver(*args, device=CPU, supervisor=sup)()
+    for a, b in zip(got, sync):
+        np.testing.assert_array_equal(a, b)
+    assert sup.metrics.dispatches == len(seen)
 
 
 def test_slot_depends_only_on_its_seed(problems):

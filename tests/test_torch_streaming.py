@@ -13,8 +13,8 @@ accumulated state within 1e-12 of its largest entry, dparams within
 tests/test_streaming_gls.py:105-208's, at their limits: the dense step
 (Cholesky), chunk-size invariance, the ECORR boundary carry and the
 numpy mirror. The reference's f32 routes are not ported (ROADMAP.md item
-1b), and neither is its dispatch supervisor, so its failover test has no
-counterpart here."""
+1b). The failover to the numpy mirror is held in
+tests/test_torch_runtime_faults.py."""
 
 import copy
 import io
