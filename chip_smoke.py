@@ -303,7 +303,42 @@ Phases, each fatal on failure:
      on the CPU with every downhill decision logged (proposed step,
      trial chi2, accepted halving): the first decision that differs, and
      the largest difference of one step in sigma;
-15. print the card's name and power limit, and one JSON line of kernel
+15. the host API of the core classes, polycos, UNITS TCB, binaryconvert
+   and the native MJD parser (no hand-written kernel: K1 launches 0
+   times here):
+   polycos-binary: one day of polycos at gbt (60-minute blocks, 12
+     coefficients, 1400 MHz: 24 blocks, 576 nodes in one phase call on
+     the card) from BASELINE config 2's ELL1 model: the polyco phase at
+     200 seeded epochs against model.phase on the card (1e-6 turns mod
+     1, tests/test_polycos.py's folding limit), eval_spin_freq against
+     d_phase_d_toa on the card (1e-9 relative), the coefficients against
+     the same generation on the CPU (1e-6 turns at the block edge), the
+     TEMPO file read back (5e-6 turns); one generation profiled;
+   polycos-fit: the same on the fit cell's isolated model;
+   host-api: on the fit cell, d_phase_d_toa on the card against the CPU
+     (1e-12 relative), timed and profiled; d_phase_d_param of F0, F1
+     and DMX_0001 against F0 x the card's design columns (1e-13 of the
+     column); every other epoch selected, pulse-numbered and fitted by
+     DownhillGLSFitter(track_mode="use_pulse_numbers") on the card and
+     on the CPU (fit-downhill's limits); ecorr_average over the 2,500
+     ECORR epochs, card against CPU; as_ECL -> as_ICRS keeping the
+     card's phase (2e-9 s); calculate_random_models(100) after the
+     card's fit, card against CPU on the same fitted state and generator
+     (1e-12 s), timed;
+   tcb: the fit cell written as UNITS TCB and read back by get_model
+     (converted by default): its phase on the card against the
+     original's, within what test_tcb_conversion_roundtrip's F0 limit
+     allows over the span; allow_tcb=False raises;
+   binaryconvert: config 2's ELL1 model to ELL1H, DD, DDS and DDH: each
+     converted model's delay on the card against the CPU's (1e-12 s)
+     and, less the means, against the ELL1 model's (1e-12 s for ELL1H,
+     tests/test_binary_zoo.py's 2e-9 s scaled by this orbit's x e^2 for
+     the eccentric ones);
+   mjdparse: the native parser builds, and parses the fit cell's .tim
+     (written by TOAs.write_TOA_file) bitwise as the Python parser does,
+     both timed;
+   its `host_api` JSON line holds the times, errors and counts;
+16. print the card's name and power limit, and one JSON line of kernel
    measurements.
 
 The last line of standard output is {"ok": true, "device": {...}}. The
@@ -4762,6 +4797,474 @@ def runtime_phase(par: str, toas, downhill: dict, step: dict, array: dict,
             "seconds": secs}
 
 
+# ------------------------------------------------- host API and polycos
+
+
+# TEMPO's and PINT's polyco defaults: 60-minute blocks, 12 coefficients,
+# 1400 MHz; one day of them at gbt
+POLYCO_SEG_MIN, POLYCO_NCOEFF, POLYCO_FREQ = 60.0, 12, 1400.0
+POLYCO_DAYS, POLYCO_NEPOCH = 1.0, 200
+POLYCO_TURNS = 1e-6            # tests/test_polycos.py's folding limit
+POLYCO_FILE_TURNS = 5e-6       # the TEMPO file's 6 decimals of RPHASE
+SPIN_RTOL = 1e-9               # eval_spin_freq vs d_phase_d_toa
+DPDT_RTOL = 1e-12              # d_phase_d_toa, card vs CPU
+DPDP_REL = 1e-13               # d_phase_d_param vs F0 x the design column
+ROUND_TRIP_S = 2e-9            # as_ECL -> as_ICRS (tests/test_cli_utils.py)
+RANDOM_MODELS, RANDOM_MODELS_S = 100, 1e-12
+# binaryconvert: tests/test_binary_zoo.py's 2e-9 s is at x e^2 = 8.82e-11
+# lt-s, and the ELL1 expansion's error scales as x e^2
+CONVERT_EXACT_S, CONVERT_XE2_RATIO = 1e-12, 2e-9 / 8.82e-11
+CONVERT_TARGETS = ("ELL1H", "DD", "DDS", "DDH")
+
+
+def coeff_turns(a, b) -> float:
+    """The largest difference of two polyco sets' coefficients, each as
+    the turns its term moves at the block's edge (|dc_k| (span/2)^k);
+    their segments, integer phases and frequencies must be equal."""
+    out = 0.0
+    for ea, eb in zip(a.entries, b.entries):
+        if (ea.rphase_int, ea.tmid, ea.f0) != (eb.rphase_int, eb.tmid, eb.f0):
+            fail("polycos: the card's and the CPU's blocks differ in "
+                 "segment, integer phase or frequency")
+        scale = (ea.span_min / 2.0) ** np.arange(len(ea.coeffs))
+        out = max(out, float(np.max(np.abs(ea.coeffs - eb.coeffs) * scale)))
+    return out
+
+
+def turns_mod1(a, b) -> np.ndarray:
+    d = (a[0] + a[1]) - (b[0] + b[1])
+    return np.abs(d - np.round(d))
+
+
+def polycos_check(label: str, par: str, seed: int, dev, tmp: str) -> dict:
+    """One day of polycos at gbt (TEMPO's defaults) from `par` on the
+    card: the polyco phase at POLYCO_NEPOCH seeded epochs against
+    model.phase on the card (POLYCO_TURNS mod 1), eval_spin_freq against
+    d_phase_d_toa on the card (SPIN_RTOL), the coefficients against the
+    same generation on the CPU (POLYCO_TURNS at the block edge) and the
+    TEMPO file read back (POLYCO_FILE_TURNS)."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.polycos import Polycos
+    from pint_tpu_torch.toa import get_TOAs_array
+
+    secs = {}
+    t00 = time.perf_counter()
+    mg = get_model(io.StringIO(par), device=dev)
+    mjd0 = float(np.round(mg.PEPOCH.value))
+    span = (mjd0, mjd0 + POLYCO_DAYS)
+    kw = dict(seg_length_min=POLYCO_SEG_MIN, ncoeff=POLYCO_NCOEFF,
+              obsfreq_mhz=POLYCO_FREQ)
+
+    def generate(m, d):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return Polycos.generate_polycos(m, *span, "gbt", device=d, **kw)
+
+    generate(mg, dev)  # warm: the first call pays the ephemeris reads
+    t0 = time.perf_counter()
+    pc = generate(mg, dev)
+    sync(dev)
+    gen_s = time.perf_counter() - t0
+    prof = device_busy(lambda: generate(mg, dev),
+                       f"{label}: one generation ({len(pc.entries)} "
+                       f"blocks)")
+    nseg = int(np.ceil(POLYCO_DAYS * 1440.0 / POLYCO_SEG_MIN))
+    if len(pc.entries) != nseg:
+        fail(f"{label}: {len(pc.entries)} blocks, not {nseg}")
+    rng = np.random.default_rng(seed)
+    mjds = np.sort(rng.uniform(*span, POLYCO_NEPOCH))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ev = get_TOAs_array(mjds, obs="gbt", freqs=POLYCO_FREQ, errors=1.0,
+                            device=dev)
+    ph = mg.phase(ev, abs_phase=True, device=dev)
+    full = (ph.int.cpu().numpy(), ph.frac.cpu().numpy())
+    err = float(np.max(turns_mod1(pc.eval_abs_phase(mjds), full)))
+    t0 = time.perf_counter()
+    f_full = mg.d_phase_d_toa(ev, device=dev)
+    dpdt_s = time.perf_counter() - t0
+    spin = float(np.max(np.abs(pc.eval_spin_freq(mjds) / f_full - 1.0)))
+    secs["generate_and_fold"] = time.perf_counter() - t00
+    t0 = time.perf_counter()
+    pc_cpu = generate(get_model(io.StringIO(par), device="cpu"), "cpu")
+    cpu_s = time.perf_counter() - t0
+    coeff = coeff_turns(pc, pc_cpu)
+    cpu_turns = float(np.max(turns_mod1(pc.eval_abs_phase(mjds),
+                                        pc_cpu.eval_abs_phase(mjds))))
+    path = os.path.join(tmp, f"{label}.polyco.dat")
+    pc.write_polyco_file(path)
+    back = Polycos.read_polyco_file(path)
+    file_turns = float(np.max(turns_mod1(back.eval_abs_phase(mjds),
+                                         pc.eval_abs_phase(mjds))))
+    secs["cpu_and_file"] = time.perf_counter() - t0
+    doppler = float(np.ptp(f_full) / mg.F0.value)
+    print(f"{label}: {len(pc.entries)} blocks of {POLYCO_SEG_MIN:g} min, "
+          f"{POLYCO_NCOEFF} coefficients ({len(pc.entries) * 24} nodes in "
+          f"one phase call on {dev}) in {gen_s:.3f} s (CPU {cpu_s:.3f} s); "
+          f"polyco vs model.phase at {POLYCO_NEPOCH} epochs {err:.3e} turns "
+          f"(limit {POLYCO_TURNS}); spin frequency vs d_phase_d_toa "
+          f"{spin:.3e} relative (limit {SPIN_RTOL}; Doppler span "
+          f"{doppler:.3e} of F0); coefficients vs the CPU's {coeff:.3e} "
+          f"turns at the block edge, phases {cpu_turns:.3e} turns (limit "
+          f"{POLYCO_TURNS}); TEMPO file read back {file_turns:.3e} turns "
+          f"(limit {POLYCO_FILE_TURNS})")
+    if not (err < POLYCO_TURNS and spin <= SPIN_RTOL
+            and coeff <= POLYCO_TURNS and cpu_turns <= POLYCO_TURNS
+            and file_turns < POLYCO_FILE_TURNS
+            and len(back.entries) == len(pc.entries)):
+        fail(f"{label}: the polycos do not reproduce the card's phase")
+    return {"blocks": len(pc.entries), "nodes": len(pc.entries) * 24,
+            "generate_s": gen_s, "cpu_generate_s": cpu_s,
+            "d_phase_d_toa_s": dpdt_s, "generation_profile": prof,
+            "max_turns": err, "spin_rel": spin, "coeff_turns_vs_cpu": coeff,
+            "turns_vs_cpu": cpu_turns, "file_turns": file_turns,
+            "doppler_span": doppler, "seconds": secs}
+
+
+def host_api_fit_cell(par: str, toas, seed: int, dev) -> dict:
+    """The host API on the fit cell (bench.build_problem()'s 10,000 TOAs
+    and 40 free parameters): d_phase_d_toa card vs CPU (DPDT_RTOL), timed
+    and profiled; d_phase_d_param for F0, F1 and a DMX against the card's
+    designmatrix columns (DPDP_REL of the column); every other epoch
+    selected, pulse-numbered and fitted by DownhillGLSFitter with
+    track_mode="use_pulse_numbers" on the card and on the CPU (the
+    fit-downhill limits); ecorr_average over the ECORR epochs card vs CPU;
+    as_ECL -> as_ICRS keeping the phase on the card (ROUND_TRIP_S); and
+    calculate_random_models after the card's fit, card vs CPU on the same
+    fitted state and generator (RANDOM_MODELS_S)."""
+    import types
+
+    import torch
+
+    from pint_tpu_torch.fitter import cpu_copy
+    from pint_tpu_torch.gls import DownhillGLSFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.residuals import Residuals
+    from pint_tpu_torch.simulation import calculate_random_models
+
+    cpu = torch.device("cpu")
+    secs, out = {}, {}
+    mg = get_model(io.StringIO(par), device=dev)
+    mc = get_model(io.StringIO(par), device=cpu)
+
+    t0 = time.perf_counter()
+    mg.d_phase_d_toa(toas, device=dev)  # warm
+    t1 = time.perf_counter()
+    fg = mg.d_phase_d_toa(toas, device=dev)
+    sync(dev)
+    out["d_phase_d_toa_ms"] = (time.perf_counter() - t1) * 1e3
+    out["d_phase_d_toa_profile"] = device_busy(
+        lambda: mg.d_phase_d_toa(toas, device=dev),
+        "host-api: one d_phase_d_toa at 10,000 TOAs")
+    fc = mc.d_phase_d_toa(toas, device=cpu)
+    out["d_phase_d_toa_rel"] = float(np.max(np.abs(fg / fc - 1.0)))
+    secs["d_phase_d_toa"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    M, names, _ = mg.designmatrix(toas, incoffset=False, device=dev)
+    dpdp = 0.0
+    for p in ("F0", "F1", "DMX_0001"):
+        col = mg.d_phase_d_param(toas, p, device=dev)
+        ref = M[:, names.index(p)] * mg.F0.value
+        dpdp = max(dpdp, float((col - ref).abs().max() / ref.abs().max()))
+    out["d_phase_d_param_rel"] = dpdp
+    secs["d_phase_d_param"] = time.perf_counter() - t0
+    print(f"host-api: d_phase_d_toa card vs CPU {out['d_phase_d_toa_rel']:.3e}"
+          f" relative (limit {DPDT_RTOL}), {out['d_phase_d_toa_ms']:.1f} ms "
+          f"a call on the host clock; d_phase_d_param of F0, F1, DMX_0001 vs "
+          f"F0 x the card's design columns {dpdp:.3e} of the column "
+          f"(limit {DPDP_REL})")
+    if not (out["d_phase_d_toa_rel"] <= DPDT_RTOL and dpdp <= DPDP_REL):
+        fail("host-api: d_phase_d_toa or d_phase_d_param disagrees")
+
+    # every other four-TOA epoch, pulse-numbered, fitted on both devices
+    t0 = time.perf_counter()
+    sub = toas.select((np.arange(toas.ntoas) // 4) % 2 == 0)
+    sub.compute_pulse_numbers(mg, device=dev)
+    if sub.cache_key == toas.cache_key or sub.get_pulse_numbers() is None:
+        fail("host-api: select kept the parent's serial or lost the -pn "
+             "flags")
+    fits = {}
+    for tag, d in (("gpu", dev), ("cpu", cpu)):
+        m = get_model(io.StringIO(par), device=d)
+        f = DownhillGLSFitter(sub, m, track_mode="use_pulse_numbers")
+        t1 = time.perf_counter()
+        chi2 = f.fit_toas()
+        sync(d)
+        fits[tag] = (f, chi2, time.perf_counter() - t1)
+    (fgpu, cg, tg), (fcpu, cc, tc) = fits["gpu"], fits["cpu"]
+    dp = max(abs(fgpu.model.get_param(n).value - fcpu.model.get_param(n)
+                 .value) / fcpu.errors[n] for n in fcpu.model.free_params)
+    dr = fgpu.resids.time_resids.cpu().numpy() - \
+        fcpu.resids.time_resids.numpy()
+    tol = chi2_tol(cc, dr, fcpu.model.scaled_toa_uncertainty(sub), CHI2_REL)
+    out["select_fit"] = {"ntoa": sub.ntoas, "iterations":
+                         fgpu.stats.iterations, "gpu_s": tg, "cpu_s": tc,
+                         "dp_sigma": dp, "chi2_rel": abs(cg - cc) / abs(cc),
+                         "chi2_rel_limit": tol / abs(cc)}
+    secs["select_fit"] = time.perf_counter() - t0
+    print(f"host-api: select of every other epoch ({sub.ntoas} TOAs), "
+          f"pulse-numbered: DownhillGLSFitter on {fgpu.device} "
+          f"{fgpu.stats.iterations} iterations in {tg:.3f} s (CPU "
+          f"{fcpu.stats.iterations} in {tc:.3f} s), parameters within "
+          f"{dp:.3e} sigma (limit {DP_SIGMA}), chi2 "
+          f"{abs(cg - cc) / abs(cc):.3e} relative (limit {tol / abs(cc):.3e})")
+    if not (fgpu.converged and fcpu.converged and dp <= DP_SIGMA
+            and abs(cg - cc) <= tol
+            and fgpu.stats.iterations == fcpu.stats.iterations
+            and fgpu.track_mode == "use_pulse_numbers"):
+        fail("host-api: the card's fit of the selected TOAs does not reach "
+             "the CPU's optimum")
+
+    t0 = time.perf_counter()
+    ea_g = Residuals(toas, mg).ecorr_average()
+    sync(dev)
+    ea_ms = (time.perf_counter() - t0) * 1e3
+    ea_c = Residuals(toas, mc).ecorr_average()
+    nep = len(ea_g["n"])
+    same = list(ea_g["n"]) == list(ea_c["n"]) and all(
+        np.array_equal(a, b) for a, b in zip(ea_g["indices"],
+                                             ea_c["indices"]))
+    ea_r = float((ea_g["time_resids"].cpu() - ea_c["time_resids"]).abs()
+                 .max())
+    ea_rel = max(float(((ea_g[k].cpu() - ea_c[k]) / ea_c[k]).abs().max())
+                 for k in ("mjds", "errors", "freqs"))
+    out["ecorr_average"] = {"epochs": nep, "ms": ea_ms, "resid_s": ea_r,
+                            "rel": ea_rel}
+    secs["ecorr_average"] = time.perf_counter() - t0
+    print(f"host-api: ecorr_average over {nep} epochs on {dev} in "
+          f"{ea_ms:.1f} ms; vs the CPU: epochs and members equal, residual "
+          f"averages {ea_r:.3e} s (limit {RESID_S}), the rest {ea_rel:.3e} "
+          f"relative (limit 1e-12)")
+    if not (same and nep == toas.ntoas // 4 and ea_r <= RESID_S
+            and ea_rel <= 1e-12):
+        fail("host-api: ecorr_average on the card disagrees with the CPU")
+
+    t0 = time.perf_counter()
+    ecl = mg.as_ECL()
+    back = ecl.as_ICRS()
+    p0 = mg.phase(toas, device=dev).turns
+    worst = 0.0
+    for m in (ecl, back):
+        p1 = m.phase(toas, device=dev).turns
+        worst = max(worst, float(((p1.hi - p0.hi) + (p1.lo - p0.lo))
+                                 .abs().max()) / mg.F0.value)
+    out["ecl_round_trip_s"] = worst
+    secs["ecl_round_trip"] = time.perf_counter() - t0
+    print(f"host-api: as_ECL and as_ECL -> as_ICRS keep the card's phase to "
+          f"{worst:.3e} s (limit {ROUND_TRIP_S})")
+    if not (worst <= ROUND_TRIP_S and "AstrometryEquatorial"
+            in back.components and back.device == mg.device):
+        fail("host-api: the ecliptic round trip moves the phase")
+
+    t0 = time.perf_counter()
+    calculate_random_models(fgpu, sub, Nmodels=8,
+                            rng=np.random.default_rng(seed))  # warm
+    sync(dev)
+    t1 = time.perf_counter()
+    rg = calculate_random_models(fgpu, sub, Nmodels=RANDOM_MODELS,
+                                 rng=np.random.default_rng(seed))
+    sync(dev)
+    crm_s = time.perf_counter() - t1
+    host = types.SimpleNamespace(
+        model=cpu_copy(fgpu.model), device=cpu,
+        parameter_covariance_matrix=fgpu.parameter_covariance_matrix)
+    rc = calculate_random_models(host, sub, Nmodels=RANDOM_MODELS,
+                                 rng=np.random.default_rng(seed))
+    # the reference's draws (np.random.multivariate_normal of the raw
+    # covariance, ROADMAP.md section 3) can move a residual by millions
+    # of turns; (int - pn) + frac then rounds to its own float64 ulp,
+    # which the limit allows on top of RANDOM_MODELS_S
+    rc_np, dr = rc.numpy(), (rg.cpu() - rc).abs().numpy()
+    crm_err = float(dr.max())
+    crm_ok = bool(np.all(dr <= RANDOM_MODELS_S + np.spacing(np.abs(rc_np))))
+    out["random_models"] = {"n": RANDOM_MODELS, "ntoa": sub.ntoas,
+                            "wall_s": crm_s, "max_abs_s": crm_err,
+                            "within_limit": crm_ok,
+                            "max_resid_s": float(np.abs(rc_np).max()),
+                            "spread_s": float(rg.std(dim=0).max())}
+    secs["random_models"] = time.perf_counter() - t0
+    print(f"host-api: calculate_random_models({RANDOM_MODELS}) at "
+          f"{sub.ntoas} TOAs on {rg.device} in {crm_s:.3f} s, "
+          f"{tuple(rg.shape)} float64, largest |residual| "
+          f"{out['random_models']['max_resid_s']:.3e} s; vs the CPU on the "
+          f"same fitted state and generator {crm_err:.3e} s (limit "
+          f"{RANDOM_MODELS_S} s plus one ulp of the residual: {crm_ok})")
+    if not (rg.shape == (RANDOM_MODELS, sub.ntoas) and rg.device.type
+            == torch.device(dev).type and rg.dtype == torch.float64
+            and crm_ok):
+        fail("host-api: calculate_random_models on the card disagrees")
+    out["seconds"] = secs
+    return out
+
+
+def tcb_check(par: str, toas, dev) -> dict:
+    """The fit cell's model written as UNITS TCB (convert_tcb_tdb(
+    backwards=True), as_parfile) and read back by get_model (converted
+    by default): its phase on the card against the original's, within
+    what test_tcb_conversion_roundtrip's F0 limit (1e-15 relative)
+    allows over the TOAs' span; allow_tcb=False raises ValueError."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.models.tcb_conversion import convert_tcb_tdb
+
+    t0 = time.perf_counter()
+    m = get_model(io.StringIO(par), device=dev)
+    text = convert_tcb_tdb(m, backwards=True).as_parfile()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        back = get_model(io.StringIO(text), device=dev)
+    p0, p1 = m.phase(toas).turns, back.phase(toas).turns
+    turns = float(((p1.hi - p0.hi) + (p1.lo - p0.lo)).abs().max())
+    dt = float(np.max(np.abs(toas.get_mjds() - m.PEPOCH.value))) * 86400.0
+    limit = 1e-15 * m.F0.value * dt
+    warned = any("TCB" in str(x.message) for x in w)
+    try:
+        get_model(io.StringIO(text), device=dev, allow_tcb=False)
+        refused = False
+    except ValueError:
+        refused = True
+    print(f"tcb: the fit cell written as UNITS TCB and read back (converted"
+          f", warned: {warned}): phase on {dev} vs the original "
+          f"{turns:.3e} turns (limit {limit:.3e}, 1e-15 F0 over "
+          f"{dt / 86400:.0f} days); allow_tcb=False refused: {refused}")
+    if not (back.UNITS.value == "TDB" and "TCB" in text and warned
+            and turns <= limit and refused):
+        fail("tcb: the TCB round trip moves the phase or is not refused")
+    return {"turns": turns, "limit_turns": limit,
+            "seconds": time.perf_counter() - t0}
+
+
+def binaryconvert_check(par: str, toas, dev) -> dict:
+    """Config 2's ELL1 model converted to CONVERT_TARGETS (ROADMAP's
+    targets of tests/test_binary_zoo.py): each converted model's delay on
+    the card against the CPU's (ZOO_DELAY_S) and, less the means (ELL1
+    leaves -3/2 x eps1 to the phase offset), against the ELL1 model's
+    on the card: CONVERT_EXACT_S for the exact ELL1H mapping, the test's
+    2e-9 s scaled by this orbit's x e^2 for the eccentric models."""
+    from pint_tpu_torch.binaryconvert import convert_binary
+    from pint_tpu_torch.models import get_model
+
+    t0 = time.perf_counter()
+    m = get_model(io.StringIO(par), device=dev)
+    x = m.A1.value
+    xe2 = x * (m.EPS1.value ** 2 + m.EPS2.value ** 2)
+    d0 = m.delay(toas).cpu().numpy()
+    out = {}
+    for target in CONVERT_TARGETS:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            cm = convert_binary(m, target)
+        dg = cm.delay(toas).cpu().numpy()
+        cpu = cm.delay(toas, device="cpu").numpy()
+        diff = dg - d0
+        vs_src = float(np.max(np.abs(diff - diff.mean())))
+        limit = CONVERT_EXACT_S if target == "ELL1H" else \
+            CONVERT_XE2_RATIO * xe2
+        vs_cpu = float(np.max(np.abs(dg - cpu)))
+        out[target] = {"vs_ell1_s": vs_src, "limit_s": limit,
+                       "vs_cpu_s": vs_cpu}
+        print(f"binaryconvert: ELL1 -> {target}: delay on {dev} vs the "
+              f"ELL1 model's {vs_src:.3e} s (limit {limit:.3e}; x e^2 = "
+              f"{xe2:.3e} lt-s), vs the CPU {vs_cpu:.3e} s (limit "
+              f"{ZOO_DELAY_S})")
+        if not (f"Binary{target}" in cm.components and vs_src <= limit
+                and vs_cpu <= ZOO_DELAY_S):
+            fail(f"binaryconvert: ELL1 -> {target} moves the delays")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mjdparse_check(toas, tmp: str) -> dict:
+    """The fit cell's .tim written by TOAs.write_TOA_file, its MJD strings
+    parsed by the native parser (which must build: native_available) and
+    by the Python parser, bitwise equal, both timed."""
+    from pint_tpu_torch import native
+    from pint_tpu_torch.io.tim import parse_tim
+    from pint_tpu_torch.time.mjd import parse_mjd_strings
+
+    t0 = time.perf_counter()
+    if not native.native_available():
+        fail("mjdparse: the native parser did not build on this machine")
+    path = os.path.join(tmp, "fit_cell.tim")
+    toas.write_TOA_file(path)
+    strs = [t.mjd_str for t in parse_tim(path)]
+    t1 = time.perf_counter()
+    nat = parse_mjd_strings(strs)
+    nat_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    py = parse_mjd_strings(strs, use_native=False)
+    py_s = time.perf_counter() - t1
+    same = all(np.array_equal(a.view(np.int64), b.view(np.int64))
+               for a, b in ((nat[0], py[0]), (nat[1][0], py[1][0]),
+                            (nat[1][1], py[1][1])))
+    print(f"mjdparse: {len(strs)} MJD strings of write_TOA_file's .tim: "
+          f"native {nat_s * 1e3:.2f} ms, Python {py_s * 1e3:.2f} ms "
+          f"({py_s / nat_s:.1f}x); bitwise equal: {same}")
+    if not (same and len(strs) == toas.ntoas):
+        fail("mjdparse: the native parse differs from the Python parse")
+    return {"n": len(strs), "native_s": nat_s, "python_s": py_s,
+            "seconds": time.perf_counter() - t0}
+
+
+def host_api_phase(fit_par: str, fit_toas, b_par: str, b_toas, seed: int,
+                   dev) -> dict:
+    """Phase 15: polycos on config 2 and on the fit cell, the host API on
+    the fit cell, the TCB round trip, binaryconvert on config 2 and the
+    native MJD parser; one `host_api` JSON line. No hand-written kernel
+    runs here (K1 launches 0 times)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pb = polycos_check("polycos-binary", b_par, seed + 11, dev, tmp)
+        pf = polycos_check("polycos-fit", fit_par, seed + 12, dev, tmp)
+        api = host_api_fit_cell(fit_par, fit_toas, seed + 13, dev)
+        tcb = tcb_check(fit_par, fit_toas, dev)
+        conv = binaryconvert_check(b_par, b_toas, dev)
+        mjd = mjdparse_check(fit_toas, tmp)
+    clean = supervisor_clean("the host API")
+    seconds = {"polycos_binary": sum(pb["seconds"].values()),
+               "polycos_fit": sum(pf["seconds"].values()),
+               **{f"host_api.{k}": v for k, v in api["seconds"].items()},
+               "tcb": tcb["seconds"], "binaryconvert": conv["seconds"],
+               "mjdparse": mjd["seconds"],
+               "total": time.perf_counter() - t0}
+    return {
+        "times": {
+            "seconds": seconds,
+            "polycos_generate_s": {"binary": pb["generate_s"],
+                                   "fit": pf["generate_s"]},
+            "polycos_cpu_generate_s": {"binary": pb["cpu_generate_s"],
+                                       "fit": pf["cpu_generate_s"]},
+            "d_phase_d_toa_ms": api["d_phase_d_toa_ms"],
+            "random_models_s": api["random_models"]["wall_s"],
+            "select_fit_s": {"gpu": api["select_fit"]["gpu_s"],
+                             "cpu": api["select_fit"]["cpu_s"]},
+            "ecorr_average_ms": api["ecorr_average"]["ms"]},
+        "errors": {
+            "polyco_max_turns": max(pb["max_turns"], pf["max_turns"]),
+            "polycos": {"binary": {k: pb[k] for k in (
+                "max_turns", "spin_rel", "coeff_turns_vs_cpu",
+                "turns_vs_cpu", "file_turns", "doppler_span")},
+                        "fit": {k: pf[k] for k in (
+                "max_turns", "spin_rel", "coeff_turns_vs_cpu",
+                "turns_vs_cpu", "file_turns", "doppler_span")}},
+            "d_phase_d_toa_rel": api["d_phase_d_toa_rel"],
+            "d_phase_d_param_rel": api["d_phase_d_param_rel"],
+            "select_fit": api["select_fit"],
+            "ecorr_average": api["ecorr_average"],
+            "ecl_round_trip_s": api["ecl_round_trip_s"],
+            "random_models": api["random_models"],
+            "tcb": {k: tcb[k] for k in ("turns", "limit_turns")},
+            "binaryconvert": {k: v for k, v in conv.items()
+                              if k != "seconds"}},
+        "counts": {
+            "mjdparse": {k: mjd[k] for k in ("n", "native_s", "python_s")},
+            "polycos_generation": {"binary": pb["generation_profile"],
+                                   "fit": pf["generation_profile"]},
+            "d_phase_d_toa": api["d_phase_d_toa_profile"],
+            "polyco_nodes": {"binary": pb["nodes"], "fit": pf["nodes"]},
+            "supervisor": clean}}
+
+
 def fmt(t: dict) -> str:
     return (f"{t['median']:.4f} ms median of 20 (min {t['min']:.4f}, "
             f"max {t['max']:.4f})")
@@ -5037,6 +5540,13 @@ def main() -> int:
     runtime["clean"] = clean
     runtime["seconds"]["total"] = time.perf_counter() - t0
 
+    # the host API of the core classes, polycos, UNITS TCB, binaryconvert
+    # and the native MJD parser (phase 15)
+    k1_before = zmod.launches
+    host_api = host_api_phase(fit_par_text, toas, b_par, b_toas, args.seed,
+                              dev)
+    host_api["counts"]["k1_launches"] = zmod.launches - k1_before
+
     # timings at the main path's shape: float32 inputs (the TPU kernel's
     # contract) and float64 inputs (what the H-test hands the kernel)
     n, m = args.n, args.m
@@ -5203,6 +5713,7 @@ def main() -> int:
     print(json.dumps({"bayes": bayes}))
     print(json.dumps({"photon_sampling": photon}))
     print(json.dumps({"runtime": runtime}, default=str))
+    print(json.dumps({"host_api": host_api}))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": [{

@@ -150,14 +150,10 @@ def rehome_to_cpu(model, cause, what: str = "device fit") -> bool:
 def cpu_copy(model):
     """A deep copy of ``model`` on the CPU made from host state only: the
     per-device caches are left behind, never read from the card."""
-    import copy
+    from pint_tpu_torch.models.timing_model import copy_model
 
-    skip = {id(model.__dict__[k]): None
-            for k in ("_cache", "_noise_device_cache")
-            if model.__dict__.get(k) is not None}
-    out = copy.deepcopy(model, memo=skip)
+    out = copy_model(model)
     out.device = torch.device("cpu")
-    out.invalidate_cache()
     return out
 
 

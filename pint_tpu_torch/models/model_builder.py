@@ -14,9 +14,8 @@ Other members of a prefix family (GLF0_2,
 WXFREQ_0002, CMX_0003...) land on the family's component as a parameter
 of its first member's class, so WAVE2 and IFUNC2 are pairs like WAVE1 and
 IFUNC1. Keys nobody knows are warned about and ignored, as in the
-reference. ``UNITS TCB``, which the reference converts and this port
-cannot yet, raises NotImplementedError naming the ROADMAP item: reading
-TCB values as TDB would give wrong phases silently.
+reference. A ``UNITS TCB`` model is converted to TDB by get_model
+(models.tcb_conversion), or refused with ``allow_tcb=False``.
 """
 
 from __future__ import annotations
@@ -62,19 +61,6 @@ MASK_CANONICAL = {"T2EFAC": "EFAC", "T2EQUAD": "EQUAD", "TNECORR": "ECORR"}
 MASK_UNITS = {"EFAC": "", "EQUAD": "us", "TNEQ": "log10(s)", "ECORR": "us",
               "DMEFAC": "", "DMEQUAD": "pc cm^-3", "DMJUMP": "pc cm^-3",
               "FDJUMP": "s"}
-
-# what the reference does with a par file and this port cannot yet, by
-# the line that asks for it → the ROADMAP.md item that ports it
-UNPORTED: Dict[str, str] = {
-    "UNITS TCB": "the TCB->TDB conversion, ROADMAP.md queue 1 item 12",
-}
-
-
-def _refuse(key: str):
-    raise NotImplementedError(
-        f"par line {key!r} needs {UNPORTED[key]}, which pint_tpu_torch "
-        f"does not have yet")
-
 
 BINARY_COMPONENT_PREFIX = "Binary"
 
@@ -221,8 +207,6 @@ class ModelBuilder:
                 continue
             if key == "UNITS":
                 units = toks[0] if toks else "TDB"
-                if units.upper() == "TCB":
-                    _refuse("UNITS TCB")
                 get_comp("MiscParams").UNITS.value = units
                 continue
 
@@ -389,15 +373,28 @@ def _param_by_name_or_alias(comp: Component, key: str):
     raise KeyError(key)
 
 
-def get_model(parfile, name="", device=None) -> TimingModel:
+def get_model(parfile, name="", device=None,
+              allow_tcb=True) -> TimingModel:
     """Build a TimingModel from a par file path/handle/string (reference:
     get_model). ``device`` (None means "cuda") is where the model's
-    phase() runs."""
+    phase() runs. UNITS TCB models are converted to TDB with the IFTE_K
+    linear scaling (reference: allow_tcb; allow_tcb=False refuses them
+    with ValueError)."""
     lines = parse_parfile(parfile)
     model = ModelBuilder()(lines, name=name, device=device)
     psr = model.PSR.value
     if psr and not model.name:
         model.name = psr
+    if (model.UNITS.value or "TDB").upper() == "TCB":
+        if not allow_tcb:
+            raise ValueError("UNITS TCB refused (allow_tcb=False)")
+        from pint_tpu_torch.models.tcb_conversion import convert_tcb_tdb
+
+        warnings.warn(
+            "par file is in TCB units: converted to TDB with the "
+            "IFTE_K linear scaling (periodic TDB-TCB terms ~ns are "
+            "not applied)")
+        model = convert_tcb_tdb(model)
     return model
 
 

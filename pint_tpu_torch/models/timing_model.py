@@ -34,6 +34,7 @@ from pint_tpu_torch.models.parameter import (
     boolParameter,
     floatParameter,
     intParameter,
+    maskParameter,
     strParameter,
 )
 from pint_tpu_torch.ops.dd import DD, dd_add, dd_add_f, dd_mul_f, dd_sub, \
@@ -137,6 +138,16 @@ class Component:
         "phase" (g = d(phase)/d(param) [turns/unit], used directly),
         evaluated at the current pv."""
         return {}
+
+    # -- conveniences --------------------------------------------------
+
+    @property
+    def param_names(self) -> List[str]:
+        return list(self.params)
+
+    def mask_params_of(self, prefix: str) -> List[maskParameter]:
+        return [p for p in self.params.values()
+                if isinstance(p, maskParameter) and p.prefix == prefix]
 
 
 class DelayComponent(Component):
@@ -244,6 +255,10 @@ class TimingModel:
             comp.setup()
         self.invalidate_cache()
 
+    def remove_component(self, name: str):
+        del self.components[name]
+        self.invalidate_cache()
+
     @property
     def delay_components(self) -> List[DelayComponent]:
         out = [c for c in self.components.values()
@@ -260,12 +275,54 @@ class TimingModel:
         return sorted(self.components.values(), key=_category_rank)
 
     @property
+    def params(self) -> List[str]:
+        out = []
+        for c in self.components.values():
+            out.extend(c.params)
+        return out
+
+    @property
     def free_params(self) -> List[str]:
         out = []
         for c in self._ordered_components():
             for p in c.params.values():
                 if not p.frozen and p.value is not None:
                     out.append(p.name)
+        return out
+
+    # -------- introspection helpers (reference: TimingModel API) ------
+
+    def get_params_of_type(self, param_type: str) -> List[str]:
+        """Parameter names whose class (or any base class) matches
+        ``param_type`` (e.g. 'maskParameter'; 'floatParameter' includes
+        the mask and prefix subclasses, as the reference's
+        get_params_of_type_top)."""
+        want = param_type.lower()
+        out = []
+        for c in self.components.values():
+            for p in c.params.values():
+                if any(cls.__name__.lower() == want
+                       for cls in type(p).__mro__):
+                    out.append(p.name)
+        return out
+
+    def get_prefix_mapping(self, prefix: str) -> Dict[int, str]:
+        """{index: name} for every parameter of the given prefix family,
+        e.g. get_prefix_mapping('DMX_') -> {1: 'DMX_0001', ...}."""
+        out: Dict[int, str] = {}
+        for c in self.components.values():
+            for p in c.params.values():
+                if getattr(p, "prefix", None) == prefix:
+                    out[p.index] = p.name
+        return dict(sorted(out.items()))
+
+    @property
+    def components_by_category(self) -> Dict[str, List[str]]:
+        """{category: [component names]} in evaluation order (reference:
+        TimingModel.get_components_by_category)."""
+        out: Dict[str, List[str]] = {}
+        for c in self._ordered_components():
+            out.setdefault(c.category, []).append(type(c).__name__)
         return out
 
     def get_param(self, name: str) -> Parameter:
@@ -289,6 +346,23 @@ class TimingModel:
                 if name in p.aliases:
                     return p
         raise AttributeError(f"model has no parameter {name!r}")
+
+    def __contains__(self, name):
+        try:
+            self.get_param(name)
+            return True
+        except KeyError:
+            return False
+
+    def set_param_values(self, values: Dict[str, float]):
+        """Set parameter values by name; the next evaluation uses them."""
+        for k, v in values.items():
+            self.get_param(k).value = v
+        self.invalidate_cache(params_only=True)
+
+    def get_param_values(self, names=None) -> Dict[str, float]:
+        names = names if names is not None else self.free_params
+        return {n: self.get_param(n).value for n in names}
 
     # ---------------- parameter packing -------------------------------
 
@@ -522,6 +596,78 @@ class TimingModel:
             if incoffset else [self.get_param(n).units for n in free]
         return M, names, units
 
+    def d_phase_d_toa(self, toas, sample_step_s: float = 1.0,
+                      device=None) -> np.ndarray:
+        """Instantaneous topocentric pulse frequency [Hz] at each TOA
+        (reference: TimingModel.d_phase_d_toa), as a float64 numpy
+        array: the central difference of the FULL pipeline at
+        +-sample_step_s. The shifted TOA sets re-run clock, ephemeris
+        and barycentring on the host (so the Doppler of the Earth's
+        motion is in it) and their phase runs on ``device`` (the
+        model's when None); the two phases are subtracted in dd on the
+        host, so the ~1e10-turn absolute phases cancel exactly. The
+        model's TOA cache holds the caller's entry again afterwards."""
+        from pint_tpu_torch.ops import dd_np
+        from pint_tpu_torch.toa import get_TOAs_array
+
+        dev = self.device if device is None else resolve_device(device)
+        step_d = sample_step_s / SECS_PER_DAY
+        # the caller's mjd_frac is already clock-corrected and
+        # get_TOAs_array corrects again: undo the correction first
+        clk = np.zeros(toas.ntoas)
+        if getattr(toas, "clock_applied", False):
+            clk = np.array([float(f.get("clkcorr", 0.0))
+                            for f in toas.flags])
+        flags = [{k: v for k, v in f.items() if k != "clkcorr"}
+                 for f in toas.flags]
+        saved = (self._cache, self._cache_key)
+        phases = []
+        try:
+            for sign in (+1.0, -1.0):
+                frac = dd_np.add_f(
+                    (np.asarray(toas.mjd_frac[0]),
+                     np.asarray(toas.mjd_frac[1])),
+                    sign * step_d - clk / SECS_PER_DAY)
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    t2 = get_TOAs_array(
+                        (np.asarray(toas.mjd_day), frac),
+                        obs=list(toas.obs), freqs=toas.freq_mhz,
+                        errors=toas.error_us, ephem=self.EPHEM.value,
+                        planets=bool(self.PLANET_SHAPIRO.value),
+                        flags=flags, device=dev)
+                ph = self.phase(t2, abs_phase=False, device=dev).turns
+                phases.append((ph.hi.cpu().numpy(), ph.lo.cpu().numpy()))
+        finally:
+            self._cache, self._cache_key = saved
+        diff = dd_np.sub(phases[0], phases[1])
+        return dd_np.to_f64(diff) / (2.0 * sample_step_s)
+
+    def d_phase_d_param(self, toas, param: str,
+                        device=None) -> torch.Tensor:
+        """d(phase)/d(param) [turns/unit] at each TOA (reference:
+        TimingModel.d_phase_d_param), a float64 tensor on ``device`` (the
+        model's when None): one ``torch.func.jacfwd`` column through the
+        phase function design_jacobian differentiates, so it equals
+        F0 times the parameter's designmatrix column."""
+        dev = self.device if device is None else resolve_device(device)
+        free, _, th, tl, fh, fl = self._pack()
+        if param not in free:
+            raise ValueError(f"{param} is not a free parameter")
+        cache = self.get_cache(toas, dev)
+        phase_fn, _ = self._build_phase_fn()
+        th, tl, fh, fl = (torch.as_tensor(np.asarray(x, np.float64),
+                                          device=dev)
+                          for x in (th, tl, fh, fl))
+        idx = torch.as_tensor([free.index(param)], device=dev)
+
+        def phase_of(x):
+            ph, _ = phase_fn(th.index_put((idx,), x), tl, fh, fl,
+                             cache["batch"], cache)
+            return ph.hi + ph.lo
+
+        return torch.func.jacfwd(phase_of)(th[idx])[:, 0]
+
     # ---------------- wideband DM channel ------------------------------
 
     def dm_total_device(self, pv, batch, cache_sub):
@@ -592,6 +738,32 @@ class TimingModel:
         TimingModel.total_dm)."""
         dm_fn, (_, th) = self.build_dm_fn(toas, device)
         return dm_fn(th)
+
+    def as_ECL(self, ecl: str = "IERS2010") -> "TimingModel":
+        """The model with ecliptic astrometry in the ``ecl`` obliquity
+        convention (reference: TimingModel.as_ECL; see modelutils).
+        Already ecliptic in the same convention returns self (not a
+        copy); another convention converts through ICRS."""
+        from pint_tpu_torch.models.astrometry import AstrometryEcliptic
+        from pint_tpu_torch.modelutils import model_equatorial_to_ecliptic
+
+        AstrometryEcliptic.obliquity_arcsec(ecl)  # strict, fail early
+        cur = self.components.get("AstrometryEcliptic")
+        if cur is not None:
+            if (cur.ECL.value or "IERS2010").upper() == ecl.upper():
+                return self
+            return model_equatorial_to_ecliptic(self.as_ICRS(), ecl=ecl)
+        return model_equatorial_to_ecliptic(self, ecl=ecl)
+
+    def as_ICRS(self) -> "TimingModel":
+        """The model with equatorial astrometry (reference:
+        TimingModel.as_ICRS; see modelutils). Already equatorial returns
+        self (not a copy)."""
+        from pint_tpu_torch.modelutils import model_ecliptic_to_equatorial
+
+        if "AstrometryEquatorial" in self.components:
+            return self
+        return model_ecliptic_to_equatorial(self)
 
     def invalidate_cache(self, params_only=False):
         """Drop the per-TOAs cache and the derived reference day.
@@ -882,9 +1054,53 @@ class TimingModel:
 
         check_model_units(self)
 
+    def get_or_create_component(self, name: str):
+        """components[name], made from the registry and attached when
+        absent (used by the jump conversion)."""
+        comp = self.components.get(name)
+        if comp is None:
+            comp = component_types[name]()
+            self.add_component(comp)
+        return comp
+
+    def jump_flags_to_params(self, toas) -> list:
+        """One free JUMP per distinct tim-file JUMP block (the
+        ``-tim_jump`` flags the tim parser writes), making the PhaseJump
+        component if needed (reference: jump_flags_to_params)."""
+        if "PhaseJump" not in self.components and \
+                not any("tim_jump" in f for f in toas.flags):
+            return []
+        return self.get_or_create_component(
+            "PhaseJump").tim_jumps_to_params(toas)
+
+    def compare(self, other: "TimingModel") -> str:
+        """Parameter-by-parameter diff (reference: TimingModel.compare)."""
+        rows = []
+        names = dict.fromkeys(list(self.params) + list(other.params))
+        for n in names:
+            a = self.get_param(n).value if n in self else None
+            b = other.get_param(n).value if n in other else None
+            if a != b:
+                rows.append(f"{n:<12} {a!r} -> {b!r}")
+        return "\n".join(rows)
+
     def __repr__(self):
         comps = ", ".join(self.components)
         return f"<TimingModel {self.name or '?'} [{comps}] on {self.device}>"
+
+
+def copy_model(model: TimingModel) -> TimingModel:
+    """A deep copy of ``model`` on its device, made from host state
+    only: the per-TOA and noise caches (tensors on the card) are left
+    behind, not copied."""
+    import copy
+
+    skip = {id(model.__dict__[k]): None
+            for k in ("_cache", "_noise_basis_cache", "_noise_device_cache")
+            if model.__dict__.get(k) is not None}
+    out = copy.deepcopy(model, memo=skip)
+    out.invalidate_cache()
+    return out
 
 
 # ---------------- small device helpers ----------------

@@ -48,7 +48,8 @@ def parse_mjd_string(s: str):
         frac = dd_np.div(dd_np.dd(float(int(a))), dd_np.dd(10.0 ** len(a)))
         if b:
             # divide by 10^len(b) then 10^15: both divisors exact in
-            # f64 (10^k exact only to k=22)
+            # f64 (10^k exact only to k=22), keeping the native C++
+            # parser bit-identical
             fb = dd_np.div(dd_np.dd(float(int(b))),
                            dd_np.dd(10.0 ** len(b)))
             fb = dd_np.div(fb, dd_np.dd(10.0 ** 15))
@@ -58,9 +59,17 @@ def parse_mjd_string(s: str):
     return day, frac
 
 
-def parse_mjd_strings(strings):
-    """Vector parse → (int_days f64 array, frac dd pair of arrays),
-    one string at a time through parse_mjd_string."""
+def parse_mjd_strings(strings, use_native: bool = True):
+    """Vector parse → (int_days f64 array, frac dd pair of arrays).
+    Batches of 256 strings or more go through the native C++ parser
+    when it builds (bit-identical results; pint_tpu_torch/native),
+    others one string at a time through parse_mjd_string."""
+    if use_native and len(strings) >= 256:
+        from pint_tpu_torch.native import mjdparse_native
+
+        out = mjdparse_native(strings)
+        if out is not None:
+            return out
     days = np.empty(len(strings))
     fhi = np.empty(len(strings))
     flo = np.empty(len(strings))

@@ -159,6 +159,9 @@ class TOAs:
 
     # ---------------- basic container protocol ----------------
 
+    def __len__(self):
+        return len(self.obs)
+
     @property
     def ntoas(self):
         return len(self.obs)
@@ -175,6 +178,9 @@ class TOAs:
     def get_freqs(self):
         return self.freq_mhz
 
+    def get_obss(self):
+        return list(self.obs)
+
     def get_flag_value(self, flag, fill_value=None, as_type=None):
         out = []
         for f in self.flags:
@@ -184,10 +190,85 @@ class TOAs:
             out.append(v)
         return out
 
+    @property
+    def index(self):
+        """Original position of each TOA, surviving select() subsets
+        (reference: the TOAs table "index" column); 0..N-1 until a
+        subset or renumber() sets it."""
+        ix = getattr(self, "_index", None)
+        if ix is None or len(ix) != self.ntoas:
+            self._index = np.arange(self.ntoas)
+        return self._index
+
+    def renumber(self, index_order=True):
+        """Reset the index column (reference: TOAs.renumber):
+        index_order=True numbers 0..N-1 in storage order; False keeps
+        the relative order of the existing indices (ranks)."""
+        if index_order:
+            self._index = np.arange(self.ntoas)
+        else:
+            self._index = np.argsort(np.argsort(self.index))
+        self._touch()
+
     def get_pulse_numbers(self):
         pn = self.get_flag_value("pn", fill_value="nan", as_type=float)
         arr = np.array(pn)
         return None if np.all(np.isnan(arr)) else arr
+
+    def compute_pulse_numbers(self, model, device=None):
+        """Attach -pn flags from the model's nearest-integer absolute
+        phase (reference: TOAs.compute_pulse_numbers), evaluated on
+        ``device`` (the model's when None)."""
+        ph = model.phase(self, abs_phase=True, device=device)
+        pn = ph.int.cpu().numpy()
+        for f, p in zip(self.flags, pn):
+            f["pn"] = repr(float(p))
+        self._touch()
+
+    # how select() carries each attribute a table can hold; a table
+    # attribute without a rule here is lost by select(), which
+    # tests/test_torch_host_api.py checks attribute by attribute
+    _SELECT_ROWS = ("mjd_day", "freq_mhz", "error_us", "tdb_day",
+                    "ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos", "weights")
+    _SELECT_ROW_PAIRS = ("mjd_frac", "tdb_frac")
+    _SELECT_ROW_LISTS = ("obs", "names")
+    _SELECT_SHARED = ("device", "clock_applied", "ephem", "planets")
+    # scratch of compute_TDBs, read only by compute_posvels on the same
+    # table
+    _SELECT_DROPPED = ("_site_gcrs_cache",)
+
+    def select(self, mask):
+        """The subset at a boolean mask or an index array, as a new
+        table with its own serial (reference: TOAs.select, here
+        non-destructive): a model's TOA cache never serves the parent's
+        batch for it. Every column is carried; ``index`` keeps the
+        original positions."""
+        mask = np.asarray(mask)
+        idx = np.flatnonzero(mask) if mask.dtype == bool else mask
+        out = object.__new__(TOAs)
+        for k in self._SELECT_ROWS:
+            v = getattr(self, k, None)
+            setattr(out, k, None if v is None else v[idx])
+        for k in self._SELECT_ROW_PAIRS:
+            v = getattr(self, k, None)
+            setattr(out, k, None if v is None else (v[0][idx], v[1][idx]))
+        for k in self._SELECT_ROW_LISTS:
+            v = getattr(self, k)
+            setattr(out, k, [v[i] for i in idx])
+        for k in self._SELECT_SHARED:
+            setattr(out, k, getattr(self, k))
+        out.flags = [dict(self.flags[i]) for i in idx]
+        out.obs_planet_pos = None if self.obs_planet_pos is None else \
+            {k: v[idx] for k, v in self.obs_planet_pos.items()}
+        out._index = self.index[idx]
+        out._serial = next(_TOAS_SERIAL)
+        return out
+
+    def first_MJD(self):
+        return float(np.min(self.get_mjds()))
+
+    def last_MJD(self):
+        return float(np.max(self.get_mjds()))
 
     # ---------------- the pipeline ----------------
 

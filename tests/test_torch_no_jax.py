@@ -7,7 +7,9 @@ pulsar, fixed-noise and noise-sampled) and the photon plane (a template,
 an LCFitter value and a PhotonMCMCFitter likelihood batch on that
 pulsar's TOAs), and so do the runtime and the obs core (a GLS fit whose
 solves hang under a fault plan and fail over to the numpy mirror, the
-registry's exposition, a span)."""
+registry's exposition, a span), and so does the host API of this slice
+(a UNITS TCB par converted, polycos generated, an ecliptic round trip,
+a design matrix, select, d_phase_d_toa and the native MJD parser)."""
 
 import os
 import subprocess
@@ -49,7 +51,12 @@ for name in ("pint_tpu_torch.pta.gwb", "pint_tpu_torch.parallel.pta",
              "pint_tpu_torch.runtime.locks",
              "pint_tpu_torch.runtime.supervisor", "pint_tpu_torch.obs",
              "pint_tpu_torch.obs.tracer", "pint_tpu_torch.obs.hist",
-             "pint_tpu_torch.obs.flight", "pint_tpu_torch.obs.metrics"):
+             "pint_tpu_torch.obs.flight", "pint_tpu_torch.obs.metrics",
+             "pint_tpu_torch.native", "pint_tpu_torch.polycos",
+             "pint_tpu_torch.utils", "pint_tpu_torch.modelutils",
+             "pint_tpu_torch.derived_quantities",
+             "pint_tpu_torch.pint_matrix", "pint_tpu_torch.binaryconvert",
+             "pint_tpu_torch.models.tcb_conversion"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu")
@@ -153,6 +160,31 @@ assert snap["failovers"] == 2 and snap["timeouts"] == 2, snap
 assert "pint_tpu_dispatch_failovers_total" in om.render()
 assert any(r["name"] == "dispatch.failover" for r in
            obs.get_tracer().records())
+
+from pint_tpu_torch import derived_quantities, native, utils
+from pint_tpu_torch.binaryconvert import convert_binary
+from pint_tpu_torch.pint_matrix import DesignMatrix
+from pint_tpu_torch.polycos import Polycos
+from pint_tpu_torch.time.mjd import parse_mjd_strings
+
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    tcb = get_model(io.StringIO(PAR.replace("UNITS TDB", "UNITS TCB")),
+                    device="cpu")
+    pc = Polycos.generate_polycos(model, 55000.0, 55000.1, "gbt",
+                                  device="cpu")
+assert tcb.UNITS.value == "TDB" and len(pc.entries) == 3
+assert model.as_ECL().as_ICRS().free_params == model.free_params
+assert DesignMatrix.from_model(model, toas).shape[0] == toas.ntoas
+assert toas.select(np.arange(toas.ntoas) % 2 == 0).ntoas == toas.ntoas // 2
+assert np.isfinite(model.d_phase_d_toa(toas)).all()
+assert derived_quantities.mass_funct(1.0, 1.0) > 0
+assert utils.weighted_mean([1.0, 3.0], [1.0, 1.0])[0] == 2.0
+strs = [f"{55000 + k}.{k:016d}" for k in range(300)]
+days, _ = parse_mjd_strings(strs)
+import shutil
+assert days[-1] == 55299.0
+assert native.native_available() == (shutil.which("g++") is not None)
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu")
                 and sys.modules[m] is not None)

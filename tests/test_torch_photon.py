@@ -165,7 +165,19 @@ def test_unported_components_refuse(line, owner):
     the key of one ported since lands on that component, as in the
     reference, or, where the line alone is an incomplete model (a glitch
     without its epoch, a chromatic amplitude without its index), raises
-    the reference's error."""
+    the reference's error. ``UNITS TCB``, ported since too, is converted
+    to TDB on load, to bitwise the reference's packed parameters."""
+    if owner == "TCB":
+        ref = _quiet(r_get_model, io.StringIO(PAR + line + "\n"))
+        port = _quiet(get_model, io.StringIO(PAR + line + "\n"),
+                      device=CPU)
+        assert port.UNITS.value == ref.UNITS.value == "TDB"
+        rp, tp = ref._pack(), port._pack()
+        assert rp[:2] == tp[:2]
+        for a, b in zip(rp[2:], tp[2:]):
+            assert np.array_equal(np.asarray(a).view(np.int64),
+                                  np.asarray(b).view(np.int64))
+        return
     if owner in PORTED_SINCE:
         try:
             ref = _quiet(r_get_model, io.StringIO(PAR + line + "\n"))
