@@ -338,7 +338,44 @@ Phases, each fatal on failure:
      (written by TOAs.write_TOA_file) bitwise as the Python parser does,
      both timed;
    its `host_api` JSON line holds the times, errors and counts;
-16. print the card's name and power limit, and one JSON line of kernel
+16. the numerical-health, performance-attribution and SLO planes and TOA
+   padding (no hand-written kernel: K1's analytic cost feeds the perf
+   plane's roofline only), each fatal, on phases 6, 9 and 12's problems
+   at full width, with $PINT_TPU_HEALTH=1, $PINT_TPU_SHADOW_RATE=1 and
+   $PINT_TPU_PERF=1 (the compile ledger is persisted from the start of
+   the run, so it holds every phase's dispatch keys):
+   health-taps (a): the fit cell's step built with health=True and with
+     it off: outputs 0-3 bitwise, the health vector the host's own
+     reductions of the outputs (nonfinite 0; max |r|/sigma and chi2
+     within 1e-12 relative), the disarmed step FIT_STEP_LAUNCHES (1,849)
+     launches, the armed step's extra launches, and ten disarmed/armed
+     pairs timed in turns;
+   health-shadow (b): GLSFitter on the fit cell: each Cholesky solve
+     replayed on the numpy mirror in the background, the drift within
+     1e-5 sigma, /healthz (default_health) ok;
+   health-device-fit, health-stream, health-chain (c): phase 9's stress
+     problem refitted armed, one step a trial and whole_fit=True, bitwise
+     phase 9's parameters with fit.device verdicts ok; the streaming fit
+     at phase 9's 200,000 TOAs armed (worst chunk rescale, CG effort,
+     the shadow's drift within the band); one chain chunk of phase 12's
+     88 walkers (a posterior.chunk verdict);
+   health-incidents (d): Fault(match="gls.fit", kind="nan") around the
+     device fit: exactly one numerics:nonfinite dump, the failover
+     bitwise phase 6's card fit; a float32 Gram forced into the shadowed
+     GLS solve: numerics:drift;
+   padding (e): the fit cell padded to 10,240 TOAs against the unpadded
+     step on the card (fit-step's limits on the valid rows), both timed;
+   perf (f): the guarded fit step's queue_wait + host_assembly +
+     device_wall + collect against its wall; every dispatch key with its
+     first-call wall in the ledger; roofline_block("z2_harmonics") at
+     phase 5's float64-input time against phase 5's share of bound (0.1
+     %); a 2 s profiler window over fit steps (window.json and a device
+     trace); one auto window on a forced breaker-open;
+   slo (g): SLOWatchdog(default_specs()) over armed fit steps fires no
+     burn; a synthetic burn fires one slo_burn dump and one cross-linked
+     window;
+   its `health_perf` JSON line holds the numbers;
+17. print the card's name and power limit, and one JSON line of kernel
    measurements.
 
 The last line of standard output is {"ok": true, "device": {...}}. The
@@ -358,6 +395,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -1929,14 +1967,16 @@ def step_ms(model, toas, dev, wideband: bool, label: str,
 
 
 def device_fit_check(model, toas, truth, dev, label: str,
-                     wideband: bool = False, maxiter: int = 12) -> dict:
+                     wideband: bool = False, maxiter: int = 12,
+                     keep: dict = None) -> dict:
     """DeviceDownhillGLSFitter.fit_toas(maxiter) on the card, one step a
     trial and whole_fit=True, after a warm-up fit on a copy of the model
     (as bench_stress runs it), each held to the host downhill fitter
     (DownhillGLSFitter, or WidebandDownhillFitter with `wideband`) on the
     card: parameters within DP_SIGMA, chi2 within DEVICE_FIT_CHI2_REL of
     the step's chi2 at the host optimum; F0 within STRESS_TRUTH_SIGMA of
-    the truth."""
+    the truth. `keep` receives the start par and each fit's parameter
+    values (phase 16 refits them armed)."""
     import copy
 
     import torch
@@ -1948,6 +1988,7 @@ def device_fit_check(model, toas, truth, dev, label: str,
         WidebandTOAFitter
 
     start = model.as_parfile()
+    start_model = copy.deepcopy(model) if keep is not None else None
     warm = get_model(io.StringIO(start), device=dev)
     t0 = time.perf_counter()
     DeviceDownhillGLSFitter(toas, warm, wideband=wideband).fit_toas(
@@ -1963,6 +2004,10 @@ def device_fit_check(model, toas, truth, dev, label: str,
         chi2 = fit.fit_toas(maxiter=maxiter, **kw)
         torch.cuda.synchronize()
         runs[tag] = (fit, chi2, time.perf_counter() - t0)
+        if keep is not None:
+            keep[tag] = [m.get_param(n).value for n in m.free_params]
+    if keep is not None:
+        keep.update(start=start, maxiter=maxiter, model=start_model)
     host_cls = WidebandDownhillFitter if wideband else DownhillGLSFitter
     hfit = host_cls(toas, models["host"])
     t0 = time.perf_counter()
@@ -2108,7 +2153,7 @@ def graph_step_check(step, args, names, label: str, reps: int = 20) -> dict:
     return out
 
 
-def stream_check(ntoa: int, dev) -> dict:
+def stream_check(ntoa: int, dev, keep: dict = None) -> dict:
     """bench.build_problem_streaming's model at `ntoa` TOAs on `dev`:
     Fitter.auto must pick StreamingGLSFitter on the card (with no
     streaming= argument from config.solve_streaming() TOAs on); one
@@ -2116,7 +2161,7 @@ def stream_check(ntoa: int, dev) -> dict:
     (the second kept), held to the dense step on the card at the same
     point (STREAM_SIGMA, STREAM_CHI2_REL, ok: bench.py:1520's limits),
     with the peak device memory of each; then a StreamingGLSFitter fit to
-    convergence."""
+    convergence. `keep` receives the model and the TOAs (phase 16)."""
     import copy
 
     import torch
@@ -2133,6 +2178,8 @@ def stream_check(ntoa: int, dev) -> dict:
         np.tile([1400.0, 1400.0, 820.0, 820.0], ntoa // 4), 1, dev,
         flags=True)
     build_s = time.perf_counter() - t0
+    if keep is not None:
+        keep.update(model=copy.deepcopy(model), toas=toas)
     auto = ntoa >= solve_streaming()
     fit = Fitter.auto(toas, copy.deepcopy(model),
                       **({} if auto else {"streaming": True}))
@@ -2944,13 +2991,17 @@ def bayes_grid(mg, mc, toas, step: dict) -> dict:
     return res
 
 
-def bayes_phase(zmod, par: str, toas, step: dict, dev) -> dict:
-    """Phase 12: the Bayesian path on the fit cell (gates (a)-(f))."""
+def bayes_phase(zmod, par: str, toas, step: dict, dev,
+                keep: dict = None) -> dict:
+    """Phase 12: the Bayesian path on the fit cell (gates (a)-(f)). `keep`
+    receives the posterior and the walkers' start (phase 16)."""
     secs = {}
     zmod.launches = 0
     t0 = time.perf_counter()
     mg, mc = (bayes_model(par, step["sigma"], d) for d in (dev, "cpu"))
     batch, post, p0 = bayes_batch_check(mg, mc, toas, 7)
+    if keep is not None:
+        keep.update(post=post, p0=p0)
     secs["batch"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     noise = bayes_noise_check(par, post, p0, toas, dev)
@@ -5265,6 +5316,617 @@ def host_api_phase(fit_par: str, fit_toas, b_par: str, b_toas, seed: int,
             "supervisor": clean}}
 
 
+# ------------------------------------------- phase 16: health and perf
+
+FIT_STEP_LAUNCHES = 1_849      # the disarmed fit-cell step (PERF.md §5)
+HEALTH_REL = 1e-12             # health vector vs the host's reductions
+HEALTH_PAIRS = 10              # disarmed/armed step pairs, in turns
+DRIFT_BAND = 1e-5              # the float64 routes' shadow drift band
+PAD_TO = 10_240                # the fit cell's 10,000 TOAs padded
+PROFILE_WINDOW_S = 2.0
+ROOFLINE_REL = 1e-3            # phase 16's share of bound vs phase 5's
+PHASE16_ENV = ("PINT_TPU_HEALTH", "PINT_TPU_SHADOW_RATE", "PINT_TPU_PERF",
+               "PINT_TPU_PROFILE_DIR", "PINT_TPU_PROFILE_MAX_S",
+               "PINT_TPU_BREAKER_THRESHOLD")
+
+
+def synced_ms(fn) -> float:
+    """Host milliseconds of one call of `fn`, ending in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def shadows_idle(timeout: float = 300.0) -> None:
+    """Wait for every shadow replay thread started so far (a dispatch
+    starts its replay's thread before it returns)."""
+    import threading
+
+    for t in threading.enumerate():
+        if t.name.startswith("pint-shadow"):
+            t.join(timeout)
+
+
+def wait_replays(n: int) -> int:
+    """Wait for the replays in flight; the monitor must have finished
+    `n` shadow replays by then."""
+    from pint_tpu_torch.obs import health
+
+    shadows_idle()
+    got = health.get_monitor().status()["shadow_replays"]
+    if got < n:
+        fail(f"health: {got} shadow replays finished, {n} expected")
+    return got
+
+
+def drift_max(kind: str) -> float:
+    """The largest shadow drift [sigma] recorded for `kind` (the drift
+    histogram's exact maximum)."""
+    from pint_tpu_torch.obs import metrics as om
+
+    h = om.get_registry().get("pint_tpu_health_drift_sigma")
+    rows = h.matching({"kind": kind}) if h is not None else []
+    if not rows or not any(r.count for r in rows):
+        fail(f"health: no shadow drift recorded for {kind}")
+    return max(r.max_s for r in rows)
+
+
+def health_verdict(key: str) -> dict:
+    from pint_tpu_torch.obs import health
+
+    w = health.get_monitor().status()["worst"].get(key)
+    if w is None:
+        fail(f"health: no {key} verdict")
+    return {"ok": w["ok"], "reasons": w["reasons"]}
+
+
+def health_taps(model, toas, dev) -> dict:
+    """(a) The fit cell's step armed and disarmed: outputs 0-3 bitwise,
+    the health vector the host's reductions of the outputs, the disarmed
+    step's launches, the armed step's extra launches and ms in pairs."""
+    import torch
+
+    from pint_tpu_torch.parallel import build_fit_step
+
+    off, off_args, _ = build_fit_step(model, toas, device=dev, health=False)
+    on, on_args, _ = build_fit_step(model, toas, device=dev, health=True)
+    a, b = off(*off_args), on(*on_args)
+    same = len(a) == 4 and len(b) == 5 and all(
+        torch.equal(x, y) for x, y in zip(a, b[:4]))
+    r = b[3].cpu().numpy()
+    dp = b[0].cpu().numpy()
+    chi2 = float(b[2])
+    nvec, valid = (x.cpu().numpy() for x in on_args[8:10])
+    hv = b[4].cpu().numpy()
+    host = [float(np.sum(~np.isfinite(r)) + np.sum(~np.isfinite(dp))
+                  + (not math.isfinite(chi2))),
+            float(np.max(np.abs(r) * valid / np.sqrt(nvec))), chi2]
+    rel = [abs(hv[i] - host[i]) / abs(host[i]) for i in (1, 2)]
+    launches = [profile_window(lambda: off(*off_args), 1)[4],
+                profile_window(lambda: on(*on_args), 1)[4]]
+    for _ in range(2):
+        off(*off_args), on(*on_args)
+    pairs = [[], []]
+    for _ in range(HEALTH_PAIRS):
+        pairs[0].append(synced_ms(lambda: off(*off_args)))
+        pairs[1].append(synced_ms(lambda: on(*on_args)))
+    diffs = [y - x for x, y in zip(*pairs)]
+    out = {"outputs_bitwise": same, "hv": hv.tolist(), "host": host,
+           "rel": rel, "launches_disarmed": launches[0],
+           "launches_armed": launches[1],
+           "extra_launches": launches[1] - launches[0],
+           "disarmed_ms": pairs[0], "armed_ms": pairs[1],
+           "armed_minus_disarmed_ms": diffs,
+           "median_disarmed_ms": float(np.median(pairs[0])),
+           "median_armed_ms": float(np.median(pairs[1])),
+           "median_pair_diff_ms": float(np.median(diffs))}
+    print(f"health-taps: armed step outputs 0-3 bitwise the disarmed "
+          f"step's {same}; health vector {hv.tolist()} against the host's "
+          f"reductions {host} (max |r|/sigma {rel[0]:.2e}, chi2 "
+          f"{rel[1]:.2e} relative; limit {HEALTH_REL}); launches disarmed "
+          f"{launches[0]} (expected {FIT_STEP_LAUNCHES}), armed "
+          f"{launches[1]} (+{launches[1] - launches[0]}); {HEALTH_PAIRS} "
+          f"pairs in turns, host ms to synchronize: disarmed median "
+          f"{out['median_disarmed_ms']:.3f} (min {min(pairs[0]):.3f}, max "
+          f"{max(pairs[0]):.3f}), armed median {out['median_armed_ms']:.3f}"
+          f" (min {min(pairs[1]):.3f}, max {max(pairs[1]):.3f}), armed "
+          f"minus disarmed median {out['median_pair_diff_ms']:.3f} ms")
+    if not (same and hv[0] == 0.0 and host[0] == 0.0
+            and max(rel) <= HEALTH_REL
+            and launches[0] == FIT_STEP_LAUNCHES
+            and launches[1] > launches[0]):
+        fail("health-taps: the armed step disagrees with the disarmed step "
+             "or with the host, or the disarmed step's launches moved")
+    return out
+
+
+def health_shadow(par: str, toas, dev) -> dict:
+    """(b) GLSFitter on the fit cell with $PINT_TPU_HEALTH=1 and
+    $PINT_TPU_SHADOW_RATE=1: every Cholesky solve replayed on the numpy
+    mirror in the background, the drift inside the band, /healthz ok."""
+    import torch
+
+    from pint_tpu_torch.gls import GLSFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.obs import health
+    from pint_tpu_torch.obs import metrics as om
+
+    mon = health.get_monitor()
+    if not (mon.enabled and mon.shadow_rate == 1):
+        fail("health-shadow: the environment did not arm the monitor")
+    shadows_idle()
+    base = mon.status()["shadow_replays"]
+    fit = GLSFitter(toas, get_model(io.StringIO(par), device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chi2 = fit.fit_toas(maxiter=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    replays = wait_replays(base + 2)
+    wait_s = time.perf_counter() - t0
+    drift = drift_max("gls")
+    st = mon.status()
+    h = om.default_health()
+    out = {"fit_s": wall, "chi2": chi2, "replays": replays - base,
+           "replay_wait_s": wait_s, "drift_sigma": drift,
+           "band": mon.drift_band, "exceeded": st["shadow_drift_exceeded"],
+           "healthz_ok": h["ok"], "incidents": st["incidents"]}
+    print(f"health-shadow: GLSFitter on the fit cell, 2 solves in "
+          f"{wall:.3f} s, {out['replays']} replays on the numpy mirror "
+          f"(done {wait_s:.3f} s after the fit), drift {drift!r} sigma "
+          f"(band {mon.drift_band}), exceeded {out['exceeded']}, incidents "
+          f"{out['incidents']}; /healthz ok {h['ok']}")
+    if not (out["replays"] >= 1 and drift <= DRIFT_BAND
+            and out["exceeded"] == 0 and h["ok"]):
+        fail("health-shadow: the card's solve drifts from the mirror")
+    return out
+
+
+def health_device_fit(keep: dict, toas, dev) -> dict:
+    """(c) Phase 9's stress problem refitted armed, one step a trial and
+    whole_fit=True: bitwise phase 9's parameters, fit.device ok."""
+    import copy
+
+    import torch
+
+    from pint_tpu_torch.gls import DeviceDownhillGLSFitter
+
+    out = {}
+    for tag, kw in (("step", {}), ("whole", {"whole_fit": True})):
+        m = copy.deepcopy(keep["model"])
+        fit = DeviceDownhillGLSFitter(toas, m, health=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit.fit_toas(maxiter=keep["maxiter"], **kw)
+        torch.cuda.synchronize()
+        same = [m.get_param(n).value for n in m.free_params] == keep[tag]
+        out[tag] = {"wall_s": time.perf_counter() - t0, "bitwise": same,
+                    "iterations": fit.stats.iterations}
+    out["verdict"] = health_verdict("device/fit.device")
+    print(f"health-device-fit: stress problem armed, one step a trial "
+          f"{out['step']['wall_s']:.3f} s, whole fit "
+          f"{out['whole']['wall_s']:.3f} s; parameters bitwise phase 9's "
+          f"{out['step']['bitwise']} / {out['whole']['bitwise']}; "
+          f"fit.device verdict {out['verdict']}")
+    if not (out["step"]["bitwise"] and out["whole"]["bitwise"]
+            and out["verdict"]["ok"]):
+        fail("health-device-fit: the armed fit moved or is not healthy")
+    return out
+
+
+def health_stream(keep: dict, dev) -> dict:
+    """(c) The streaming fit at phase 9's 200,000 TOAs, armed and
+    shadowed: the chunk vectors' worst rescale, the CG effort, the
+    shadow's drift inside the band."""
+    import copy
+
+    import torch
+
+    from pint_tpu_torch.gls import StreamingGLSFitter
+    from pint_tpu_torch.obs import health
+    from pint_tpu_torch.obs import metrics as om
+
+    shadows_idle()
+    base = health.get_monitor().status()["shadow_replays"]
+    fit = StreamingGLSFitter(keep["toas"], copy.deepcopy(keep["model"]),
+                             health=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chi2 = fit.fit_toas(maxiter=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wait_replays(base + fit.passes)
+    drift = drift_max("stream")
+    reg = om.get_registry()
+    rescale = max(reg.value("pint_tpu_health_last_value", kind=k,
+                            signal="rescale")
+                  for k in ("stream.chunk", "stream.solve"))
+    out = {"ntoa": keep["toas"].ntoas, "fit_s": wall, "chi2": chi2,
+           "passes": fit.passes, "converged": fit.converged,
+           "cg_iters": fit.cg_iters, "cg_budget": fit.cg_budget,
+           "cg_rel_residual": fit.cg_rel_residual,
+           "cg_iters_per_pass": fit.cg_iters_per_pass,
+           "worst_rescale": rescale, "drift_sigma": drift,
+           "verdicts": {k: health_verdict(k) for k in (
+               "device/stream.chunk", "device/stream.solve",
+               "shadow/stream")}}
+    print(f"health-stream: {out['ntoa']} TOAs armed, {fit.passes} passes "
+          f"in {wall:.3f} s, converged {fit.converged}; worst chunk rescale"
+          f" {rescale!r}; CG {fit.cg_iters} iterations (budget "
+          f"{fit.cg_budget}, per pass {fit.cg_iters_per_pass}), relative "
+          f"residual {fit.cg_rel_residual!r}; shadow drift {drift!r} sigma "
+          f"(band {DRIFT_BAND}); verdicts {out['verdicts']}")
+    if not (fit.converged and drift <= DRIFT_BAND
+            and all(v["ok"] for v in out["verdicts"].values())):
+        fail("health-stream: the armed streaming fit is not healthy")
+    return out
+
+
+def health_chain(keep: dict, dev) -> dict:
+    """(c) One armed chain chunk of the Bayesian fit cell: a
+    posterior.chunk verdict."""
+    from pint_tpu_torch.sampling import DeviceEnsembleSampler
+
+    post, p0 = keep["post"], keep["p0"]
+    s = DeviceEnsembleSampler(len(p0), post.nparams, post.lnpost_batch,
+                              device=dev)
+    t0 = time.perf_counter()
+    s.run_mcmc(p0, 16, seed=11)
+    out = {"walkers": len(p0), "steps": 16, "dispatches": s.dispatches,
+           "wall_s": time.perf_counter() - t0,
+           "verdict": health_verdict("device/posterior.chunk")}
+    print(f"health-chain: {len(p0)} walkers x 16 steps in {s.dispatches} "
+          f"chunk ({out['wall_s']:.3f} s): posterior.chunk verdict "
+          f"{out['verdict']}")
+    if not (s.dispatches == 1 and out["verdict"]["ok"]):
+        fail("health-chain: the armed chunk is not healthy")
+    return out
+
+
+def health_incidents(par: str, toas, gpu_ref: dict, dev, tmp: str) -> dict:
+    """(d) A NaN readback of the device fit: one numerics:nonfinite dump,
+    and the fit fails over bitwise to phase 6's card fit (as phase 14
+    (d)); a float32 Gram forced into the shadowed solve: numerics:drift."""
+    from pint_tpu_torch import gls as pgls
+    from pint_tpu_torch import obs
+    from pint_tpu_torch.gls import DeviceDownhillGLSFitter, GLSFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.obs import health
+    from pint_tpu_torch.runtime import Fault, FaultPlan, reset_runtime
+
+    fdir = os.path.join(tmp, "flight")
+    obs.configure(enabled=False, flight_dir=fdir)
+    reset_runtime()
+    fit = DeviceDownhillGLSFitter(toas, get_model(io.StringIO(par),
+                                                  device=dev), health=True)
+    with FaultPlan([Fault(match="gls.fit", kind="nan")]).active(), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fit.fit_toas()
+    nonfinite = [f for f in os.listdir(fdir) if "numerics_nonfinite" in f]
+    bitwise = same_fit(fit_state(fit), gpu_ref)
+    reset_runtime()
+    mon = health.get_monitor()
+    shadows_idle()    # the failover's own solves were shadowed too
+    base = mon.status()["shadow_replays"]
+    exceeded0 = mon.status()["shadow_drift_exceeded"]
+    real = pgls._symm_mm
+    pgls._symm_mm = lambda X, Y: (X.float().T @ Y.float()).double()
+    try:
+        GLSFitter(toas, get_model(io.StringIO(par), device=dev)).fit_toas(
+            maxiter=1)
+        wait_replays(base + 2)
+    finally:
+        pgls._symm_mm = real
+    st = mon.status()
+    drift_dumps = [f for f in os.listdir(fdir) if "numerics_drift" in f]
+    out = {"nonfinite_dumps": len(nonfinite), "failover_bitwise": bitwise,
+           "f32_drift_sigma": drift_max("gls"),
+           "f32_exceeded": st["shadow_drift_exceeded"] - exceeded0,
+           "last_incident": st["last_incident"]["reason"],
+           "drift_dumps": len(drift_dumps)}
+    print(f"health-incidents: NaN device fit -> {len(nonfinite)} "
+          f"numerics:nonfinite dump, failover bitwise phase 6's card fit "
+          f"{bitwise}; float32 Gram in the shadowed solve: drift up to "
+          f"{out['f32_drift_sigma']!r} sigma (band {DRIFT_BAND}), "
+          f"{out['f32_exceeded']} replays past the band, last incident "
+          f"{out['last_incident']}, {len(drift_dumps)} numerics:drift dump")
+    if not (len(nonfinite) == 1 and bitwise and out["f32_exceeded"] >= 1
+            and out["last_incident"] == "drift" and drift_dumps):
+        fail("health-incidents: an incident was missed or the failover "
+             "moved")
+    return out
+
+
+def padding_check(model, toas, dev) -> dict:
+    """(e) The fit cell padded to PAD_TO TOAs against the unpadded step on
+    the card: fit-step's limits on the valid rows; both steps timed."""
+    from pint_tpu_torch.parallel import build_fit_step
+
+    n = toas.ntoas
+    step, args, names = build_fit_step(model, toas, device=dev, health=False)
+    pstep, pargs, pnames = build_fit_step(model, toas, device=dev,
+                                          pad_to=PAD_TO, health=False)
+    want = [x.cpu().numpy() for x in step(*args)]
+    got = [x.cpu().numpy() for x in pstep(*pargs)]
+    d = step_diff(got[:3] + [got[3][:n]], want)
+    ms = [[], []]
+    for _ in range(5):
+        ms[0].append(synced_ms(lambda: step(*args)))
+        ms[1].append(synced_ms(lambda: pstep(*pargs)))
+    out = {"pad_to": PAD_TO, **d, "pad_rows_zero":
+           bool(np.all(got[3][n:] == 0.0)),
+           "unpadded_ms": float(np.median(ms[0])),
+           "padded_ms": float(np.median(ms[1])), "ms": ms}
+    print(f"padding: the fit cell padded {n} -> {PAD_TO} TOAs against the "
+          f"unpadded step on the card: dparams {d['dp_sigma']:.3e} sigma, "
+          f"cov {d['cov_rel']:.3e}, chi2 {d['chi2_rel']:.3e} relative, "
+          f"residuals {d['resid_s']:.3e} s (limits {DP_SIGMA}, {COV_REL}, "
+          f"{CHI2_REL}, {RESID_S}); host ms to synchronize, medians of 5 in "
+          f"turns: unpadded {out['unpadded_ms']:.3f}, padded "
+          f"{out['padded_ms']:.3f}")
+    if not (within_limits(d) and pnames == names and out["pad_rows_zero"]):
+        fail("padding: the padded step disagrees with the unpadded step")
+    return out
+
+
+def perf_plane(step: dict, k1: dict, dev) -> dict:
+    """(f) $PINT_TPU_PERF=1: the guarded fit step's four phases against
+    its wall; the compile ledger against the dispatched keys; K1's
+    roofline block against phase 5's share of bound; one profiler window
+    over fit steps; one auto window on a forced breaker-open."""
+    import torch
+
+    from pint_tpu_torch import obs
+    from pint_tpu_torch.obs import perf
+    from pint_tpu_torch.runtime import Fault, FaultPlan, get_supervisor, \
+        reset_runtime
+    from pint_tpu_torch.runtime.supervisor import backend_of
+
+    from pint_tpu_torch import config
+
+    # armed by the environment, so the ledger that holds the run's keys
+    # stays the same instance
+    pdir = config.profile_dir()
+    if not (perf.enabled() and pdir):
+        fail("perf: the environment did not arm the plane")
+    sup = get_supervisor()
+    backend = backend_of(dev)
+    run = lambda: step["step"](*step["args"])  # noqa: E731
+    names = ("queue_wait", "host_assembly", "device_wall", "collect")
+    calls = []
+    for _ in range(6):
+        before = {p: (sup.metrics.perf.get((backend, "perf.fit_step"), p)
+                      or types.SimpleNamespace(sum_s=0.0)).sum_s
+                  for p in names}
+        t0 = time.perf_counter()
+        sup.dispatch(run, key="perf.fit_step", device=dev, guard=True)
+        wall = time.perf_counter() - t0
+        ph = {p: sup.metrics.perf.get((backend, "perf.fit_step"), p).sum_s
+              - before[p] for p in names}
+        calls.append({"wall_ms": wall * 1e3,
+                      **{f"{p}_ms": v * 1e3 for p, v in ph.items()},
+                      "sum_ms": sum(ph.values()) * 1e3})
+    steady = calls[1:]
+    within = all(c["sum_ms"] <= c["wall_ms"] + 1.0 for c in calls)
+    print("perf-phases: guarded fit step, steady calls (ms): " + "; ".join(
+        f"wall {c['wall_ms']:.3f} = queue {c['queue_wait_ms']:.3f} + "
+        f"assembly {c['host_assembly_ms']:.3f} + device "
+        f"{c['device_wall_ms']:.3f} + collect {c['collect_ms']:.3f} "
+        f"(sum {c['sum_ms']:.3f})" for c in steady)
+        + f"; first call {calls[0]['wall_ms']:.3f}")
+    led = perf.get_ledger()
+    lat = sup.snapshot().get("latency", {})
+    keys = sorted({k.split("/", 1)[1] for k in lat})
+    missing = [k for k in keys
+               if (led.get(k) or {}).get("compile_wall_s") is None]
+    snap = led.snapshot()
+    walled = {k for k, e in snap["entries"].items()
+              if e.get("compile_wall_s") is not None}
+    prior_walled = set()
+    if snap["path"] and os.path.exists(snap["path"]):
+        with open(snap["path"], encoding="utf-8") as fh:
+            for line in fh:
+                rec = json.loads(line)
+                if rec.get("compile_wall_s") is not None:
+                    prior_walled.add(rec["key"])
+    all_keys = sorted(walled | prior_walled)
+    print(f"perf-ledger: {len(keys)} keys dispatched since the last reset, "
+          f"each with its first-call wall: {not missing} (missing "
+          f"{missing}); {len(all_keys)} dispatch keys ledgered across the "
+          f"smoke ({snap['path']}): first-call walls "
+          + ", ".join(f"{k} {(led.get(k) or {}).get('compile_wall_s')}"
+                      for k in all_keys[:12]) + " ...")
+    share5 = k1["share_phase5"]
+    blk = k1["block"] or {}
+    share16 = max(blk.get("achieved_frac_flops", 0.0),
+                  blk.get("achieved_frac_hbm", 0.0))
+    roof_rel = abs(share16 / share5 - 1.0) if share5 else float("inf")
+    print(f"perf-roofline: roofline_block('z2_harmonics') at phase 5's "
+          f"float64-input {k1['ms']:.4f} ms: {blk}; share of bound "
+          f"{share16:.6f} against phase 5's {share5:.6f} ({roof_rel:.2e} "
+          f"relative, limit {ROOFLINE_REL})")
+    res = perf.request_window(PROFILE_WINDOW_S, reason="phase16")
+    nsteps = 0
+    t0 = time.perf_counter()
+    while perf.get_profiler().status()["open"] is not None and \
+            time.perf_counter() - t0 < PROFILE_WINDOW_S + 60.0:
+        sup.dispatch(run, key="perf.fit_step", device=dev)
+        nsteps += 1
+    t_win = time.perf_counter() - t0
+    meta = json.load(open(os.path.join(res["dir"], "window.json"),
+                          encoding="utf-8")) if res.get("dir") else {}
+    kernels = 0
+    if meta.get("device_trace"):
+        with open(meta["device_trace"], encoding="utf-8") as fh:
+            kernels = sum(1 for e in json.load(fh)["traceEvents"]
+                          if e.get("cat") == "kernel")
+    print(f"perf-window: {res} -> status {meta.get('status')}, "
+          f"{nsteps} fit steps in {t_win:.3f} s, window.json and "
+          f"{meta.get('device_trace')} with {kernels} kernel events")
+    os.environ["PINT_TPU_BREAKER_THRESHOLD"] = "1"
+    with FaultPlan([Fault(match="perf.trip", kind="error",
+                          count=8)]).active():
+        trips = [sup.dispatch(lambda: 1.0, key="perf.trip", device=dev,
+                              fallback=lambda: -1.0) for _ in range(2)]
+    wins = [w for w in os.listdir(pdir) if "breaker_open" in w]
+    t0 = time.perf_counter()
+    while perf.get_profiler().status()["open"] is not None and \
+            time.perf_counter() - t0 < 60.0:
+        time.sleep(0.05)
+    del os.environ["PINT_TPU_BREAKER_THRESHOLD"]
+    reset_runtime()
+    obs.reset()
+    torch.cuda.synchronize()
+    print(f"perf-breaker: two failing dispatches -> {trips}, "
+          f"{len(wins)} breaker_open window ({wins})")
+    out = {"calls": calls, "phases_within_wall": within,
+           "ledger_keys": keys, "ledger_missing": missing,
+           "ledger_all_keys": len(all_keys),
+           "roofline": blk, "share_phase5": share5, "share_phase16": share16,
+           "roofline_rel": roof_rel, "window": {**res, "meta": meta,
+                                                "steps": nsteps,
+                                                "kernels": kernels},
+           "breaker_windows": len(wins)}
+    checks = {"phases_within_wall": within, "every_key_ledgered": not missing,
+              "roofline_as_phase5": roof_rel <= ROOFLINE_REL,
+              "window_closed": bool(res.get("ok"))
+              and meta.get("status") == "closed",
+              "window_traced_kernels": kernels > 0,
+              "breaker_failed_over": trips == [-1.0, -1.0],
+              "one_breaker_window": len(wins) == 1}
+    out["checks"] = checks
+    if not all(checks.values()):
+        fail(f"perf: {[k for k, v in checks.items() if not v]} failed")
+    return out
+
+
+def slo_check(step: dict, dev, tmp: str) -> dict:
+    """(g) SLOWatchdog(default_specs()) over the run's registry across
+    armed fit steps: no burn; a synthetic burn: one slo_burn dump and
+    one window cross-linked to it."""
+    from pint_tpu_torch import obs
+    from pint_tpu_torch.obs import health, perf
+    from pint_tpu_torch.obs import metrics as om
+    from pint_tpu_torch.obs.slo import SLOSpec, SLOWatchdog, default_specs
+    from pint_tpu_torch.runtime import get_supervisor, reset_runtime
+
+    reset_runtime()
+    obs.reset()
+    health.configure(enabled=True)
+    sup = get_supervisor()
+    wd = SLOWatchdog(specs=default_specs())
+    fired = []
+    for k in range(7):
+        for _ in range(3):
+            out = sup.dispatch(lambda: step["step"](*step["args"]),
+                               key="slo.fit_step", device=dev)
+            health.observe("fit.device", {"values": [out[0], out[2]],
+                                          "chi2": float(out[2])},
+                           key="slo.fit_step")
+        fired += wd.tick(now=70.0 * k)
+    healthy = {"fired": fired, "fires": wd.fires, "ticks": wd.ticks,
+               "specs": [(s["name"], s["fast_burn"], s["slow_burn"])
+                         for s in wd.status()["specs"]]}
+    fdir, pdir = os.path.join(tmp, "slo-flight"), os.path.join(tmp,
+                                                               "slo-prof")
+    obs.configure(enabled=True, flight_dir=fdir)
+    perf.configure(profile_dir=pdir, max_s=0.5)
+    spec = SLOSpec(name="phase16", type="ratio", bad=["phase16_bad_total"],
+                   total=["phase16_all_total"], budget=0.01, fast_s=10.0,
+                   slow_s=30.0, min_events=1, min_samples=1)
+    bad, allc = om.counter("phase16_bad_total"), om.counter(
+        "phase16_all_total")
+    swd = SLOWatchdog(specs=[spec], interval_s=1.0)
+    allc.inc(10)
+    burn = swd.tick(now=0.0)
+    bad.inc(10)
+    allc.inc(10)
+    burn += swd.tick(now=40.0)
+    bad.inc(10)
+    allc.inc(10)
+    burn += swd.tick(now=80.0)
+    t0 = time.perf_counter()
+    while perf.get_profiler().status()["open"] is not None and \
+            time.perf_counter() - t0 < 60.0:
+        time.sleep(0.05)
+    dumps = [f for f in os.listdir(fdir) if "slo_burn" in f]
+    wins = sorted(w for w in os.listdir(pdir) if w.startswith("window-"))
+    meta = json.load(open(os.path.join(pdir, wins[0], "window.json"),
+                          encoding="utf-8")) if wins else {}
+    linked = (meta.get("extra") or {}).get("flight")
+    out = {"healthy": healthy, "burn_fired": burn, "dumps": len(dumps),
+           "windows": len(wins), "window_status": meta.get("status"),
+           "crosslinked": bool(linked) and os.path.basename(linked) in dumps}
+    print(f"slo: default specs over {wd.ticks} ticks of armed fit steps: "
+          f"fired {fired}; synthetic burn fired {burn}, {len(dumps)} "
+          f"slo_burn dump, {len(wins)} window ({meta.get('status')}), "
+          f"cross-linked {out['crosslinked']}")
+    if not (fired == [] and burn == ["phase16"] and len(dumps) == 1
+            and len(wins) == 1 and out["crosslinked"]):
+        fail("slo: a healthy card burned, or the synthetic burn did not "
+             "fire exactly one dump and one window")
+    obs.reset()
+    reset_runtime()
+    return out
+
+
+def health_perf_phase(ctx: dict, dev) -> dict:
+    """Phase 16: the numerical-health, performance-attribution and SLO
+    planes and TOA padding on the fit cell and phases 6, 9 and 12's
+    problems ((a)-(g), each fatal)."""
+    from pint_tpu_torch import obs
+    from pint_tpu_torch.runtime import reset_runtime
+
+    secs, out = {}, {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out[name] = fn(*a)
+        secs[name] = time.perf_counter() - t0
+
+    saved = {k: os.environ.get(k) for k in PHASE16_ENV}
+    tmpdir = tempfile.TemporaryDirectory()
+    tmp = tmpdir.name
+    os.environ.update({
+        "PINT_TPU_HEALTH": "1", "PINT_TPU_SHADOW_RATE": "1",
+        "PINT_TPU_PERF": "1",
+        "PINT_TPU_PROFILE_DIR": os.path.join(tmp, "profile"),
+        "PINT_TPU_PROFILE_MAX_S": str(PROFILE_WINDOW_S)})
+    reset_runtime()
+    obs.reset()
+    try:
+        timed("taps", health_taps, ctx["model"], ctx["toas"], dev)
+        timed("shadow", health_shadow, ctx["par"], ctx["toas"], dev)
+        timed("device_fit", health_device_fit, ctx["stress"],
+              ctx["stress_toas"], dev)
+        timed("stream", health_stream, ctx["stream"], dev)
+        timed("chain", health_chain, ctx["bayes"], dev)
+        timed("incidents", health_incidents, ctx["par"], ctx["toas"],
+              ctx["gpu_ref"], dev, tmp)
+        timed("padding", padding_check, ctx["model"], ctx["toas"], dev)
+        timed("perf", perf_plane, ctx["step"], ctx["k1"], dev)
+        timed("slo", slo_check, ctx["step"], dev, tmp)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        reset_runtime()
+        obs.reset()
+        tmpdir.cleanup()
+    print("health and perf seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items()))
+    out["seconds"] = secs
+    return out
+
+
 def fmt(t: dict) -> str:
     return (f"{t['median']:.4f} ms median of 20 (min {t['min']:.4f}, "
             f"max {t['max']:.4f})")
@@ -5319,6 +5981,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    # the compile ledger persists across the phases' obs resets, so
+    # phase 16 reads every dispatch key of the run (and a child process
+    # appends its own)
+    ledger_dir = tempfile.TemporaryDirectory()
+    os.environ.setdefault("PINT_TPU_COMPILE_LEDGER", os.path.join(
+        ledger_dir.name, "compile_ledger.jsonl"))
 
     t0 = time.perf_counter()
     zmod.build()
@@ -5457,7 +6125,9 @@ def main() -> int:
     s_model, s_toas, s_truth = stress_build(STRESS_NTOA, STRESS_NDMX, dev)
     secs["stress_build"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    dfit = device_fit_check(s_model, s_toas, s_truth, dev, "device-fit")
+    stress_keep: dict = {}
+    dfit = device_fit_check(s_model, s_toas, s_truth, dev, "device-fit",
+                            keep=stress_keep)
     secs["device_fit"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     sw_model, sw_toas, sw_truth = stress_build(STRESS_NTOA, STRESS_NDMX, dev,
@@ -5478,7 +6148,8 @@ def main() -> int:
     secorr = stream_ecorr_check(model, toas, dense, dev)
     secs["stream_ecorr"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    stream = stream_check(args.stream_ntoa, dev)
+    stream_keep: dict = {}
+    stream = stream_check(args.stream_ntoa, dev, keep=stream_keep)
     secs["stream"] = time.perf_counter() - t0
     print("device-fit and streaming seconds: " + ", ".join(
         f"{k} {v:.3f}" for k, v in secs.items()))
@@ -5519,7 +6190,8 @@ def main() -> int:
 
     # the Bayesian path on the fit cell
     t0 = time.perf_counter()
-    bayes = bayes_phase(zmod, fit_par_text, toas, step, dev)
+    bayes_keep: dict = {}
+    bayes = bayes_phase(zmod, fit_par_text, toas, step, dev, keep=bayes_keep)
     bayes["seconds"]["total"] = time.perf_counter() - t0
     clean["bayes"] = supervisor_clean("the Bayesian path")
 
@@ -5559,6 +6231,13 @@ def main() -> int:
     tiny = torch.zeros(1000, dtype=torch.float32, device=dev)
     k32 = cuda_ms(lambda: zmod.z2_harmonics(ph32, w32, m))
     k64 = cuda_ms(lambda: zmod.z2_harmonics(ph64, w64, m))
+    # the perf plane's roofline of K1 at this shape (its launches just
+    # registered their analytic cost), for phase 16 (f)
+    from pint_tpu_torch.obs import perf
+
+    k1_roof = {"ms": k64["median"], "entry": perf.get_ledger().get(
+        "z2_harmonics"), "block": perf.roofline_block(
+        "z2_harmonics", k64["median"] / 1e3)}
     casts = cuda_ms(lambda: (ph64.to(torch.float32), w64.to(torch.float32)))
     plain = cuda_ms(lambda: zmod.z2_harmonics_plain(ph32, w32, m))
     floor = cuda_ms(lambda: tiny.add_(1.0))
@@ -5601,6 +6280,15 @@ def main() -> int:
     k_path = cuda_ms(lambda: zmod.z2_harmonics(ph64[:pn], w64[:pn], m))
     k1_entry = sum(v for k, v in km.items() if "z2_kernel" in k) \
         / max(1, path["launches"])
+    # phase 16: the health, perf and SLO planes and TOA padding
+    k1_roof["share_phase5"] = b64 / k64["median"]
+    t0 = time.perf_counter()
+    health_perf = health_perf_phase(
+        {"par": fit_par_text, "model": model, "toas": toas, "step": step,
+         "gpu_ref": fit_state(downhill["fitter"]), "stress": stress_keep,
+         "stress_toas": s_toas, "stream": stream_keep, "bayes": bayes_keep,
+         "k1": k1_roof}, dev)
+    health_perf["seconds"]["total"] = time.perf_counter() - t0
     print(f"profile check: K1's entry {k1_entry:.4f} ms a launch in the "
           f"path's profile, K1 between events at its shape "
           f"{k_path['median']:.4f} ms")
@@ -5714,7 +6402,9 @@ def main() -> int:
     print(json.dumps({"photon_sampling": photon}))
     print(json.dumps({"runtime": runtime}, default=str))
     print(json.dumps({"host_api": host_api}))
+    print(json.dumps({"health_perf": health_perf}, default=str))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
+    ledger_dir.cleanup()
     print(card())
     print(json.dumps({"kernels": [{
         "name": "z2_harmonics", "route": "cuda",

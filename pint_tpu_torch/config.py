@@ -15,6 +15,12 @@ the port calls).
   run on the CPU (default 0: never)
 - $PINT_TPU_TRACE, $PINT_TPU_TRACE_STREAM, $PINT_TPU_TRACE_RING,
   $PINT_TPU_FLIGHT_DIR, $PINT_TPU_LOCK_TRACE: the obs core
+- $PINT_TPU_SLO, $PINT_TPU_SLO_INTERVAL_S: the SLO burn-rate watchdog
+- $PINT_TPU_HEALTH, $PINT_TPU_SHADOW_RATE, $PINT_TPU_HEALTH_*: the
+  numerical-health plane (``obs.health``)
+- $PINT_TPU_PERF, $PINT_TPU_COMPILE_LEDGER, $PINT_TPU_PROFILE_DIR,
+  $PINT_TPU_PROFILE_MAX_S: the performance-attribution plane
+  (``obs.perf``)
 """
 
 from __future__ import annotations
@@ -34,7 +40,12 @@ __all__ = ["chain_chunk_steps", "clock_dir", "energy_draw_chunk",
            "breaker_threshold", "breaker_cooldown_s",
            "breaker_probe_timeout_s", "solve_device", "solve_scope",
            "trace_enabled", "trace_stream_path", "trace_ring_size",
-           "flight_dir", "lock_trace_enabled"]
+           "flight_dir", "lock_trace_enabled", "slo_enabled",
+           "slo_interval_s", "slo_specs", "health_enabled",
+           "shadow_rate", "health_drift_sigma", "health_chi2_factor",
+           "health_resid_sigma", "health_cg_budget_frac",
+           "perf_enabled", "compile_ledger_path", "profile_dir",
+           "profile_max_s"]
 
 log = logging.getLogger(__name__)
 _WARNED_ENV: set = set()
@@ -453,3 +464,218 @@ def lock_trace_enabled(flag: Optional[bool] = None) -> bool:
     ignored."""
     return _env_bool("PINT_TPU_LOCK_TRACE", flag,
                      context="lock tracing stays off")
+
+
+def slo_enabled() -> bool:
+    """SLO burn-rate watchdog armed? ($PINT_TPU_SLO, default OFF.) Any
+    value ``slo_specs`` resolves to a non-empty spec list arms it: a
+    truthy flag (the default spec set), inline JSON, or a JSON file
+    path. Off costs nothing: no sampling thread, no ring."""
+    raw = os.environ.get("PINT_TPU_SLO", "")
+    if raw.lower() in ("", "0", "off", "false", "no"):
+        return False
+    return bool(slo_specs())
+
+
+def slo_interval_s() -> float:
+    """SLO self-sampling interval [s] ($PINT_TPU_SLO_INTERVAL_S, default
+    10): how often the watchdog snapshots the registry into its ring.
+    Validated finite positive; warn-and-ignore otherwise."""
+    return _env_positive_float("PINT_TPU_SLO_INTERVAL_S", 10.0)
+
+
+def slo_specs() -> list:
+    """Validated SLO spec list from $PINT_TPU_SLO:
+
+    - a truthy flag ("1"/"on"/"true"/"yes") -> the default spec set
+      (``obs.slo.default_specs``);
+    - a JSON array (inline, or the contents of the file the value
+      points at) -> custom specs, each entry validated by
+      ``SLOSpec.from_dict``: an invalid entry warns and is dropped, an
+      unreadable value warns and yields [] (the watchdog stays off).
+    """
+    import json
+
+    from pint_tpu_torch.obs.slo import SLOSpec, default_specs
+
+    raw = os.environ.get("PINT_TPU_SLO", "")
+    v = raw.strip()
+    if v.lower() in ("", "0", "off", "false", "no"):
+        return []
+    if v.lower() in ("1", "on", "true", "yes"):
+        return default_specs()
+    text = v
+    if not v.startswith(("[", "{")):
+        try:
+            with open(v, encoding="utf-8") as fh:
+                text = fh.read()
+        except OSError:
+            if ("PINT_TPU_SLO", raw) not in _WARNED_ENV:
+                _WARNED_ENV.add(("PINT_TPU_SLO", raw))
+                log.warning("$PINT_TPU_SLO=%r is neither a flag, JSON, "
+                            "nor a readable file; SLO watchdog stays off",
+                            raw)
+            return []
+    try:
+        entries = json.loads(text)
+        if isinstance(entries, dict):
+            entries = [entries]
+    except ValueError:
+        if ("PINT_TPU_SLO", raw) not in _WARNED_ENV:
+            _WARNED_ENV.add(("PINT_TPU_SLO", raw))
+            log.warning("unparsable $PINT_TPU_SLO JSON; SLO watchdog "
+                        "stays off")
+        return []
+    out = []
+    for e in entries:
+        try:
+            out.append(SLOSpec.from_dict(e))
+        except (ValueError, TypeError) as exc:
+            key = ("PINT_TPU_SLO", f"entry:{e!r}"[:200])
+            if key not in _WARNED_ENV:
+                _WARNED_ENV.add(key)
+                log.warning("dropping invalid SLO spec entry: %s", exc)
+    return out
+
+
+# ------------------------------------------------- numerical health
+
+
+def _warn_env_range(name: str, default):
+    """Once-per-distinct-value out-of-range warning (the shared tail of
+    the validated numeric parsers below)."""
+    raw = os.environ.get(name)
+    key = (name, f"range:{raw}")
+    if key not in _WARNED_ENV:
+        _WARNED_ENV.add(key)
+        log.warning("$%s=%r is out of range; using %r", name, raw, default)
+
+
+def _env_positive_float(name: str, default: float,
+                        minimum_exclusive: float = 0.0) -> float:
+    """Validated finite float env knob > ``minimum_exclusive``;
+    warn-and-ignore on anything else."""
+    import math
+
+    v = float(_env_number(name, default))
+    if not math.isfinite(v) or v <= minimum_exclusive:
+        _warn_env_range(name, default)
+        return default
+    return v
+
+
+def _env_nonneg_int(name: str, default: int) -> int:
+    """Validated non-negative int env knob; warn-and-ignore otherwise."""
+    v = int(_env_number(name, default, cast=int))
+    if v < 0:
+        _warn_env_range(name, default)
+        return default
+    return v
+
+
+def health_enabled(flag: Optional[bool] = None) -> bool:
+    """In-trace numerical-health taps armed? ($PINT_TPU_HEALTH, default
+    OFF.) Armed, the fit step, the fit loop, the GLS solve and the
+    streaming chunk return a cheap health vector as extra outputs of
+    the same call (non-finite counts, max residual in sigma, CG effort),
+    and ``obs.health.HealthMonitor`` evaluates it against the thresholds
+    below. Disarmed, the taps are not built: the step runs exactly the
+    ops it runs without health. An explicit ``flag`` wins; an
+    unrecognized env value warns once and is ignored (stays off)."""
+    return _env_bool("PINT_TPU_HEALTH", flag,
+                     context="health taps stay off")
+
+
+def shadow_rate() -> int:
+    """Shadow-oracle drift sampling rate ($PINT_TPU_SHADOW_RATE; default
+    0 = off): every Nth successful supervised dispatch of a
+    shadow-capable key replays the completed solve on the numpy mirror
+    in a background thread and records device-vs-host drift in sigma.
+    Validated non-negative int; warn-and-ignore otherwise."""
+    return _env_nonneg_int("PINT_TPU_SHADOW_RATE", 0)
+
+
+def health_drift_sigma() -> float:
+    """Shadow-oracle drift band [sigma] ($PINT_TPU_HEALTH_DRIFT_SIGMA,
+    default 1e-5): device-vs-mirror parameter drift beyond this many
+    sigma is a ``numerics:drift`` incident. Every route of the port is
+    IEEE float64 on the card as on the CPU, so the auto band is always
+    the reference's f64 one (its measured replay floor sits decades
+    below; an unsanctioned float32 demotion lands above it). The
+    reference widens its auto band to 2e-2 when a sanctioned float32
+    route is active or its backend is a TPU, which it learns by peeking
+    jax's client table; the port has neither the float32 routes nor
+    jax, so it keeps neither branch. An explicit env value wins
+    (validated finite positive, warn-and-ignore otherwise)."""
+    return _env_positive_float("PINT_TPU_HEALTH_DRIFT_SIGMA", 1e-5)
+
+
+def health_chi2_factor() -> float:
+    """chi2 blow-up incident threshold ($PINT_TPU_HEALTH_CHI2_FACTOR,
+    default 4.0): a step whose chi2 grows past factor x the previous
+    accepted value is a ``numerics:chi2_blowup`` incident. Validated
+    finite > 1."""
+    return _env_positive_float("PINT_TPU_HEALTH_CHI2_FACTOR", 4.0,
+                               minimum_exclusive=1.0)
+
+
+def health_resid_sigma() -> float:
+    """Max |residual|/sigma incident threshold
+    ($PINT_TPU_HEALTH_RESID_SIGMA, default 1e8): a whitened residual
+    past this is numeric garbage, not a bad timing model. Validated
+    finite positive."""
+    return _env_positive_float("PINT_TPU_HEALTH_RESID_SIGMA", 1e8)
+
+
+def health_cg_budget_frac() -> float:
+    """CG effort incident threshold as a fraction of the iteration
+    budget ($PINT_TPU_HEALTH_CG_BUDGET_FRAC, default 1.0 = exhaustion
+    only): iterations >= frac x budget is a ``numerics:cg_budget``
+    incident. Validated finite in (0, 1]; a larger value warns and gives
+    1.0."""
+    v = _env_positive_float("PINT_TPU_HEALTH_CG_BUDGET_FRAC", 1.0)
+    if v > 1.0:
+        _warn_env_range("PINT_TPU_HEALTH_CG_BUDGET_FRAC", 1.0)
+        return 1.0
+    return v
+
+
+# ------------------------------------------- performance attribution
+
+
+def perf_enabled(flag: Optional[bool] = None) -> bool:
+    """Dispatch-wall decomposition armed? ($PINT_TPU_PERF, default OFF.)
+    Armed, every successful guarded supervised dispatch splits its wall
+    into queue_wait / host_assembly / device_wall / collect
+    (``obs.perf`` + ``RuntimeMetrics.perf``); disarmed, the supervisor
+    pays one attribute read and a branch. The compile ledger is always
+    on. An explicit ``flag`` wins; an unrecognized env value warns once
+    and is ignored."""
+    return _env_bool("PINT_TPU_PERF", flag,
+                     context="perf decomposition stays off")
+
+
+def compile_ledger_path():
+    """JSONL persistence path of the compile ledger
+    ($PINT_TPU_COMPILE_LEDGER; None = registry only). Armed, every new
+    or changed ledger entry appends one JSON line, and a restarted
+    process reads the file back as ``prior`` entries."""
+    p = os.environ.get("PINT_TPU_COMPILE_LEDGER")
+    return p if p else None
+
+
+def profile_dir():
+    """Profiler-window directory ($PINT_TPU_PROFILE_DIR; None = windows
+    disarmed). Armed, ``obs.perf.request_window`` and the one-shot
+    incident windows (slo_burn, breaker-open) each write one
+    ``window-<utc>-<reason>/`` directory: the torch.profiler device
+    trace, ``window.json`` metadata and a ``spans.json`` span export."""
+    d = os.environ.get("PINT_TPU_PROFILE_DIR")
+    return d if d else None
+
+
+def profile_max_s() -> float:
+    """Hard bound on one profiler window [s] ($PINT_TPU_PROFILE_MAX_S,
+    default 30): every requested window is clamped to it. Validated
+    finite positive; warn-and-ignore otherwise."""
+    return _env_positive_float("PINT_TPU_PROFILE_MAX_S", 30.0)

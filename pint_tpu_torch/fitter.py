@@ -16,12 +16,12 @@ from __future__ import annotations
 
 import time
 import warnings
-from dataclasses import dataclass
 from typing import Dict, List
 
 import numpy as np
 import torch
 
+from pint_tpu_torch.profiling import FitStats
 from pint_tpu_torch.residuals import Residuals
 
 __all__ = ["Fitter", "WLSFitter", "DownhillWLSFitter", "fit_summary",
@@ -54,28 +54,6 @@ class MaxiterReached(ConvergenceFailure):
 
 class StepProblem(ConvergenceFailure):
     pass
-
-
-@dataclass
-class FitStats:
-    """Structured result of one fit (Fitter.stats)."""
-
-    fitter: str = ""
-    ntoa: int = 0
-    nfree: int = 0
-    dof: int = 0
-    chi2: float = float("nan")
-    reduced_chi2: float = float("nan")
-    iterations: int = 0
-    converged: bool = False
-    wall_time_s: float = 0.0
-    toas_per_sec: float = 0.0
-
-    def __str__(self) -> str:
-        return (f"{self.fitter}: chi2={self.chi2:.3f} "
-                f"(red. {self.reduced_chi2:.4f}), "
-                f"{self.iterations} iter in {self.wall_time_s * 1e3:.1f} ms "
-                f"({self.toas_per_sec:.0f} TOA/s)")
 
 
 def _wls_solve(M, r, err_s, threshold=None):

@@ -32,6 +32,15 @@ card: a solve's host path rebuilds the pass on the CPU and solves with
 the numpy mirrors (``gls_solve_np``, ``_gls_svd_np``,
 ``_gls_chi2_np``), a whole fit reruns on a CPU-homed model
 (``fitter.rehome_to_cpu``).
+
+Numerical health (``obs.health``; $PINT_TPU_HEALTH, $PINT_TPU_SHADOW_RATE):
+the Cholesky solve returns a health vector with its result, each solve
+and each device-fit dispatch is observed (``gls.solve``,
+``wideband.solve``, ``fit.device``, ``stream.chunk``/``stream.solve``),
+and GLSFitter's Cholesky solve and the streaming finalize carry a
+shadow that replays them on the numpy mirror. A failed Cholesky is never
+shadowed, and the designed degenerate route (the eigh retry) is not an
+incident.
 """
 
 from __future__ import annotations
@@ -110,21 +119,33 @@ def cho_solve(L, b):
     return x[..., 0] if vec else x
 
 
-def _gls_kernel(M, F, phi, r, nvec):
+def _symm_mm(X, Y):
+    """X^T @ Y in float64: the Gram products of ``_gls_kernel`` (the
+    reference's ``_symm_mm`` without its float32 route, which the port
+    does not have; one seam where a test can force a demotion)."""
+    return X.T @ Y
+
+
+def _gls_kernel(M, F, phi, r, nvec, health: bool = False):
     """Basis-Woodbury GLS solve. Returns (dparams, cov_pp, chi2,
     noise_resid, xhat_full, ok) — ok False when the Cholesky failed or
-    its solve does not check out (callers then use the eigh solve)."""
+    its solve does not check out (callers then use the eigh solve).
+
+    With ``health`` a seventh output follows: the health vector
+    [nonfinite count, max |r|/sigma, chi2, relative residual of the
+    preconditioned solve] (``obs.health``); without it, the ops of the
+    health-free solve."""
     p = M.shape[1]
     w = 1.0 / nvec
     Mn, colmax, norm = equilibrate(M, w)
     big = torch.cat([Mn, F], dim=1)
     sw = torch.sqrt(w)
     bigs = big * sw[:, None]
-    Sigma = bigs.T @ bigs
+    Sigma = _symm_mm(bigs, bigs)
     prior = torch.cat([torch.zeros(p, dtype=M.dtype, device=M.device),
                        1.0 / phi])
     Sigma = Sigma + torch.diag(prior)
-    b = (bigs.T @ (r * sw)[:, None])[:, 0]
+    b = _symm_mm(bigs, (r * sw)[:, None])[:, 0]
     d = jacobi(Sigma)
     dd = torch.outer(d, d)
     L = cho_factor(Sigma / dd)
@@ -141,7 +162,29 @@ def _gls_kernel(M, F, phi, r, nvec):
     solve_err = torch.linalg.norm((Sigma / dd) @ (d * xhat) - b / d)
     ok = (torch.all(torch.isfinite(xhat)) & torch.all(torch.isfinite(cov))
           & (solve_err <= 1e-6 * (torch.linalg.norm(b / d) + 1.0)))
-    return dparams, cov, chi2, noise_resid, xhat, ok
+    if not health:
+        return dparams, cov, chi2, noise_resid, xhat, ok
+    rel = solve_err / (torch.linalg.norm(b / d) + 1.0)
+    hv = torch.stack([
+        (torch.sum(~torch.isfinite(xhat)) + torch.sum(~torch.isfinite(chi2))
+         ).to(torch.float64),
+        torch.max(torch.abs(r) / torch.sqrt(nvec)),
+        chi2,
+        rel,
+    ])
+    return dparams, cov, chi2, noise_resid, xhat, ok, hv
+
+
+class _Held:
+    """Tensors that ride back from a guarded dispatch as they are: the
+    supervisor's host read walks tuples, lists and dicts, not this, so
+    a shadow's inputs stay on the device until a due replay reads
+    them on its background thread."""
+
+    __slots__ = ("tensors",)
+
+    def __init__(self, tensors):
+        self.tensors = tensors
 
 
 def _gls_kernel_svd(M, F, phi, r, nvec, threshold=1e-12):
@@ -375,6 +418,7 @@ class GLSFitter(Fitter):
 
     _KEY = "gls"                  # dispatch-key prefix
     _WHAT = "normal matrix"       # the DegeneracyWarning's subject
+    _SHADOW = "gls"               # health kind of the Cholesky shadow
 
     def __init__(self, toas, model, residuals=None, track_mode=None,
                  full_cov=False):
@@ -413,21 +457,46 @@ class GLSFitter(Fitter):
         return x, cov, chi2, noise, names
 
     def _solve_once_device(self, threshold):
-        from pint_tpu_torch import obs
+        from pint_tpu_torch import config, obs
+        from pint_tpu_torch.obs import health as _health
 
         sup = get_supervisor()
         pinned = self._solve_pinned()
         dev = self._pass_device()
         n = self.toas.ntoas
+        health_on = config.health_enabled()
+        # shadow sampling armed: the pass's inputs ride back with the
+        # Cholesky result, held on the device (``_Held``), and are read
+        # only by a replay that is due
+        keep = self._SHADOW is not None and \
+            _health.get_monitor().shadow_rate > 0
 
-        def run(kernel, **kw):
+        def run(kernel, held=False, **kw):
             with self._solve_scope():
                 M, r, nvec, Fb, phi, names, state = self._system(dev)
-                return kernel(M, Fb, phi, r, nvec, **kw), names, state
+                out = kernel(M, Fb, phi, r, nvec, **kw)
+                if held:
+                    return out, names, state, _Held((M, Fb, phi, r, nvec))
+                return out, names, state
 
-        def go(key, kernel, **kw):
+        def go(key, kernel, shadow=None, **kw):
             return sup.dispatch(run, kernel, kw=kw, key=key, device=dev,
-                                pinned=pinned)
+                                pinned=pinned, shadow=shadow,
+                                shadow_kind=self._SHADOW)
+
+        def shadow_chol(res):
+            # the numpy mirror of the same algebra on the same inputs;
+            # drift = max |d dparams| in sigma of the device covariance.
+            # A failed Cholesky (ok False: the designed degenerate
+            # route, about to be retried by eigh) carries garbage
+            # dparams and is not shadow-applicable
+            out = res[0]
+            if not bool(out[5]):
+                return None
+            M, Fb, phi, r, nvec = (x.cpu().numpy() for x in res[3].tensors)
+            mx = gls_solve_np(M, Fb, phi, r, nvec)[0]
+            return _health.drift_sigma(out[0].cpu().numpy(),
+                                       out[1].cpu().numpy(), mx)
 
         with obs.span(f"{self._KEY}.solve_once",
                       fitter=type(self).__name__, ntoa=n):
@@ -439,15 +508,30 @@ class GLSFitter(Fitter):
                     f"{self._KEY}.svd", _gls_kernel_svd,
                     threshold=float(threshold))
             else:
-                (x, cov, chi2, noise, _, ok), names, state = go(
-                    f"{self._KEY}.solve", _gls_kernel)
-                if not bool(ok):
+                kw = {"health": True} if health_on else {}
+                if keep:
+                    kw["held"] = True
+                res = go(f"{self._KEY}.solve", _gls_kernel,
+                         shadow=shadow_chol if keep else None, **kw)
+                out, names, state = res[:3]
+                x, cov, chi2, noise, _, ok = out[:6]
+                hsig = {"values": [x.cpu(), chi2.cpu()]}
+                if bool(ok):
+                    if health_on:
+                        hsig["hv"] = out[6].cpu()
+                else:
                     # the designed degenerate route: warn + eigh retry
                     # (a second pass: the first one's device tensors
-                    # do not outlive its dispatch)
+                    # do not outlive its dispatch), observed with the
+                    # FINAL outcome — a handled fallback that succeeds
+                    # is not a numerics incident
                     warn_degenerate(self._WHAT)
                     (x, cov, chi2, noise, _), names, state = go(
                         f"{self._KEY}.svd", _gls_kernel_svd)
+                    hsig = {"values": [x.cpu(), chi2.cpu()]}
+                _health.observe(f"{self._KEY}.solve", hsig,
+                                key=f"{self._KEY}.solve",
+                                pool="host" if pinned else "device")
         # r ≈ M (θ − θ_true): the correction is −x
         return ((-x).cpu().numpy(), cov.cpu().numpy(), float(chi2),
                 noise[:n].cpu(), names, state)
@@ -662,13 +746,39 @@ class StreamingGLSFitter(GLSFitter):
         effort: list = []   # CG iterations of each pass
 
         last: list = []     # the newest pass's CG iterations, residual
+        best: list = []     # the chi2 of the last pass kept
+
+        def observe_kept(out):
+            """The health of a pass the fit keeps: the CG effort and the
+            pass's chunk taps in one observation."""
+            from pint_tpu_torch.obs import health as _health
+
+            sig = {"cg_iters": int(out[6]), "cg_budget": int(self.cg_budget),
+                   "cg_rel_residual": float(out[7]), "ok": bool(out[5]),
+                   "chi2": float(out[3]), "values": [out[0], out[2]]}
+            hv = sg.last_pass_hv
+            if hv is not None:
+                sig["nonfinite"] = hv[0]
+                sig["rescale"] = hv[1]
+            _health.observe("stream.solve", sig, key="stream.solve")
 
         def one_pass(th_, tl_):
-            out = sg.solve(sg.accumulate(th_, tl_), tol=cg_tol)
+            # the entry pass is observed as it runs; a trial only when
+            # the search keeps it (downhill_dd's acceptance test): a
+            # rejected overshoot is the damping working, not an incident
+            entry_pass = not best
+            out = sg.solve(sg.accumulate(th_, tl_, observe=entry_pass),
+                           tol=cg_tol, observe=entry_pass)
             effort.append(out[6])
             last[:] = out[6:8]
             # a failed CG solve rejects the trial
-            return out, float(out[3]) if out[5] else math.nan
+            chi2 = float(out[3]) if out[5] else math.nan
+            if entry_pass:
+                best.append(chi2)
+            elif math.isfinite(chi2) and chi2 <= best[-1] + 1e-12:
+                best.append(chi2)
+                observe_kept(out)
+            return out, chi2
 
         entry = one_pass(th, tl)
         if math.isnan(entry[1]) or not np.all(np.isfinite(entry[0][0])):
@@ -922,6 +1032,19 @@ class DeviceDownhillGLSFitter(GLSFitter):
         def on_device(x):
             return torch.as_tensor(x, dtype=torch.float64, device=dev)
 
+        from pint_tpu_torch.obs import health as _health
+
+        def observe(out):
+            """The health tap of one loop call: its accepted state's
+            vector when armed, and its returned host scalars either way,
+            observed BEFORE the non-finite guard so an injected-NaN
+            readback is an incident and the failover is unchanged."""
+            hsig = {"values": [out[2], out[4]], "chi2": float(out[4]),
+                    "chi2_prev": float(out[5])}
+            if len(out) > 11:
+                hsig["hv"] = out[11]
+            _health.observe("fit.device", hsig, key=key)
+
         def run(th_, tl_, budget_, entry_):
             """One call of the loop on the device: (th, tl) and the
             entry step placed inside the dispatch (a guarded dispatch
@@ -941,6 +1064,7 @@ class DeviceDownhillGLSFitter(GLSFitter):
             if handle is not None:
                 out = handle.result()
                 handle = None
+            observe(out)
             dp = out[2].cpu().numpy()
             best = float(out[4])
             if iterations == 0 and (not np.isfinite(float(out[5]))
@@ -961,7 +1085,8 @@ class DeviceDownhillGLSFitter(GLSFitter):
                     # loop's dd two-sum mirrors dd_np.add), so the
                     # replay overlaps it
                     handle = sup.dispatch_async(
-                        run, out[0], out[1], budget, out[2:5], key=key,
+                        run, out[0], out[1], budget,
+                        out[2:5] + tuple(out[11:]), key=key,
                         steps=budget, device=dev)
             # exact host replay of the accepted updates
             for k in range(niter):
@@ -975,7 +1100,8 @@ class DeviceDownhillGLSFitter(GLSFitter):
                 maxed_out = True
                 break
             if handle is None:
-                out = sup.dispatch(run, th, tl, budget, out[2:5], key=key,
+                out = sup.dispatch(run, th, tl, budget,
+                                   out[2:5] + tuple(out[11:]), key=key,
                                    steps=budget, device=dev)
         cov = out[3].cpu().numpy()
         self.step_evals = nevals

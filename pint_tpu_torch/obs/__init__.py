@@ -1,7 +1,6 @@
-"""Structured telemetry for the dispatch stack (a copy of the stdlib
-core of pint_tpu/obs: the tracer, the histograms, the flight recorder
-and the metric registry; the reference's health, perf and SLO planes
-are not ported yet).
+"""Structured telemetry for the dispatch stack (a copy of pint_tpu/obs:
+the tracer, the histograms, the flight recorder, the metric registry,
+and the numerical-health, performance-attribution and SLO planes).
 
 Three pieces, one process-global instance of each:
 
@@ -14,7 +13,11 @@ Three pieces, one process-global instance of each:
   ``$PINT_TPU_FLIGHT_DIR`` on breaker-open and other incidents;
 
 and ``obs.metrics``, the process-global typed registry the
-supervisor's counters live in.
+supervisor's counters live in, which three planes read and write:
+``obs.health`` (health vectors, shadow drift, ``numerics:<reason>``
+incidents), ``obs.perf`` (the compile ledger, rooflines, the dispatch
+wall decomposition, profiler windows) and ``obs.slo`` (the burn-rate
+watchdog).
 
 The module-level helpers below are THE instrumentation surface the
 rest of the port uses — ``span()``/``event()`` check one bool before
@@ -33,7 +36,9 @@ from __future__ import annotations
 from pint_tpu_torch.runtime import locks
 from typing import Optional
 
+from pint_tpu_torch.obs import health  # noqa: F401
 from pint_tpu_torch.obs import metrics  # noqa: F401
+from pint_tpu_torch.obs import perf  # noqa: F401
 from pint_tpu_torch.obs.flight import FlightRecorder  # noqa: F401
 from pint_tpu_torch.obs.hist import HistogramSet, LatencyHistogram  # noqa: F401
 from pint_tpu_torch.obs.tracer import (  # noqa: F401
@@ -45,7 +50,8 @@ from pint_tpu_torch.obs.tracer import (  # noqa: F401
 )
 
 __all__ = ["Tracer", "SpanHandle", "LatencyHistogram",
-           "HistogramSet", "FlightRecorder", "metrics", "get_tracer",
+           "HistogramSet", "FlightRecorder", "metrics", "health",
+           "perf", "get_tracer",
            "get_flight", "configure", "reset", "span", "open_span",
            "open_root", "event", "record_span", "current", "attach",
            "flight_dump", "status", "export"]
@@ -131,9 +137,11 @@ def configure(enabled: Optional[bool] = None,
 def reset():
     """Drop the global instances; the next use re-reads the env
     (tests: a configured tracer must never leak across tests). Also
-    swaps in a fresh metric registry and drops the lock-order graph —
-    the same isolation contract: consumers built before the reset
-    keep their old bound children, fresh consumers register fresh."""
+    stops the SLO watchdog, swaps in a fresh metric registry, drops the
+    health monitor, the perf plane, the scoreboard's rows and the
+    lock-order graph — the same isolation contract: consumers built
+    before the reset keep their old bound children, fresh consumers
+    register fresh."""
     global _TRACER, _FLIGHT, _CONFIGURED
     with _LOCK:
         if _TRACER is not None:
@@ -141,7 +149,20 @@ def reset():
         _TRACER = None
         _FLIGHT = None
         _CONFIGURED = False
+    from pint_tpu_torch.obs import slo
+
+    slo.reset()
     metrics.reset()
+    # the health monitor holds bound registry children and env-derived
+    # thresholds: the same staleness hazard as the tracer
+    health.reset()
+    # the perf plane (compile ledger, profiler windows, decomposition
+    # arming cache) and the global scoreboard's registry-shared rows
+    # hold bound children of the registry just swapped
+    perf.reset()
+    from pint_tpu_torch import profiling
+
+    profiling.scoreboard.reset()
     from pint_tpu_torch.runtime import locks as _locks
 
     _locks.reset()
@@ -231,10 +252,15 @@ def export(path: str) -> int:
 
 
 def status() -> dict:
-    """The ``obs`` block every snapshot embeds: tracer state +
-    flight-recorder state."""
+    """The ``obs`` block every snapshot embeds: tracer state,
+    flight-recorder state and the perf plane's cheap status (ledger
+    counts, profiler window state)."""
     t = get_tracer()
     out = {"trace": t.status()}
     f = get_flight()
     out["flight"] = f.status() if f is not None else None
+    try:
+        out["perf"] = perf.status()
+    except Exception:
+        pass
     return out

@@ -453,9 +453,10 @@ def sample_device_memory() -> Optional[int]:
 
 
 def default_health() -> dict:
-    """Breaker states with NO engine lock: breaker snapshots hold only
-    the per-breaker lock. (The reference adds its SLO and numerical-
-    health verdicts here; neither plane is ported yet.)"""
+    """Breaker states, the SLO watchdog and the numerical-health
+    verdict with NO engine lock: breaker snapshots hold only the
+    per-breaker lock, the SLO status its ring lock, the health block
+    the monitor's lock."""
     out: dict = {"ok": True}
     try:
         from pint_tpu_torch.runtime import supervisor as _sup
@@ -467,6 +468,28 @@ def default_health() -> dict:
                             for s in brs.values())
     except Exception as e:  # breakers unavailable != unhealthy
         out["breakers_error"] = repr(e)
+    try:
+        from pint_tpu_torch.obs import slo as _slo
+
+        w = _slo.get_watchdog()
+        if w is not None:
+            out["slo"] = w.status()
+    except Exception:
+        pass
+    try:
+        # the worst recent verdict per (pool, kind) and the last
+        # incident: an armed monitor with an unresolved incident
+        # degrades /healthz to 503 the way an open breaker does
+        from pint_tpu_torch.obs import health as _health
+
+        h = _health.status()
+        if h is not None:
+            out["numerics"] = h
+            if any(not v.get("ok", True)
+                   for v in h.get("worst", {}).values()):
+                out["ok"] = False
+    except Exception:
+        pass
     return out
 
 

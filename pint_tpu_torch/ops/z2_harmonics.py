@@ -22,6 +22,11 @@ The kernel is compiled by ``nvcc`` for sm_90a into ``build/`` beside the
 package on first use, keyed on a hash of its source, and loaded with
 ctypes; ptxas's register and spill report is kept beside the library
 (``ptxas_report``). Importing this module builds nothing.
+
+Each launch registers the sums' analytic work (``cost``) with the
+compile ledger under the key "z2_harmonics" (``obs.perf``), so
+``obs.perf.roofline_block("z2_harmonics", wall)`` reads the work of the
+latest launch's shape whatever implements it.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from typing import Optional
 import torch
 
 __all__ = ["z2_harmonics", "z2_harmonics_plain", "build", "ptxas_report",
-           "launches"]
+           "launches", "cost"]
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "z2_harmonics.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -81,6 +86,15 @@ def z2_harmonics_plain(phases: torch.Tensor, weights: torch.Tensor,
     c = torch.sum(weights[None, :] * torch.cos(ang), dim=1)
     s = torch.sum(weights[None, :] * torch.sin(ang), dim=1)
     return torch.stack([c, s])
+
+
+def cost(n: int, m: int, in_bytes: int) -> dict:
+    """The sums' analytic work for ``n`` photons of ``in_bytes`` input
+    bytes each (8: float32 phase and weight; 16: float64): each input
+    read once and the (2, m) float64 result written once; a sine-cosine
+    pair and 4 FMAs (8 flops) a harmonic and photon."""
+    return {"flops": float(9 * m * n),
+            "bytes_accessed": float(in_bytes * n + 16 * m)}
 
 
 def _nvcc() -> str:
@@ -249,4 +263,9 @@ def z2_harmonics(phases: torch.Tensor, weights: torch.Tensor,
         raise RuntimeError(f"z2_harmonics kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    from pint_tpu_torch.obs import perf
+
+    perf.note_compile("z2_harmonics", backend=f"cuda:{dev.index}",
+                      kind="hand_kernel",
+                      **cost(n, m, phi.element_size() + w.element_size()))
     return out

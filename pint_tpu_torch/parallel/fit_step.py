@@ -21,9 +21,16 @@ its ``jacfwd`` rows ride below the time rows, DM-process bases
 This is the route the reference takes on its CPU backend, where float64
 is IEEE, as it is on the GPU: the direct dd phase chain, the float64
 Jacobian and the float64 Gram, with the reference's hybrid Jacobian
-split an option (off by default, see ``_build_fit_core``). The
-anchored, f32-Jacobian and f32-Gram routes, TOA padding and health taps
-are not ported yet (ROADMAP.md).
+split an option (off by default, see ``_build_fit_core``). The anchored,
+f32-Jacobian and f32-Gram routes are not ported (ROADMAP.md).
+
+``pad_to`` pads the TOA axis to a fixed length: the padded rows repeat
+the last TOA (zero rows would put the observer at the SSB and give NaN
+in the Shapiro log) and carry ``valid`` 0, nvec 1 and no noise basis, so
+every reduction ignores them. ``health=True`` (or $PINT_TPU_HEALTH) adds
+a fifth output, the health vector [nonfinite count, max |residual| in
+sigma over the valid rows, chi2] (``obs.health``); without it the step
+runs exactly the ops it runs when no health is asked for.
 
 ``build_fit_loop`` runs up to K downhill iterations of the step, the
 step-halving line search included, and returns the ledger of applied
@@ -44,6 +51,40 @@ from pint_tpu_torch.ops.dd import dd, dd_add, dd_frac
 
 __all__ = ["build_fit_step", "build_fit_parts", "build_fit_loop",
            "SegmentSum"]
+
+
+def _pad_to(n: int, multiple: int) -> int:
+    """``n`` rounded up to a multiple of ``multiple``."""
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+def _tree_map(fn, x):
+    """``fn`` over the leaves of dicts and NamedTuples (ToaBatch, DD)."""
+    if isinstance(x, dict):
+        return {k: _tree_map(fn, v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_tree_map(fn, v) for v in x))
+    return fn(x)
+
+
+def _pad_rows(a: torch.Tensor, pad: int, dim: int = 0) -> torch.Tensor:
+    """``a`` with its last row along ``dim`` repeated ``pad`` times."""
+    last = a.narrow(dim, a.shape[dim] - 1, 1)
+    shape = list(a.shape)
+    shape[dim] = pad
+    return torch.cat([a, last.expand(*shape)], dim=dim)
+
+
+def _pad_leaf(a, pad: int):
+    """Pad the TOA axis of a ToaBatch leaf by repeating the last row
+    (zero padding would put observers at the SSB origin and NaN the
+    Shapiro log; the repeated rows are real physics, masked out of every
+    reduction by ``valid``). Leaves are (N,), (N, 3) or (P, N, 3);
+    scalars and the TZR batch's 1-length leaves are left alone."""
+    if not isinstance(a, torch.Tensor) or a.ndim == 0 or \
+            tuple(a.shape) == (1,):
+        return a
+    return _pad_rows(a, pad, dim=1 if a.ndim == 3 else 0)
 
 
 class SegmentSum:
@@ -84,11 +125,14 @@ class SegmentSum:
 
 
 def _build_fit_core(model, toas, device=None, hybrid_jac=False,
-                    wideband=False, arg_device=None):
+                    wideband=False, arg_device=None, pad_to=None,
+                    health=None):
     """(step_fn, parts_fn, args, names, meta) on ``device`` (the model's
     by default), the TOA-axis arguments on ``arg_device`` (``device`` by
     default; the streaming accumulator keeps them on the host and
-    uploads one chunk at a time). ``dparams`` is aligned with
+    uploads one chunk at a time). ``pad_to`` (> N) pads the TOA axis
+    and ``health`` adds the health vector (module docstring; ``health``
+    None reads $PINT_TPU_HEALTH). ``dparams`` is aligned with
     ``names``: an implicit
     Offset column leads unless the model has a PhaseOffset, and then
     the residuals are not mean-subtracted either (check names[0]).
@@ -102,8 +146,11 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,
     chain and a stage-sensitivity JVP over the whole chain (main and
     TZR rows), while more tangents do not add launches (vmap), so the
     all-jacfwd step is the faster one (PERF.md)."""
+    from pint_tpu_torch import config
+
     dev = model.device if device is None else resolve_device(device)
     adev = dev if arg_device is None else resolve_device(arg_device)
+    health_on = config.health_enabled(health)
     phase_fn, (free, frozen) = model._build_phase_fn()
     cache = model.get_cache(toas, adev)
     _, _, th, tl, fh, fl = model._pack()
@@ -158,11 +205,31 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,
     if F_np is None:
         F_np, phi_np = np.zeros((n, 0)), np.ones(0)
     nseg = len(jvar_np)
-    eid_t = tensor(eid_np, torch.long)
     if wideband:
         Fdm_np = model.noise_model_dm_designmatrix(toas, exclude=exclude)
         sc = {**sc, "wb_Fdm": tensor(np.zeros((n, 0)) if Fdm_np is None
                                      else Fdm_np)}
+
+    valid_np = np.ones(n)
+    if pad_to is not None and pad_to > n:
+        pad = int(pad_to) - n
+
+        def padn(x, fill=0.0):
+            x = np.asarray(x)
+            return np.concatenate([x, np.full((pad,) + x.shape[1:], fill,
+                                              x.dtype)])
+
+        batch = _tree_map(lambda a: _pad_leaf(a, pad), batch)
+        sc = _tree_map(lambda a: _pad_rows(a, pad)
+                       if isinstance(a, torch.Tensor) and a.ndim
+                       and a.shape[0] == n else a, sc)
+        F_np = padn(F_np)
+        nvec_np = padn(nvec_np, fill=1.0)  # no 0-division; masked out
+        valid_np = padn(valid_np)
+        # padded rows carry w = 0, so their segment is irrelevant: the
+        # zero-variance 'no epoch' slot nseg - 1
+        eid_np = padn(eid_np, fill=nseg - 1)
+    eid_t = tensor(eid_np, torch.long)
 
     def stack_eid(eid):
         """The epoch ids of the step's rows: the DM rows of a wideband
@@ -284,23 +351,42 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,
         dp, cov, chi2 = _gls_core(M, Fv, phi, r, nvec2, valid2, jvar,
                                   segment_plan(eid))
         # the time residuals only (the first N rows of a wideband stack)
-        return dp, cov, chi2, r[:valid.shape[0]]
+        rt = r[:valid.shape[0]]
+        if not health_on:
+            return dp, cov, chi2, rt
+        # the health vector: three reductions on the step's own tensors
+        # — the non-finite count across its outputs, the max |whitened
+        # residual| over the valid time rows, and chi2
+        def nf(x):
+            return torch.sum(~torch.isfinite(x)).to(torch.float64)
+
+        hv = torch.stack([
+            nf(r) + nf(dp) + nf(chi2),
+            torch.max(torch.abs(r) * tmask / torch.sqrt(nvec2)),
+            chi2.to(torch.float64),
+        ])
+        return dp, cov, chi2, rt, hv
 
     args = (tensor(th), tensor(tl), tensor(fh), tensor(fl), batch, sc,
-            tensor(F_np), tensor(phi_np), tensor(nvec_np), tensor(np.ones(n)),
+            tensor(F_np), tensor(phi_np), tensor(nvec_np), tensor(valid_np),
             eid_t, tensor(jvar_np))
     meta = {"incoffset": incoffset, "nseg": nseg, "wideband": wideband,
-            "has_ecorr": seg is not None}
+            "has_ecorr": seg is not None, "health": health_on}
     return (step_fn, parts_fn, args,
             (["Offset"] if incoffset else []) + free, meta)
 
 
 def build_fit_step(model, toas, device=None, hybrid_jac=False,
-                   wideband=False):
+                   wideband=False, pad_to=None, health=None):
     """(step_fn, args, names): one fit iteration and its arguments on
-    ``device`` (the model's by default); see ``_build_fit_core``."""
-    step_fn, _, args, names, _ = _build_fit_core(model, toas, device,
-                                                 hybrid_jac, wideband)
+    ``device`` (the model's by default); see ``_build_fit_core``. With
+    ``health`` armed (or $PINT_TPU_HEALTH) the step returns a FIFTH
+    output, the health vector [nonfinite_count, max_resid_sigma, chi2];
+    disarmed, the 4-tuple and the ops that make it are the ones of a
+    step built without health."""
+    step_fn, _, args, names, _ = _build_fit_core(
+        model, toas, device, hybrid_jac, wideband, pad_to=pad_to,
+        health=health)
     return step_fn, args, names
 
 
@@ -339,9 +425,14 @@ def build_fit_loop(model, toas, max_iter: int = 8,
     evaluations run (the entry step, unless given, and every trial).
     ``budget`` is a runtime limit: the loop stops at min(max_iter,
     budget). ``entry``, the ``(dp, cov, best_chi2)`` a previous call
-    returned for this (th, tl), stands in for the entry step, so that
-    chained calls evaluate each point once (not in the reference, whose
-    chained dispatches re-evaluate it).
+    returned for this (th, tl) (and its health vector when the step is
+    armed), stands in for the entry step, so that chained calls evaluate
+    each point once (not in the reference, whose chained dispatches
+    re-evaluate it). With the step's health armed (``health=True`` or
+    $PINT_TPU_HEALTH) a twelfth output follows: the health vector of
+    the accepted state (a rejected trial's is never kept: an overshoot
+    that the line search halves is the damping working, not an
+    incident).
 
     The loop is a host loop over device tensors: the step never syncs,
     and each trial reads one scalar, its chi2, for the accept test (a
@@ -351,8 +442,14 @@ def build_fit_loop(model, toas, max_iter: int = 8,
     ``dd_add(dd(th, tl), dd(delta))``, the counterpart of the host's
     ``dd_np.add(dd_np.dd(th, tl), dd_np.dd(delta))``, so replaying
     ``deltas`` on the host gives (th', tl') bit for bit. ``step_flags``
-    (``hybrid_jac``, ``wideband``) go to ``build_fit_step``."""
+    (``hybrid_jac``, ``wideband``, ``pad_to``, ``health``) go to
+    ``build_fit_step``."""
+    from pint_tpu_torch import config
+
     step_fn, args, names = build_fit_step(model, toas, device, **step_flags)
+    # the step's own resolution of its health flag
+    health_on = config.health_enabled(step_flags.get("health"))
+    nev = 4 if health_on else 3
     noff = 1 if names and names[0] == "Offset" else 0
     K = int(max_iter)
 
@@ -363,8 +460,10 @@ def build_fit_loop(model, toas, max_iter: int = 8,
     def loop_fn(th, tl, fh, fl, batch, cache, F, phi, nvec, valid, eid,
                 jvar, budget, entry=None):
         def evaluate(a, b):
-            ev = step_fn(a, b, fh, fl, batch, cache, F, phi, nvec, valid,
-                         eid, jvar)[:3]
+            out = step_fn(a, b, fh, fl, batch, cache, F, phi, nvec, valid,
+                          eid, jvar)
+            # (dp, cov, chi2) and, armed, the health vector
+            ev = out[:3] + out[4:] if health_on else out[:3]
             return ev, float(ev[2])
 
         nevals = 0
@@ -372,7 +471,7 @@ def build_fit_loop(model, toas, max_iter: int = 8,
             entry = evaluate(th, tl)
             nevals = 1
         else:
-            entry = tuple(entry), float(entry[2])
+            entry = tuple(entry)[:nev], float(entry[2])
         th, tl, ev, _, ledger, done, ntrials = downhill_dd(
             evaluate, advance, th, tl, entry, min(K, int(budget)),
             min_lambda, required_chi2_decrease, noff)
@@ -381,8 +480,11 @@ def build_fit_loop(model, toas, max_iter: int = 8,
         for k, (delta, lam) in enumerate(ledger):
             if lam > 0.0:
                 deltas[k], lams[k] = delta, lam
-        return (th, tl, ev[0], ev[1], ev[2], entry[0][2], len(ledger),
-                done, deltas, lams, nevals + ntrials)
+        out = (th, tl, ev[0], ev[1], ev[2], entry[0][2], len(ledger),
+               done, deltas, lams, nevals + ntrials)
+        # armed: the accepted state's health vector, appended at the END
+        # so every other index is untouched
+        return out + (ev[3],) if health_on else out
 
     return loop_fn, args + (K,), names
 

@@ -38,6 +38,14 @@ convergence leave the state unchanged, so the stop test is read only
 every ``CG_CHECK_EVERY`` iterations. The numpy mirrors (``acc_update_np``,
 ``cg_solve_np``, ``stream_solve_np``) are copies of the reference's, the
 host oracle of the same algebra.
+
+Health ($PINT_TPU_HEALTH, ``obs.health``): armed, each chunk also
+returns [nonfinite count, worst colmax growth] and one observation a
+pass records the worst of them (``stream.chunk``); the finalize's CG
+effort (iterations against the budget, final relative residual) is
+observed at each solve (``stream.solve``). With $PINT_TPU_SHADOW_RATE
+the solve's shadow replays the SAME accumulated state through the numpy
+CG mirror in a background thread and records the drift in sigma.
 """
 
 from __future__ import annotations
@@ -51,7 +59,8 @@ from torch.profiler import record_function
 from pint_tpu_torch import resolve_device
 from pint_tpu_torch.config import stream_chunk
 from pint_tpu_torch.gls import cho_factor, cho_solve, jacobi
-from pint_tpu_torch.parallel.fit_step import SegmentSum, build_fit_parts
+from pint_tpu_torch.parallel.fit_step import SegmentSum, _tree_map, \
+    build_fit_parts
 
 __all__ = ["StreamingGLS", "stream_solve_np", "acc_init_np",
            "acc_update_np", "acc_finalize_np", "cg_solve_np"]
@@ -100,12 +109,18 @@ def _add_at(x, i, v):
 
 
 def _acc_chunk(state, M, Fv, r0, nvec, valid, tmask, seg=None, jvar=None,
-               seg_eid=None):
+               seg_eid=None, health=False):
     """Fold one chunk into the accumulator state. ``seg`` (a
     ``SegmentSum`` over the chunk's epochs, in order), ``jvar`` (the
     per-epoch jitter variances) and ``seg_eid`` (each segment's global
     epoch id) switch the ECORR downdates on; the chunk's rows must be
-    epoch-sorted."""
+    epoch-sorted.
+
+    With ``health`` the chunk returns ``(state, hv)``, hv the 2-vector
+    [nonfinite count across the accumulated (Sig, b) and the chunk's
+    design and residual rows, the worst running-colmax growth this
+    chunk caused] (a huge late rescale is the scale-safety machinery
+    working overtime). Without it, the ops of the health-free chunk."""
     cm, Sig, b, u, vE, scal, carE, cjv, cid = state
     p = cm.shape[0]
     w = valid / nvec
@@ -113,8 +128,22 @@ def _acc_chunk(state, M, Fv, r0, nvec, valid, tmask, seg=None, jvar=None,
     cm_c = torch.amax(torch.abs(M) * valid[:, None], dim=0)
     cm_new = torch.maximum(cm, torch.where(cm_c == 0, cm, cm_c))
     cm_new = torch.where(cm_new == 0, torch.ones_like(cm_new), cm_new)
+    if health:
+        # cm is grow-only and >= 1 after init: the ratio is defined
+        resc = torch.amax(cm_new / torch.where(cm == 0,
+                                               torch.ones_like(cm), cm))
     Sig, b, u, vE, carE = _rescale_state(cm, Sig, b, u, vE, carE, cm_new, p)
     cm = cm_new
+
+    def _out(st):
+        if not health:
+            return st
+
+        def nf(x):
+            return torch.sum(~torch.isfinite(x)).to(torch.float64)
+
+        return st, torch.stack([nf(st[1]) + nf(st[2]) + nf(M) + nf(r0),
+                                resc])
     big = torch.cat([M / cm[None, :], Fv], dim=1)
     bigs = big * torch.sqrt(w)[:, None]
     Sig = Sig + bigs.T @ bigs
@@ -126,7 +155,7 @@ def _acc_chunk(state, M, Fv, r0, nvec, valid, tmask, seg=None, jvar=None,
                                               torch.sum(wt * r0),
                                               torch.sum(wt)]), scal[3:]])
     if seg is None:
-        return cm, Sig, b, u, vE, scal, carE, cjv, cid
+        return _out((cm, Sig, b, u, vE, scal, carE, cjv, cid))
 
     # ---- ECORR Sherman-Morrison with the boundary carry ---------------
     s_seg = seg(w)
@@ -162,7 +191,7 @@ def _acc_chunk(state, M, Fv, r0, nvec, valid, tmask, seg=None, jvar=None,
     scal = _add_at(scal, 4, torch.sum(g * s_seg * wr_seg))
     scal = _add_at(scal, 5, torch.sum(g * s_seg * s_seg))
     scal = torch.cat([scal[:6], torch.stack([s_seg[L], wr_seg[L]])])
-    return cm, Sig, b, u, vE, scal, E_seg[L], jv_seg[L], seg_eid[L]
+    return _out((cm, Sig, b, u, vE, scal, E_seg[L], jv_seg[L], seg_eid[L]))
 
 
 def _flush_carry(state):
@@ -541,16 +570,6 @@ def stream_solve_np(M, F, phi, r0, nvec, chunk: int,
 # --------------------------------------------------------- StreamingGLS
 
 
-def _tree_map(fn, x):
-    """``fn`` over the tensor leaves of dicts and NamedTuples (ToaBatch,
-    DD)."""
-    if isinstance(x, dict):
-        return {k: _tree_map(fn, v) for k, v in x.items()}
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(_tree_map(fn, v) for v in x))
-    return fn(x)
-
-
 class StreamingGLS:
     """One model and TOA set's streaming GLS: the chunked accumulator and
     the CG finalize, re-runnable at any parameter point (th, tl); the
@@ -564,13 +583,19 @@ class StreamingGLS:
     uploads one chunk at a time to ``device`` (the model's by default);
     the last chunk is padded by repeating its last row with valid = 0
     (the reference's ``_pad_leaf`` convention). ``flags`` go to
-    ``build_fit_parts`` (``hybrid_jac``); wideband TOAs are refused."""
+    ``build_fit_parts`` (``hybrid_jac``); wideband TOAs are refused.
+    ``health`` (None: $PINT_TPU_HEALTH) arms the chunk and solve taps
+    (module docstring)."""
 
     def __init__(self, model, toas, chunk: Optional[int] = None,
-                 device=None, **flags):
+                 device=None, health=None, **flags):
+        from pint_tpu_torch import config
+
         if flags.pop("wideband", False):
             raise ValueError("streaming GLS does not support wideband TOAs "
                              "(stacked DM rows); use the dense fitters")
+        self.health_on = config.health_enabled(health)
+        self.last_pass_hv = None   # worst chunk vector of the last pass
         dev = model.device if device is None else resolve_device(device)
         self.device = dev
         parts_fn, args, names, meta = build_fit_parts(
@@ -682,18 +707,26 @@ class StreamingGLS:
 
     # -- device passes -------------------------------------------------
 
-    def accumulate(self, th, tl):
+    def accumulate(self, th, tl, observe: bool = True):
         """One streaming pass at the parameter point (th, tl) (host
         float64 arrays in the step's slots): ceil(N/C) supervised chunk
         dispatches (``stream.chunk``). Returns the accumulator state:
         host tensors after a guarded dispatch (the state, ~(p+q)^2
         float64, goes to the host between chunks, as in the reference,
         so the watchdog covers each chunk's device work). A DispatchError
-        propagates to the fitter's failover boundary."""
+        propagates to the fitter's failover boundary.
+
+        Armed, the pass's worst chunk health vector is kept as
+        ``last_pass_hv`` and observed once (``stream.chunk``);
+        ``observe=False`` skips the observation (the downhill fitter's
+        line-search trials: a rejected overshoot is the damping
+        working, not an incident; the fitter observes the passes it
+        keeps)."""
         from pint_tpu_torch.runtime import get_supervisor
 
         sup = get_supervisor()
         dev = self.device
+        health_on = self.health_on
         th = np.asarray(th, np.float64)
         tl = np.asarray(tl, np.float64)
 
@@ -712,24 +745,53 @@ class StreamingGLS:
                     self._phi, nvec_c, valid_c, eid_c, self._jvar)
                 if plan is None:
                     return _acc_chunk(state, M, Fv, r0, nvec2, valid2,
-                                      tmask)
+                                      tmask, health=health_on)
                 return _acc_chunk(state, M, Fv, r0, nvec2, valid2,
-                                  tmask, plan[0], self._jvar, plan[1])
+                                  tmask, plan[0], self._jvar, plan[1],
+                                  health=health_on)
 
         state = None
+        hv_worst = None
+        self.last_pass_hv = None
         for k in range(self.nchunks):
-            state = sup.dispatch(run, state, k, key="stream.chunk",
-                                 device=dev)
+            out = sup.dispatch(run, state, k, key="stream.chunk",
+                               device=dev)
+            if health_on:
+                # the pass's worst chunk vector (max over both slots):
+                # one observation a pass, not one a chunk
+                state, hv = out
+                hv = hv.cpu().numpy()
+                hv_worst = hv if hv_worst is None else \
+                    np.maximum(hv_worst, hv)
+            else:
+                state = out
+        if hv_worst is not None:
+            self.last_pass_hv = hv_worst
+            if observe:
+                from pint_tpu_torch.obs import health as _health
+
+                _health.observe("stream.chunk",
+                                {"nonfinite": hv_worst[0],
+                                 "rescale": hv_worst[1]},
+                                key="stream.chunk")
         return state
 
     def solve(self, state, budget: Optional[int] = None,
-              tol: float = 1e-13):
+              tol: float = 1e-13, observe: bool = True):
         """CG-finalize an accumulated state (one supervised dispatch,
         ``stream.solve``): (dparams, cov, chi2, chi2r, xf, ok, iters,
         rel_resid) on the host, dparams the correction
         to add, aligned with ``self.names``; chi2 the linearized
         post-fit chi2, chi2r the basis-marginalized chi2 at the point
-        (``Residuals.chi2``'s meaning), xf the ML basis amplitudes."""
+        (``Residuals.chi2``'s meaning), xf the ML basis amplitudes.
+
+        Health ($PINT_TPU_HEALTH) observes the CG effort against its
+        budget (``observe=False`` skips it); shadow sampling
+        ($PINT_TPU_SHADOW_RATE) replays the SAME state through the numpy
+        CG mirror in a background thread and records the drift in sigma
+        (the state is host-resident and (p+q)^2 small: the cheapest
+        shadow of the stack)."""
+        from pint_tpu_torch.obs import health as _health
         from pint_tpu_torch.runtime import get_supervisor
 
         if budget is None:
@@ -742,8 +804,31 @@ class StreamingGLS:
                     tuple(x.to(dev) for x in state), self._phi,
                     int(budget), float(tol), self.incoffset)
 
+        def shadow(out):
+            # the numpy mirror of the SAME state (copied: the mirror's
+            # carry flush mutates); drift = max |d dp| in sigma of the
+            # card's covariance. A failed CG (ok False: the caller
+            # raises or rejects the trial) is not shadow-applicable
+            if not bool(out[5]):
+                return None
+            mirror = [x.cpu().numpy().copy() for x in state]
+            mdp = acc_finalize_np(mirror, self.phi,
+                                  incoffset=self.incoffset,
+                                  budget=budget, tol=tol)[0]
+            return _health.drift_sigma(out[0].cpu().numpy(),
+                                       out[1].cpu().numpy(), mdp)
+
         dp, cov, chi2, chi2r, xf, ok, iters, resid = \
-            get_supervisor().dispatch(run, key="stream.solve", device=dev)
+            get_supervisor().dispatch(run, key="stream.solve", device=dev,
+                                      shadow=shadow, shadow_kind="stream")
+        if observe:
+            _health.observe("stream.solve",
+                            {"cg_iters": int(iters),
+                             "cg_budget": int(budget),
+                             "cg_rel_residual": float(resid),
+                             "ok": bool(ok), "chi2": float(chi2r),
+                             "values": [dp.cpu().numpy(), float(chi2)]},
+                            key="stream.solve")
         return (dp.cpu().numpy(), cov.cpu().numpy(), float(chi2),
                 float(chi2r), xf.cpu().numpy(), bool(ok), iters,
                 float(resid))

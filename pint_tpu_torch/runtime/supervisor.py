@@ -72,9 +72,19 @@ re-entered in the worker; the current CUDA stream and
 ``record_function`` ranges are not carried (a worker runs on the
 default stream).
 
-The shadow oracle (``dispatch(shadow=)``) and the perf-phase
-decomposition of the reference need ``obs.health`` and ``obs.perf``,
-which are not ported yet (ROADMAP.md item 11b).
+The shadow oracle (``dispatch(shadow=)``): every Nth successful
+device dispatch of a key that passes a ``shadow`` hook
+($PINT_TPU_SHADOW_RATE) hands the result to ``obs.health``'s background
+replay on the numpy mirror, which records the drift in sigma; failover
+results and pinned calls are never shadowed. With ``obs.perf`` armed
+($PINT_TPU_PERF) a guarded dispatch splits its wall into queue_wait
+(worker start), host_assembly (``fn`` up to its return: the host work
+and the enqueue), device_wall (the worker's host read and a
+``torch.cuda.synchronize()``: the device work) and collect (worker wake
+and unboxing), recorded in ``RuntimeMetrics.perf``. The first call per
+key feeds the compile ledger (``obs.perf.note_compile``), and a breaker
+tripping open fires one automatic profiler window
+(``obs.perf.auto_window``, armed by $PINT_TPU_PROFILE_DIR).
 """
 
 from __future__ import annotations
@@ -114,10 +124,6 @@ _DISPATCH_FAULT_KINDS = ("hang", "error", "nan", "rtt_drift")
 _DRIFT_FACTOR = 2.0
 # predictions below this are noise on any device — no drift verdicts
 _DRIFT_FLOOR_MS = 5.0
-
-SHADOW_REFUSAL = ("dispatch(shadow=): the shadow oracle needs obs.health, "
-                  "which is not ported yet (ROADMAP.md item 11b)")
-
 
 class DispatchError(RuntimeError):
     """Base class for supervised-dispatch infrastructure failures
@@ -174,7 +180,11 @@ class RuntimeMetrics:
     ``scope``), and ``snapshot()``/attribute reads are derived views of
     the same values. The dispatch-wall HistogramSet shares its rows
     with the registry's ``pint_tpu_dispatch_wall_seconds`` histogram.
-    ``device_lost`` (the port's own) counts sticky CUDA errors."""
+    ``device_lost`` (the port's own) counts sticky CUDA errors. The
+    dispatch-wall decomposition rows (``perf``: per (pool, key) x
+    queue_wait | host_assembly | device_wall | collect) are recorded
+    only when the perf plane is armed, and share their rows with the
+    ``pint_tpu_perf_dispatch_phase_seconds`` histogram."""
 
     _COUNTERS = ("dispatches", "guarded", "retries", "timeouts",
                  "transient_errors", "failovers",
@@ -218,6 +228,13 @@ class RuntimeMetrics:
             row_factory=lambda key, metric: hist.row(
                 scope=scope, pool=str(key[0]), key=str(key[1]),
                 metric=metric))
+        phist = om.histogram("pint_tpu_perf_dispatch_phase_seconds",
+                             "supervised dispatch wall "
+                             "decomposition per (pool, key) x phase")
+        self.perf = HistogramSet(
+            row_factory=lambda key, metric: phist.row(
+                scope=scope, pool=str(key[0]), key=str(key[1]),
+                metric=metric))
 
     def __getattr__(self, name):
         # registry-backed counter reads (the `metrics.timeouts`
@@ -257,6 +274,9 @@ class RuntimeMetrics:
         lat = self.latency.snapshot()
         if lat:
             out["latency"] = lat
+        pf = self.perf.snapshot()
+        if pf:
+            out["perf"] = pf
         return out
 
 
@@ -364,8 +384,17 @@ class DispatchSupervisor:
         info      optional caller-owned dict the supervisor marks
                   with ``{"failover": True}`` when this dispatch
                   resolved through its host fallback.
-        shadow    the reference's shadow oracle; refused here
-                  (NotImplementedError, ROADMAP.md item 11b).
+        shadow    shadow-oracle replay hook: ``shadow(out) -> drift
+                  sigma | None`` re-runs the completed solve on the
+                  numpy mirror. The supervisor only schedules it: when
+                  $PINT_TPU_SHADOW_RATE says this key's Nth successful
+                  dispatch is due, the hook runs on a background daemon
+                  thread and the drift lands in ``obs.health`` — never
+                  on the dispatch's own path, never on a failover
+                  result or a pinned call (both ran on the host, so a
+                  mirror replay would read as zero drift).
+        shadow_kind  health-kind label of the shadow recording (the
+                  dispatch key by default).
         _plan_hits  internal: fault-plan rules pre-fetched at issue
                   time by dispatch_async; first attempt only.
 
@@ -376,8 +405,6 @@ class DispatchSupervisor:
         """
         from pint_tpu_torch import obs
 
-        if shadow is not None:
-            raise NotImplementedError(SHADOW_REFUSAL)
         kw = kw or {}
         backend = backend_of(device)
         # lock sanitizer: a guarded dispatch issued while this thread
@@ -388,9 +415,30 @@ class DispatchSupervisor:
                       backend=backend, steps=steps, depth=depth,
                       pinned=pinned) as sp:
             fo: dict = info if info is not None else {}
-            return self._dispatch_in_span(
+            out = self._dispatch_in_span(
                 sp, fn, args, kw, key, steps, fallback, guard,
                 pinned, depth, _plan_hits, backend, _fo=fo)
+            if shadow is not None and not fo.get("failover") \
+                    and not pinned:
+                self._maybe_shadow(key, shadow_kind or key, shadow, out)
+            return out
+
+    def _maybe_shadow(self, key, kind, shadow, out):
+        """Shadow-oracle scheduler: rate-gate per key, then hand the
+        replay to the health monitor's background thread. Never raises
+        into the dispatch path."""
+        try:
+            from pint_tpu_torch.obs import health as _health
+
+            mon = _health.get_monitor()
+            if not mon.shadow_rate or not mon.shadow_due(key):
+                return
+            from pint_tpu_torch import obs
+
+            obs.event("health.shadow_issue", key=key, kind=kind)
+            mon.shadow_replay(kind, key, lambda: shadow(out))
+        except Exception:  # the black box must not break dispatch
+            pass
 
     def _dispatch_in_span(self, sp, fn, args, kw, key, steps,
                           fallback, guard, pinned, depth, _plan_hits,
@@ -422,6 +470,14 @@ class DispatchSupervisor:
         retries = config.dispatch_retries()
         deadline_s = self._deadline_s(key, steps, backend,
                                       depth=depth)
+        # perf decomposition arming: one cached-bool read when
+        # disarmed; the phases exist only on the guarded worker, whose
+        # fn-return and host-read boundaries ARE the split
+        perf_on = False
+        if guard:
+            from pint_tpu_torch.obs import perf as _perf
+
+            perf_on = _perf.enabled()
         attempt = 0
         while True:
             if _plan_hits is not None:
@@ -445,10 +501,18 @@ class DispatchSupervisor:
                     raise (inj_err.exc if inj_err.exc is not None
                            else faults.TransientFault(
                                f"injected transient error at {key}"))
+                ph: Optional[list] = [] if perf_on else None
                 if guard:
                     m.bump("guarded")
-                    out = self._guarded_call(
-                        fn, args, kw, deadline_s, pre_sleep, nan)
+                    # ph passed only when armed: the disarmed call is
+                    # the one test doubles wrap positionally
+                    if ph is not None:
+                        out = self._guarded_call(
+                            fn, args, kw, deadline_s, pre_sleep, nan,
+                            ph=ph)
+                    else:
+                        out = self._guarded_call(
+                            fn, args, kw, deadline_s, pre_sleep, nan)
                 else:
                     out = fn(*args, **kw)
                     if nan:
@@ -523,6 +587,36 @@ class DispatchSupervisor:
                     "first-call (trace+compile+dispatch) wall per "
                     "dispatch key").set(
                     wall, scope=self.metrics.scope, key=key)
+                # the same detection feeds the compile ledger: every
+                # supervised dispatch key gets an entry with its
+                # first-call wall
+                from pint_tpu_torch.obs import perf as _perf
+
+                _perf.note_compile(key, backend=backend,
+                                   compile_wall_s=wall)
+            if ph is not None and len(ph) == 3:
+                # the four phases telescope over [t0, t0 + wall]:
+                # queue_wait (worker spawn), host_assembly (fn up to
+                # its return), device_wall (the host read and the
+                # synchronize), collect (worker wake + unbox); none of
+                # this feeds the RTT drift model
+                t_end = t0 + wall
+                qs = max(0.0, ph[0] - t0)
+                ha = max(0.0, ph[1] - ph[0])
+                dw = max(0.0, ph[2] - ph[1])
+                co = max(0.0, t_end - ph[2])
+                pkey = ("host" if pinned else backend, key)
+                pf = self.metrics.perf
+                pf.record(pkey, "queue_wait", qs)
+                pf.record(pkey, "host_assembly", ha)
+                pf.record(pkey, "device_wall", dw)
+                pf.record(pkey, "collect", co)
+                sp.event("perf.phases",
+                         queue_wait_ms=round(qs * 1e3, 3),
+                         host_assembly_ms=round(ha * 1e3, 3),
+                         device_wall_ms=round(dw * 1e3, 3),
+                         collect_ms=round(co * 1e3, 3),
+                         depth=depth)
             # no drift verdict on the first call per key (its wall
             # includes the start-up the allowance budgets) nor for a
             # pinned (host) call, which says nothing of the device
@@ -548,8 +642,15 @@ class DispatchSupervisor:
 
             sp.event("breaker.open", backend=backend,
                      trips=br.trips)
-            obs.flight_dump("breaker_open", backend=backend,
-                            breaker=br.snapshot())
+            fpath = obs.flight_dump("breaker_open", backend=backend,
+                                    breaker=br.snapshot())
+            # one automatic profiler window capturing the dispatches
+            # that follow the trip: armed by $PINT_TPU_PROFILE_DIR, one
+            # per episode (per-reason rate limit), never raises
+            from pint_tpu_torch.obs import perf as _perf
+
+            _perf.auto_window("breaker_open", backend=backend,
+                              flight=fpath)
 
     @staticmethod
     def _breaker_latch(br, sp, backend, exc):
@@ -654,13 +755,21 @@ class DispatchSupervisor:
         self.note_failover(key, exc, sp=sp)
         return fallback()
 
-    def _guarded_call(self, fn, args, kw, deadline_s, pre_sleep, nan):
+    def _guarded_call(self, fn, args, kw, deadline_s, pre_sleep, nan,
+                      ph: Optional[list] = None):
+        """Run the dispatch on a daemon worker under the deadline. ``ph``
+        (perf armed): a caller-owned list the worker fills with its
+        three phase boundaries — worker start, ``fn`` return (host
+        assembly and enqueue done) and the end of the host read and a
+        ``torch.cuda.synchronize()`` (the device work done)."""
         box: dict = {}
         done = threading.Event()
         mode = _torch_mode()
 
         def work():
             try:
+                if ph is not None:
+                    ph.append(time.perf_counter())
                 if pre_sleep:
                     # injected wedge: a real wedge never completes, so
                     # the payload is never run — the worker sleeps out
@@ -673,10 +782,15 @@ class DispatchSupervisor:
                         "injected hang elapsed (dispatch abandoned)")
                 with _enter_mode(mode):
                     out = fn(*args, **kw)
+                    if ph is not None:
+                        ph.append(time.perf_counter())
                     # the host read INSIDE the worker: a CUDA call
                     # returns at enqueue, so without this the caller's
                     # first read would block OUTSIDE the watchdog
                     out = _host_read(out)
+                    if ph is not None:
+                        _sync_cuda()
+                        ph.append(time.perf_counter())
                 if nan:
                     out = _nan_like(out)
                 box["out"] = out
@@ -921,6 +1035,15 @@ def _tree_map(fn, out):
     if isinstance(out, dict):
         return {k: _tree_map(fn, v) for k, v in out.items()}
     return fn(out)
+
+
+def _sync_cuda():
+    """``torch.cuda.synchronize()`` when this process has a CUDA context
+    (the perf decomposition's end of the device wall: a result with no
+    CUDA tensor leaves the host read nothing to wait for)."""
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 def _host_read(out):

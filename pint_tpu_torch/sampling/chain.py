@@ -22,6 +22,10 @@ Modes:
   step), so the two modes draw identical numbers and give the same chain
   bit for bit — host_loop is the oracle of the chunking.
 
+Health ($PINT_TPU_HEALTH, ``obs.health``): each chunk's walker
+log-posteriors and acceptance count, already returned by its dispatch,
+are observed as ``posterior.chunk`` (no extra dispatch), attributed to
+the pool that produced them (``host`` after a failover).
 """
 
 from __future__ import annotations
@@ -170,11 +174,25 @@ class DeviceEnsembleSampler(ChainStats):
                 return call(torch.device("cpu"), True)
 
             with obs.span("sampling.chunk", steps=budget):
+                dinfo: dict = {}
                 out = sup.dispatch(call, dev, False, key="sampling.chain",
                                    steps=budget, device=dev,
-                                   fallback=self._fallback(run_pinned))
+                                   fallback=self._fallback(run_pinned),
+                                   info=dinfo)
+                pos_h, lp_h, acc, chain, lnp = (x.cpu() for x in out)
+                # NaN/+inf log-posteriors are the incident class (-inf
+                # is a legal parked walker); the acceptance fraction is
+                # a gauge only: healthy ensembles range widely
+                from pint_tpu_torch.obs import health as _health
+
+                _health.observe(
+                    "posterior.chunk",
+                    {"lnpost": lp_h.numpy(),
+                     "accept_frac": float(acc)
+                     / max(1, budget * self.nwalkers)},
+                    pool="host" if dinfo.get("failover") else "device",
+                    key="sampling.chain")
             self._c_dispatches.inc()
-            pos_h, lp_h, acc, chain, lnp = (x.cpu() for x in out)
             accepted += int(acc)
             chains.append(chain)
             lnps.append(lnp)

@@ -21,7 +21,9 @@ model's device.
 Each stacked solve is one supervised dispatch of the whole pass (keys
 ``wideband.solve`` and ``wideband.svd``, GLSFitter's machinery); a
 timed-out, broken or breaker-open device fails it over to the numpy
-mirror on the same stacked system rebuilt on the CPU.
+mirror on the same stacked system rebuilt on the CPU. Armed
+($PINT_TPU_HEALTH), the stacked Cholesky solve returns its health
+vector and is observed as ``wideband.solve`` (not shadowed).
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ class WidebandTOAFitter(GLSFitter):
 
     _KEY = "wideband"
     _WHAT = "wideband normal matrix"
+    _SHADOW = None   # the reference shadows the time-only solve alone
 
     def __init__(self, toas, model, residuals=None, track_mode=None):
         get_wideband_dm(toas)  # validate the flags up front

@@ -7,9 +7,12 @@ pulsar, fixed-noise and noise-sampled) and the photon plane (a template,
 an LCFitter value and a PhotonMCMCFitter likelihood batch on that
 pulsar's TOAs), and so do the runtime and the obs core (a GLS fit whose
 solves hang under a fault plan and fail over to the numpy mirror, the
-registry's exposition, a span), and so does the host API of this slice
-(a UNITS TCB par converted, polycos generated, an ecliptic round trip,
-a design matrix, select, d_phase_d_toa and the native MJD parser)."""
+registry's exposition, a span), and so does the host API (a UNITS TCB
+par converted, polycos generated, an ecliptic round trip, a design
+matrix, select, d_phase_d_toa and the native MJD parser), and so do the
+health, perf and SLO planes (an armed step's health vector, a shadowed
+GLS solve, a padded step, the decomposition of a guarded dispatch, the
+compile ledger, a profiler window, an SLO tick, the scoreboard)."""
 
 import os
 import subprocess
@@ -56,7 +59,9 @@ for name in ("pint_tpu_torch.pta.gwb", "pint_tpu_torch.parallel.pta",
              "pint_tpu_torch.utils", "pint_tpu_torch.modelutils",
              "pint_tpu_torch.derived_quantities",
              "pint_tpu_torch.pint_matrix", "pint_tpu_torch.binaryconvert",
-             "pint_tpu_torch.models.tcb_conversion"):
+             "pint_tpu_torch.models.tcb_conversion",
+             "pint_tpu_torch.obs.health", "pint_tpu_torch.obs.slo",
+             "pint_tpu_torch.obs.perf", "pint_tpu_torch.profiling"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu")
@@ -185,6 +190,43 @@ days, _ = parse_mjd_strings(strs)
 import shutil
 assert days[-1] == 55299.0
 assert native.native_available() == (shutil.which("g++") is not None)
+
+import time
+
+from pint_tpu_torch import profiling
+from pint_tpu_torch.obs import health, perf, slo
+from pint_tpu_torch.parallel import build_fit_step
+
+mon = health.configure(enabled=True, shadow_rate=1)
+step, args, _ = build_fit_step(model, toas, health=True)
+hv = step(*args)[4]
+assert hv.shape == (3,) and float(hv[0]) == 0.0
+pstep, pargs, _ = build_fit_step(model, toas, pad_to=32)
+assert pargs[9].shape == (32,) and torch.isfinite(pstep(*pargs)[2])
+_os.environ.pop("PINT_TPU_DISPATCH_DEADLINE_MS")
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    GLSFitter(toas, model).fit_toas()
+t0 = time.monotonic()
+while mon._c_shadow.total() < 2 and time.monotonic() - t0 < 60:
+    time.sleep(0.02)
+assert mon.status()["shadow_replays"] >= 2
+assert mon.status()["shadow_drift_exceeded"] == 0
+with tempfile.TemporaryDirectory() as d:
+    perf.configure(enabled=True, profile_dir=d, max_s=0.2)
+    get_supervisor().dispatch(lambda: torch.ones(3), key="nojax.decomp",
+                              guard=True)
+    assert "perf" in get_supervisor().snapshot()
+    assert perf.get_ledger().get("nojax.decomp") is not None
+    assert perf.request_window(0.1, reason="nojax")["ok"]
+    perf.get_profiler().stop_open()
+    assert perf.get_profiler().status()["last"]["status"] == "closed"
+wd = slo.SLOWatchdog(specs=slo.default_specs(), interval_s=1.0)
+assert wd.tick(now=0.0) == []
+with profiling.annotate("nojax"):
+    pass
+assert profiling.scoreboard.counts["nojax"] == 1
+obs.reset()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu")
                 and sys.modules[m] is not None)

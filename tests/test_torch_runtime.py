@@ -17,7 +17,7 @@ from measuring one).
 The rest are the port's own: the LOST state a sticky CUDA error latches,
 the sticky and OOM classification, the CUDA deadline floor, the async
 drain, drift inside and outside its window, grad mode in the worker and
-the refused ``shadow=``. Deadlines are 150-500 ms and hangs at most 3 s.
+the ``shadow=`` refused for failover results and pinned calls. Deadlines are 150-500 ms and hangs at most 3 s.
 """
 
 import threading
@@ -837,10 +837,33 @@ def test_probe_subprocess_is_bounded(monkeypatch):
     assert psup._probe_for("cpu")() is True
 
 
-def test_shadow_is_refused():
-    with pytest.raises(NotImplementedError, match="11b"):
-        DispatchSupervisor().dispatch(lambda: 1, key="s",
-                                      shadow=lambda out: 0.0)
+def test_shadow_is_refused(monkeypatch):
+    """The shadow runs on a successful device dispatch and is refused for
+    a failover result and for a pinned (host) call: both ran on the
+    host, so a mirror replay of them would read as zero drift."""
+    from pint_tpu_torch.obs import health as phealth
+
+    monkeypatch.setenv("PINT_TPU_DISPATCH_DEADLINE_MS", "150")
+    mon = phealth.configure(enabled=True, shadow_rate=1)
+    seen = []
+
+    def shadow(out):
+        seen.append(out)
+        return 0.0
+
+    sup = DispatchSupervisor()
+    assert sup.dispatch(lambda: 1, key="s", shadow=shadow) == 1
+    with FaultPlan([Fault(match="s.fail", kind="hang", seconds=1.0)]).active():
+        assert sup.dispatch(lambda: 1, key="s.fail", fallback=lambda: 2,
+                            shadow=shadow) == 2
+    assert sup.dispatch(lambda: 3, key="s.pin", pinned=True,
+                        shadow=shadow) == 3
+    t0 = time.monotonic()
+    while mon._c_shadow.total() < 1 and time.monotonic() - t0 < 30.0:
+        time.sleep(0.02)
+    time.sleep(0.1)
+    assert seen == [1]
+    assert mon.status()["shadow_replays"] == 1
 
 
 def test_metrics_are_registry_backed_and_spans_label_the_episode(
