@@ -375,7 +375,56 @@ Phases, each fatal on failure:
      burn; a synthetic burn fires one slo_burn dump and one cross-linked
      window;
    its `health_perf` JSON line holds the numbers;
-17. print the card's name and power limit, and one JSON line of kernel
+17. serving (pint_tpu_torch.serve; no hand-written kernel: K1 launches
+   0 times here), each part fatal, on the cells above at full width;
+   after each fault-free part the engine's supervisor counts no
+   failover, timeout or breaker rejection and every unit ran on the
+   device pool:
+   (a) bench_serve's workload (build_workload(64, BENCH_SIZES,
+     prebuild=True): six pulsars in buckets 64/128/256, polyco reads and
+     residual requests) on the card sequential, coalesced and threaded
+     with the pipelined drain, each twice: the modes within
+     tests/test_serve.py's 1e-9 of one another, the card within 1e-8 of
+     a CPU engine and of the host oracles (pta_solve_np, abs_phase),
+     compile_count equal to the classes; requests/s, occupancy, padded
+     waste, p50/p99, launches a dispatch and the idle share of one
+     profiled coalesced pass;
+   (b) the fit cell (10,000 TOAs, bucket 16,384) and the stress problem
+     (124 free), four FitStepRequests of each, coalesced, against
+     pta_solve of each problem alone on the card and pta_solve_np
+     (dparams 1e-6 sigma, cov diagonal 1e-8, chi2 1e-10); dispatch ms
+     and peak device memory, F's bytes reckoned first;
+   (c) the fit cell without its ECORR line (the append path refuses
+     ECORR) and with its DMX windows frozen (the first 8,000 TOAs in
+     time order never see the last windows): a cold build of those
+     TOAs, then four appends of 500, each against a cold streaming
+     solve of all the TOAs so far
+     (1e-7 sigma, chi2r 1e-8: tests/test_streaming_gls.py's); CG
+     iterations;
+   (d) phase 15's day of polycos from config 2 at gbt, 100,000 MJDs
+     over its segments as PhasePredictRequests: against
+     PolycoEntry.abs_phase (1e-9 turns) and model.phase (1e-6 turns);
+   (e) config 5's 67 pulsars as PosteriorRequests (32 walkers x 600
+     steps, seed k): bitwise sample_problems' chains at the served class;
+     a GWBRequest at config 5 (14 frequencies, 8 x 8 grid): bitwise
+     gwb_sweep_driver on its likelihood;
+   (f) the device breaker open: every unit demoted to the host pool;
+     the card hanging from the third unit on (1 s deadlines): every
+     future completes, each failed-over request bitwise the host pool's
+     result; a tenant over quota, an expired deadline and a graceful
+     stop each shed with their label;
+   (g) the engine killed mid-journal and restarted warm (AotStore):
+     the replay bitwise an uninterrupted engine with no new class (its
+     restored classes, hits and the first batch's ms cold against
+     warm); a two-worker FleetFront losing a worker re-homes its
+     unacknowledged admits, none lost;
+   (h) pint_serve --demo 64 on the card, then a stdin JSONL session on
+     NGC6440E (fit_step, residuals, phase, posterior, stats) with
+     --journal and --metrics-port 0: /metrics and /healthz scraped,
+     SIGTERM, one result line a request, the serve_session snapshot
+     last;
+   its `serve` JSON line holds the numbers;
+18. print the card's name and power limit, and one JSON line of kernel
    measurements.
 
 The last line of standard output is {"ok": true, "device": {...}}. The
@@ -5927,6 +5976,856 @@ def health_perf_phase(ctx: dict, dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ serving (17)
+
+SERVE_NREQ = 64                # bench_serve.py's mixed workload
+SERVE_COPIES = 4               # (b): FitStepRequests of each full-width cell
+SERVE_MODE_RTOL = 1e-9         # tests/test_serve.py: coalesced vs sequential
+SERVE_ORACLE_RTOL = 1e-8       # tests/test_serve.py: the host oracles
+SERVE_PHASE_TURNS = 2e-9       # 10 ps at the workload polyco's 200 Hz
+SERVE_FULL_SIGMA, SERVE_FULL_COV, SERVE_FULL_CHI2 = 1e-6, 1e-8, 1e-10
+SERVE_APPEND = (8_000, 500, 4)  # cold TOAs, TOAs an append, appends
+SERVE_APPEND_SIGMA, SERVE_APPEND_CHI2 = 1e-7, 1e-8  # test_streaming_gls.py
+SERVE_PHASE_NMJD = 100_000
+SERVE_POLYCO_TURNS = 1e-9      # (d) against PolycoEntry.abs_phase
+SERVE_POST = (32, 600)         # (e) walkers, steps
+SERVE_WEDGE = (1.0, 3.0)       # (f) deadline and hang of the wedged card [s]
+SERVE_PASSES = 5               # (a) timed passes a mode, after a warm one
+
+
+def serve_close(a, b, rtol: float, atol: float) -> float:
+    """The worst relative difference of two served results, at most rtol
+    where tests/test_serve.py's assert_allclose(rtol, atol) holds
+    (dparams; cov diagonal, chi2 and chi2r relative); for phases the
+    turns apart. 0 when bitwise equal."""
+    if hasattr(a, "phase_int"):
+        return float(np.max(np.abs((a.phase_int - b.phase_int)
+                                   + (a.phase_frac - b.phase_frac)),
+                            initial=0.0))
+    if hasattr(a, "dparams"):
+        return max(rel_err(a.dparams, b.dparams, rtol, atol),
+                   rel_err(np.diag(a.cov), np.diag(b.cov), rtol),
+                   abs(a.chi2 - b.chi2) / abs(b.chi2),
+                   abs(a.chi2r - b.chi2r) / abs(b.chi2r))
+    return abs(a.chi2 - b.chi2) / abs(b.chi2)
+
+
+def serve_within(name: str, got: list, want: list, rtol: float,
+                 atol: float = 1e-15) -> float:
+    """Every pair within tests/test_serve.py's limits (phases within 10
+    ps); returns the worst difference."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        lim = SERVE_PHASE_TURNS if hasattr(a, "phase_int") else rtol
+        err = serve_close(a, b, rtol, atol)
+        if not err <= lim:
+            fail(f"serve: {name}: a result is {err:.3e} off (limit {lim})")
+        worst = max(worst, err)
+    return worst
+
+
+def serve_bitwise(a, b) -> bool:
+    if hasattr(a, "phase_int"):
+        return np.array_equal(a.phase_int, b.phase_int) and \
+            np.array_equal(a.phase_frac, b.phase_frac)
+    if hasattr(a, "dparams"):
+        return np.array_equal(a.dparams, b.dparams) and \
+            np.array_equal(a.cov, b.cov) and a.chi2 == b.chi2 \
+            and a.chi2r == b.chi2r
+    return a.chi2 == b.chi2
+
+
+def serve_clean(eng, label: str, host_ok: bool = False) -> dict:
+    """A fault-free part: the engine's supervisor counts no failover,
+    timeout or breaker rejection, and every unit ran on the device pool."""
+    snap = eng.metrics.snapshot()
+    d, rt = snap["dispatch"], snap["router"]
+    out = {"failovers": d["failovers"], "timeouts": d["timeouts"],
+           "breaker_rejections": d["breaker_rejections"],
+           "device_units": rt["device"]["dispatches"],
+           "host_units": rt["host"]["dispatches"]}
+    bad = out["failovers"] or out["timeouts"] or out["breaker_rejections"] \
+        or (out["host_units"] and not host_ok)
+    if bad or any(not k.startswith("device/") for k in snap["latency"]):
+        fail(f"serve: {label}: a fault-free part left the device: {out}")
+    return out
+
+
+def serve_stats(eng, n: int, wall: float) -> dict:
+    snap = eng.metrics.snapshot()
+    units = sum(b.batches for b in eng.metrics.buckets.values())
+    return {"requests": n, "wall_s": wall, "requests_per_s": n / wall,
+            "units": units, "occupancy": snap["batch_occupancy"],
+            "padded_waste": snap["padded_waste"], "p50_ms": snap["p50_ms"],
+            "p99_ms": snap["p99_ms"], "compile_count": snap["compile_count"],
+            "classes": snap["bucket_count"]}
+
+
+def serve_mixed(dev) -> dict:
+    """(a) bench_serve's mixed workload through the engine on the card in
+    three modes, each against the others, a CPU engine and the host
+    oracles; requests/s, occupancy, waste, latency, launches a dispatch
+    and the idle share of the coalesced mode."""
+    from pint_tpu_torch.parallel.pta import pta_solve_np, stack_problems
+    from pint_tpu_torch.serve import ServeEngine
+    from pint_tpu_torch.serve.workload import BENCH_SIZES, build_workload
+
+    t0 = time.perf_counter()
+    fresh = build_workload(SERVE_NREQ, sizes=BENCH_SIZES, prebuild=True,
+                           device=dev)
+    build_s = time.perf_counter() - t0
+
+    def sequential(eng):
+        out = []
+        for r in fresh():
+            f = eng.submit(r)
+            eng.flush()
+            out.append(f.result(timeout=0))
+        return out
+
+    def coalesced(eng):
+        futs = [eng.submit(r) for r in fresh()]
+        eng.flush()
+        return [f.result(timeout=0) for f in futs]
+
+    def threaded(eng):
+        eng.start()
+        try:
+            futs = [eng.submit(r) for r in fresh()]
+            return [f.result(timeout=300) for f in futs]
+        finally:
+            eng.stop()
+
+    from pint_tpu_torch.obs import perf
+
+    modes, results = {}, {}
+    for name, run, kw in (("sequential", sequential, {"pipeline_depth": 1}),
+                          ("coalesced", coalesced, {}),
+                          ("threaded", threaded, {"window_s": 0.005,
+                                                  "pipeline_depth": 2})):
+        walls = []
+        for _ in range(1 + SERVE_PASSES):   # a fresh engine a pass
+            # a new class's FLOP probe runs on a background thread: let
+            # it end before the timed pass, which must not share the host
+            perf.join_cost_probes()
+            eng = ServeEngine(device=dev, **kw)
+            t1 = time.perf_counter()
+            res = run(eng)
+            sync(dev)
+            walls.append(time.perf_counter() - t1)
+        timed = sorted(walls[1:])
+        modes[name] = {**serve_stats(eng, len(res), timed[len(timed) // 2]),
+                       "first_pass_s": walls[0],
+                       "pass_s_min_max": [timed[0], timed[-1]],
+                       "supervisor": serve_clean(eng, f"(a) {name}")}
+        if modes[name]["compile_count"] != modes[name]["classes"]:
+            fail(f"serve: (a) {name}: compile_count "
+                 f"{modes[name]['compile_count']} != "
+                 f"{modes[name]['classes']} classes")
+        results[name] = res
+    prof_eng = ServeEngine(device=dev)
+    prof = device_busy(lambda: coalesced(prof_eng),
+                       "serve (a): one coalesced pass")
+    units = sum(b.batches for b in prof_eng.metrics.buckets.values())
+    prof["units"] = units
+    prof["launches_per_unit"] = prof["launches"] / max(1, units)
+    ref = results["coalesced"]
+    errs = {name: serve_within(f"(a) {name} vs coalesced", results[name],
+                               ref, SERVE_MODE_RTOL, atol=1e-18)
+            for name in ("sequential", "threaded")}
+    cpu = coalesced(ServeEngine(device="cpu"))
+    errs["cpu_engine"] = serve_within("(a) card vs CPU engine", ref, cpu,
+                                      SERVE_ORACLE_RTOL)
+    host = []
+    for r in fresh():
+        if hasattr(r, "entry"):
+            pi, pf = r.entry.abs_phase(r.mjds)
+            host.append(types.SimpleNamespace(phase_int=pi, phase_frac=pf))
+        else:
+            d, c, x2, x2r = pta_solve_np(stack_problems([r.problem]))
+            host.append(types.SimpleNamespace(chi2=float(x2r[0]))
+                        if r.kind == "residuals" else types.SimpleNamespace(
+                dparams=d[0], cov=c[0], chi2=float(x2[0]),
+                chi2r=float(x2r[0])))
+    errs["host_oracles"] = serve_within("(a) card vs host oracles", ref,
+                                        host, SERVE_ORACLE_RTOL)
+    speed = modes["coalesced"]["requests_per_s"] / \
+        modes["sequential"]["requests_per_s"]
+    print(f"serve (a): {SERVE_NREQ} requests, classes "
+          f"{modes['coalesced']['classes']} (workload built in "
+          f"{build_s:.3f} s); " + "; ".join(
+              f"{k} {v['requests_per_s']:.1f} req/s (median of "
+              f"{SERVE_PASSES} passes, {v['pass_s_min_max'][0]:.4f}-"
+              f"{v['pass_s_min_max'][1]:.4f} s; first pass "
+              f"{v['first_pass_s']:.3f} s), occupancy {v['occupancy']}, "
+              f"waste {v['padded_waste']}, p50 {v['p50_ms']} ms, p99 "
+              f"{v['p99_ms']} ms" for k, v in modes.items())
+          + f"; coalesced/sequential {speed:.2f}x; {prof['launches']} "
+          f"launches in {units} units; worst differences {errs}")
+    return {"modes": modes, "coalesced_over_sequential": speed,
+            "profile": prof, "errors": errs, "build_s": build_s}
+
+
+def serve_unit_breakdown(pr, key, dev) -> dict:
+    """Where one full-width unit's dispatch goes: the host's padded
+    stack of SERVE_COPIES copies, its one upload (ending in a
+    synchronize), the batched solve (the median of 5 between CUDA
+    events recorded around the call, so the host's enqueue gaps count,
+    as in a dispatch; the host clock on the CPU) and the read back."""
+    import torch
+
+    from pint_tpu_torch.parallel.pta import STACK_KEYS, _solve_one, \
+        read_back, stack_problems, upload
+
+    t0 = time.perf_counter()
+    st = stack_problems([pr] * SERVE_COPIES,
+                        shape=(SERVE_COPIES, key[1], key[2], key[3]))
+    stack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    up = upload(st, STACK_KEYS, dev)
+    sync(dev)
+    upload_s = time.perf_counter() - t0
+
+    def solve():
+        return _solve_one(*(up[k] for k in STACK_KEYS))
+
+    if torch.device(dev).type == "cuda":
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            solve()
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+        solve_ms = sorted(times)[len(times) // 2]
+    else:
+        t0 = time.perf_counter()
+        solve()
+        solve_ms = (time.perf_counter() - t0) * 1e3
+    out = solve()
+    t0 = time.perf_counter()
+    read_back(out)
+    read_s = time.perf_counter() - t0
+    nbytes = sum(st[k].nbytes for k in STACK_KEYS)
+    return {"stack_ms": stack_s * 1e3, "upload_ms": upload_s * 1e3,
+            "upload_bytes": nbytes, "solve_ms": solve_ms,
+            "read_back_ms": read_s * 1e3}
+
+
+def serve_full_width(cells: dict, dev) -> dict:
+    """(b) the fit cell and the stress problem as full-width GLS classes:
+    SERVE_COPIES FitStepRequests of each, coalesced, against pta_solve of
+    the problem alone on the card and pta_solve_np."""
+    import torch
+
+    from pint_tpu_torch.parallel.pta import pta_solve, pta_solve_np, \
+        stack_problems
+    from pint_tpu_torch.serve import FitStepRequest, ServeEngine
+    from pint_tpu_torch.serve.bucket import gls_shape_class, pad_dim
+
+    eng = ServeEngine(device=dev)
+    out = {"cells": {}}
+    for name, pr in cells.items():
+        n, p = pr.M.shape
+        q = pr.F.shape[1]
+        key = gls_shape_class(n, p, q, eng.bucket_edges)
+        nbytes = SERVE_COPIES * key[1] * key[3] * 8
+        out["cells"][name] = {"n": n, "p": p, "q": q, "class": list(key),
+                              "F_bytes": nbytes}
+        print(f"serve (b): {name}: N = {n}, p = {p}, q = {q} (ECORR "
+              f"columns included) -> class {key}; F is ({SERVE_COPIES}, "
+              f"{key[1]}, {pad_dim(q)}) float64 = {nbytes / 2 ** 30:.3f} GiB")
+    reqs = [FitStepRequest(problem=pr) for pr in cells.values()
+            for _ in range(SERVE_COPIES)]
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    futs = [eng.submit(r) for r in reqs]
+    eng.flush()
+    res = [f.result(timeout=0) for f in futs]
+    sync(dev)
+    wall = time.perf_counter() - t0
+    peak = None
+    if torch.device(dev).type == "cuda":
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    lat = eng.metrics.snapshot()["latency"]
+    for k, (name, pr) in enumerate(cells.items()):
+        st = stack_problems([pr])
+        t1 = time.perf_counter()
+        alone = pta_solve(st, device=dev)
+        alone_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        host = pta_solve_np(st)
+        host_s = time.perf_counter() - t1
+        cell = out["cells"][name]
+        for label, (d, c, x2, _) in (("alone", alone), ("host", host)):
+            sig = np.sqrt(np.diag(c[0]))
+            worst = {"dp_sigma": 0.0, "cov_rel": 0.0, "chi2_rel": 0.0}
+            for r in res[k * SERVE_COPIES:(k + 1) * SERVE_COPIES]:
+                worst["dp_sigma"] = max(worst["dp_sigma"], float(
+                    np.max(np.abs(r.dparams - d[0]) / sig)))
+                worst["cov_rel"] = max(worst["cov_rel"], rel_err(
+                    np.diag(r.cov), np.diag(c[0]), 1.0))
+                worst["chi2_rel"] = max(worst["chi2_rel"],
+                                        abs(r.chi2 - x2[0]) / abs(x2[0]))
+            cell[f"vs_{label}"] = worst
+            if not (worst["dp_sigma"] <= SERVE_FULL_SIGMA
+                    and worst["cov_rel"] <= SERVE_FULL_COV
+                    and worst["chi2_rel"] <= SERVE_FULL_CHI2):
+                fail(f"serve (b): {name} vs pta_solve {label}: {worst}")
+        cell.update(alone_s=alone_s, host_s=host_s, dispatch_ms=[
+            v["dispatch_wall"]["max_ms"] for kk, v in lat.items()
+            if kk.endswith("/".join(str(x) for x in cell["class"]))])
+        cell["breakdown"] = serve_unit_breakdown(pr, cell["class"], dev)
+    out.update(wall_s=wall, peak_gib=peak,
+               supervisor=serve_clean(eng, "(b)"),
+               compile_count=eng.metrics.compile_count)
+    print(f"serve (b): {len(reqs)} full-width requests in {wall:.3f} s, peak "
+          f"device memory {peak} GiB; " + "; ".join(
+              f"{k}: dispatch {v['dispatch_ms']} ms (a unit alone: "
+              f"{v['breakdown']}), vs alone "
+              f"{v['vs_alone']}, vs host {v['vs_host']} (alone "
+              f"{v['alone_s']:.3f} s, host {v['host_s']:.3f} s)"
+              for k, v in out["cells"].items()))
+    return out
+
+
+def serve_append_check(fit_par: str, toas, dev) -> dict:
+    """(c) a cold build of the fit cell's first SERVE_APPEND[0] TOAs, then
+    appends of SERVE_APPEND[1] TOAs, each held to a cold streaming solve
+    of all the TOAs so far. The append path refuses ECORR models (the
+    reference's contract: appended epochs grow the basis), so the model
+    is the fit cell's without its ECORR line, and with its DMX windows
+    frozen (at their simulated 0): the TOAs are in time order, so the
+    cold build never sees the last windows, whose columns would be
+    zero (a singular system)."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.parallel.streaming import stream_solve_np
+    from pint_tpu_torch.serve import AppendTOAsRequest, ServeEngine
+    from pint_tpu_torch.serve.append import build_append_rows
+
+    cold, step, napp = SERVE_APPEND
+    par = "\n".join(" ".join(x.split()[:2]) if x.startswith("DMX_") else x
+                    for x in fit_par.splitlines()
+                    if not x.startswith("ECORR")) + "\n"
+    model = get_model(io.StringIO(par), device=dev)
+    idx = np.arange(toas.ntoas)
+    eng = ServeEngine(device=dev)
+    rows = []
+    for k in range(napp + 1):
+        hi = cold + k * step
+        part = toas.select((idx >= (0 if k == 0 else hi - step))
+                           & (idx < hi))
+        t0 = time.perf_counter()
+        r = eng.submit(AppendTOAsRequest("fit-cell", toas=part, model=model,
+                                         cold=(k == 0))).result(timeout=600)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        entry = eng.append_store.get("fit-cell")
+        pr = build_append_rows(toas.select(idx < hi), model,
+                               tspan=entry.tspan, tref=entry.tref)
+        dp, cov, _, chi2r, _, ok, _, _ = stream_solve_np(
+            pr.M, pr.F, pr.phi, pr.r, pr.nvec, 4096, incoffset=pr.submean)
+        sig = np.sqrt(np.abs(np.diag(cov)))
+        row = {"ntoa": r.ntoa_total, "cold": r.cold, "cg_iters": r.cg_iters,
+               "wall_s": wall,
+               "dp_sigma": float(np.max(np.abs(r.dparams - dp) / sig)),
+               "chi2r_rel": abs(r.chi2r - chi2r) / abs(chi2r)}
+        rows.append(row)
+        if not (ok and r.ntoa_total == hi
+                and row["dp_sigma"] < SERVE_APPEND_SIGMA
+                and row["chi2r_rel"] < SERVE_APPEND_CHI2):
+            fail(f"serve (c): the append to {hi} TOAs: {row}")
+    print(f"serve (c): the fit cell without ECORR, DMX frozen (p = "
+          f"{len(r.names)}, q = "
+          f"{len(entry.phi)}), cold {cold} TOAs then {napp} x {step}: " +
+          "; ".join(f"{x['ntoa']} TOAs {x['wall_s'] * 1e3:.1f} ms, CG "
+                    f"{x['cg_iters']}, {x['dp_sigma']:.2e} sigma, chi2r "
+                    f"{x['chi2r_rel']:.2e}" for x in rows))
+    return {"rows": rows, "supervisor": serve_clean(eng, "(c)"),
+            "append": eng.metrics.snapshot()["append"]}
+
+
+def serve_phase_check(b_par: str, seed: int, dev) -> dict:
+    """(d) phase 15's day of polycos (config 2 at gbt): SERVE_PHASE_NMJD
+    MJDs over its segments, one PhasePredictRequest a segment, against
+    PolycoEntry.abs_phase on the host and model.phase on the card."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.polycos import Polycos
+    from pint_tpu_torch.serve import PhasePredictRequest, ServeEngine
+    from pint_tpu_torch.toa import get_TOAs_array
+
+    mg = get_model(io.StringIO(b_par), device=dev)
+    mjd0 = float(np.round(mg.PEPOCH.value))
+    span = (mjd0, mjd0 + POLYCO_DAYS)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pc = Polycos.generate_polycos(
+            mg, *span, "gbt", seg_length_min=POLYCO_SEG_MIN,
+            ncoeff=POLYCO_NCOEFF, obsfreq_mhz=POLYCO_FREQ, device=dev)
+    mjds = np.sort(np.random.default_rng(seed).uniform(
+        span[0], span[1] - 1e-6, SERVE_PHASE_NMJD))
+    seg = pc._entry_for(mjds)
+    reqs = [PhasePredictRequest(pc.entries[s], mjds[seg == s])
+            for s in np.unique(seg)]
+    eng = ServeEngine(device=dev)
+    t0 = time.perf_counter()
+    futs = [eng.submit(r) for r in reqs]
+    eng.flush()
+    res = [f.result(timeout=0) for f in futs]
+    sync(dev)
+    wall = time.perf_counter() - t0
+    host = max(float(np.max(np.abs((x.phase_int - hi) + (x.phase_frac - hf))))
+               for x, (hi, hf) in zip(res, (r.entry.abs_phase(r.mjds)
+                                            for r in reqs)))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ev = get_TOAs_array(mjds, obs="gbt", freqs=POLYCO_FREQ, errors=1.0,
+                            device=dev)
+    ph = mg.phase(ev, abs_phase=True, device=dev)
+    full = (ph.int.cpu().numpy(), ph.frac.cpu().numpy())
+    got = (np.concatenate([x.phase_int for x in res]),
+           np.concatenate([x.phase_frac for x in res]))
+    order = np.concatenate([np.flatnonzero(seg == s) for s in np.unique(seg)])
+    model_turns = float(np.max(turns_mod1(got, (full[0][order],
+                                                full[1][order]))))
+    out = {"mjds": len(mjds), "requests": len(reqs), "wall_s": wall,
+           "mjds_per_s": len(mjds) / wall, "turns_vs_abs_phase": host,
+           "turns_vs_model": model_turns,
+           "classes": eng.metrics.snapshot()["bucket_count"],
+           "supervisor": serve_clean(eng, "(d)")}
+    print(f"serve (d): {len(mjds)} MJDs in {len(reqs)} segment requests, "
+          f"{out['classes']} class(es), {wall * 1e3:.1f} ms "
+          f"({out['mjds_per_s']:.0f} MJDs/s); vs abs_phase {host:.3e} turns "
+          f"(limit {SERVE_POLYCO_TURNS}), vs model.phase {model_turns:.3e} "
+          f"(limit {POLYCO_TURNS})")
+    if not (host <= SERVE_POLYCO_TURNS and model_turns < POLYCO_TURNS):
+        fail("serve (d): the served phases miss their oracles")
+    return out
+
+
+def serve_posterior_gwb(array: dict, nfreq: int, dev) -> dict:
+    """(e) config 5's pulsars as PosteriorRequests, bitwise
+    sample_problems' chains at the served class; a GWBRequest at config 5,
+    bitwise gwb_sweep_driver on its likelihood."""
+    from pint_tpu_torch import config
+    from pint_tpu_torch.pta.gwb import gwb_sweep_driver
+    from pint_tpu_torch.sampling import sample_problems
+    from pint_tpu_torch.serve import GWBRequest, PosteriorRequest, \
+        ServeEngine
+    from pint_tpu_torch.serve.bucket import posterior_shape_class
+
+    problems, positions = array["problems"], array["positions"]
+    W, nsteps = SERVE_POST
+    eng = ServeEngine(device=dev)
+    t0 = time.perf_counter()
+    futs = [eng.submit(PosteriorRequest(problem=pr, nwalkers=W,
+                                        nsteps=nsteps, seed=k))
+            for k, pr in enumerate(problems)]
+    eng.flush()
+    res = [f.result(timeout=0) for f in futs]
+    post_s = time.perf_counter() - t0
+    # the direct path at each served class: the requests of one class,
+    # in submission order, max_batch to a unit, padded as the engine pads
+    groups: dict = {}
+    for k, pr in enumerate(problems):
+        n, p = pr.M.shape
+        groups.setdefault(posterior_shape_class(
+            n, p, pr.F.shape[1], W, config.chain_chunk_steps(nsteps), 1,
+            eng.bucket_edges), []).append(k)
+    t0 = time.perf_counter()
+    classes = []
+    for key, ks in groups.items():
+        _, nb, pb, qb = key[:4]
+        for i in range(0, len(ks), eng.max_batch):
+            unit = ks[i:i + eng.max_batch]
+            Pb = eng._batch_pad(len(unit))
+            classes.append(list(key) + [Pb])
+            direct = sample_problems([problems[k] for k in unit], W, nsteps,
+                                     seeds=unit, shape=(Pb, nb, pb, qb),
+                                     device=dev)
+            if not all(np.array_equal(res[k].chain, c)
+                       and np.array_equal(res[k].lnprob, lp)
+                       for k, (c, lp, _) in zip(unit, direct)):
+                fail(f"serve (e): the chains of class {key} differ from "
+                     "sample_problems'")
+    direct_s = time.perf_counter() - t0
+    if sorted(map(tuple, classes)) != sorted(
+            k for k in eng.metrics.buckets if k[0] == "posterior"):
+        fail(f"serve (e): served classes {list(eng.metrics.buckets)} are "
+             f"not {classes}")
+    LA, GA = np.meshgrid(np.linspace(-15.5, -13.5, GWB_GRID),
+                         np.linspace(2.0, 6.0, GWB_GRID))
+    req = GWBRequest(problems=problems, positions=positions, nfreq=nfreq,
+                     log10A=LA.ravel(), gamma=GA.ravel())
+    t0 = time.perf_counter()
+    g = eng.submit(req).result(timeout=600)
+    gwb_s = time.perf_counter() - t0
+    want = gwb_sweep_driver(req.likelihood, req.log10A, req.gamma,
+                            config.gwb_chunk())()
+    if not np.array_equal(g.logL, want):
+        fail("serve (e): the served GWB grid differs from the sweep's")
+    out = {"posterior": {"classes": classes, "wall_s": post_s,
+                         "direct_s": direct_s,
+                         "walker_steps_per_s": len(problems) * W * nsteps
+                         / post_s},
+           "gwb": {"points": len(req.log10A), "wall_s": gwb_s,
+                   "points_per_s": len(req.log10A) / gwb_s,
+                   "best": g.best()},
+           "supervisor": serve_clean(eng, "(e)")}
+    print(f"serve (e): {len(problems)} posteriors ({W} x {nsteps}, classes "
+          f"{classes}) in {post_s:.3f} s, bitwise sample_problems ({direct_s:.3f}"
+          f" s); GWB {len(req.log10A)} points in {gwb_s:.3f} s, bitwise the "
+          f"sweep; best {g.best()}")
+    return out
+
+
+def serve_degraded(dev) -> dict:
+    """(f) the card killed mid-pipeline (every unit after the second one
+    hangs past its deadline): every future completes, the failed-over
+    units bitwise the host pool's results; an open breaker demotes the
+    device pool; a tenant over quota, an expired deadline and a graceful
+    stop are each shed with their label."""
+    from pint_tpu_torch.runtime import Fault, FaultPlan, backend_of, \
+        breaker_for, reset_runtime
+    from pint_tpu_torch.serve import DeadlineExceeded, FitStepRequest, \
+        ServeEngine, ShutdownShed, TenantOverQuota
+    from pint_tpu_torch.serve.workload import BENCH_SIZES, build_workload
+
+    fresh = build_workload(SERVE_NREQ, sizes=BENCH_SIZES, prebuild=True,
+                           device=dev)
+    reset_runtime()
+    out = {}
+    # the host pool: the breaker open, every unit demoted to the mirrors
+    br = breaker_for(backend_of(torch_device(dev)))
+    for _ in range(br.threshold):
+        br.on_result(False)
+    eng = ServeEngine(device=dev)
+    futs = [eng.submit(r) for r in fresh()]
+    eng.flush()
+    host = [f.result(timeout=0) for f in futs]
+    rt = eng.metrics.snapshot()["router"]
+    out["demoted"] = {"host_units": rt["host"]["dispatches"],
+                      "demotions": rt["host"]["demotions"],
+                      "device_units": rt["device"]["dispatches"]}
+    if not (rt["device"]["dispatches"] == 0 and rt["host"]["demotions"] >= 1):
+        fail(f"serve (f): an open breaker did not demote: {out['demoted']}")
+    reset_runtime()
+    # the card dies mid-pipeline
+    deadline, hang = SERVE_WEDGE
+    eng = ServeEngine(device=dev, pipeline_depth=2)
+    t0 = time.perf_counter()
+    with short_deadline("serve.", deadline), FaultPlan(
+            [Fault(match="serve.", kind="hang", seconds=hang,
+                   after=2)]).active():
+        futs = [eng.submit(r) for r in fresh()]
+        eng.flush()
+    wall = time.perf_counter() - t0
+    if not all(f.done() for f in futs):
+        fail("serve (f): a future hung when the card died")
+    got = [f.result(timeout=0) for f in futs]
+    snap = eng.metrics.snapshot()
+    failed_over = sum(v["e2e"]["count"] for k, v in snap["latency"].items()
+                      if k.startswith("host-failover/"))
+    bitwise = sum(serve_bitwise(a, b) for a, b in zip(got, host))
+    worst = serve_within("(f) after the card died vs the host pool", got,
+                         host, SERVE_ORACLE_RTOL)
+    out["killed"] = {"wall_s": wall, "failovers": snap["dispatch"]["failovers"],
+                     "timeouts": snap["dispatch"]["timeouts"],
+                     "failed_over_requests": failed_over,
+                     "bitwise_host": bitwise, "worst": worst}
+    if not (failed_over >= 1 and bitwise >= failed_over
+            and snap["dispatch"]["failovers"] >= 1):
+        fail(f"serve (f): mid-pipeline death: {out['killed']}")
+    reset_runtime()
+    pr = fresh()[0].problem
+    eng = ServeEngine(device=dev, tenant_qps=0.001, tenant_burst=1.0)
+    eng.submit(FitStepRequest(problem=pr, tenant="noisy"))
+    try:
+        eng.submit(FitStepRequest(problem=pr, tenant="noisy"))
+        fail("serve (f): a tenant over quota was admitted")
+    except TenantOverQuota:
+        pass
+    late = eng.submit(FitStepRequest(problem=pr, deadline_s=1e-4))
+    time.sleep(0.01)
+    eng.flush()
+    try:
+        late.result(timeout=0)
+        fail("serve (f): an expired request was served")
+    except DeadlineExceeded:
+        pass
+    adm = eng.metrics.snapshot()["admission"]
+    eng = ServeEngine(device=dev, window_s=60.0).start()
+    queued = [eng.submit(FitStepRequest(problem=pr)) for _ in range(3)]
+    eng.stop(timeout=0.0)
+    shed = 0
+    for f in queued:
+        try:
+            f.result(timeout=10)
+        except ShutdownShed:
+            shed += 1
+    out["shed"] = {"quota": adm["shed_quota"], "expired": adm["shed_expired"],
+                   "shutdown": shed}
+    if out["shed"] != {"quota": 1, "expired": 1, "shutdown": 3}:
+        fail(f"serve (f): sheds {out['shed']}")
+    print(f"serve (f): breaker open -> {out['demoted']}; card killed after "
+          f"2 units -> {out['killed']}; sheds {out['shed']}")
+    return out
+
+
+def torch_device(dev):
+    import torch
+
+    return torch.device(dev)
+
+
+def serve_restart_fleet(dev) -> dict:
+    """(g) kill the engine mid-journal, restart it warm and replay
+    (bitwise an uninterrupted engine, no new class); a two-worker fleet
+    loses a worker and re-homes its unacknowledged admits."""
+    from pint_tpu_torch.serve import EngineKilled, FitStepRequest, \
+        FleetFront, PhasePredictRequest, ServeEngine
+    from pint_tpu_torch.runtime import Fault, FaultPlan, reset_runtime
+    from pint_tpu_torch.serve.workload import BENCH_SIZES, build_workload
+
+    base = build_workload(16, sizes=BENCH_SIZES, prebuild=True,
+                          device=dev)()
+
+    def factory(payload):
+        r = base[payload["i"]]
+        if hasattr(r, "entry"):
+            return PhasePredictRequest(r.entry, r.mjds, payload=payload)
+        return type(r)(problem=r.problem, payload=payload)
+
+    def batch():
+        return [factory({"i": i}) for i in range(len(base))]
+
+    def serve(eng, reqs):
+        t0 = time.perf_counter()
+        futs = [eng.submit(r) for r in reqs]
+        eng.flush()
+        out = [f.result(timeout=0) for f in futs]
+        sync(dev)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    reset_runtime()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        aot, jpath = os.path.join(tmp, "aot"), os.path.join(tmp, "j.jsonl")
+        eng_b = ServeEngine(device=dev, aot_dir=aot, journal=jpath)
+        _, cold_ms = serve(eng_b, batch())
+        futs = [eng_b.submit(r) for r in batch()]
+        with FaultPlan([Fault(match="serve.drain",
+                              kind="kill_restart")]).active():
+            try:
+                eng_b.flush()
+                fail("serve (g): the injected kill did not kill")
+            except EngineKilled:
+                pass
+        unacked = eng_b.journal.counts()["unacknowledged"]
+        eng_r = ServeEngine(device=dev)
+        serve(eng_r, batch())
+        ref, _ = serve(eng_r, batch())
+        t0 = time.perf_counter()
+        eng_c = ServeEngine(device=dev, aot_dir=aot, journal=jpath)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rfuts = eng_c.replay(factory)
+        eng_c.flush()
+        res = [f.result(timeout=0) for f in rfuts]
+        sync(dev)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        aot_snap = eng_c.cache.aot.snapshot()
+        out["restart"] = {
+            "unacknowledged": unacked, "replayed": len(res),
+            "restored": aot_snap["restored"], "hits": aot_snap["hits"],
+            "misses": aot_snap["misses"],
+            "new_classes": eng_c.metrics.compile_count,
+            "cold_first_batch_ms": cold_ms, "warm_replay_ms": warm_ms,
+            "restore_ms": restore_ms,
+            "bitwise": all(serve_bitwise(a, b) for a, b in zip(res, ref))}
+        if not (out["restart"]["bitwise"] and len(res) == len(base)
+                and eng_c.metrics.compile_count == 0
+                and aot_snap["misses"] == 0 and aot_snap["restored"] >= 1
+                and eng_c.journal.counts()["unacknowledged"] == 0):
+            fail(f"serve (g): restart {out['restart']}")
+        serve_clean(eng_c, "(g) restart")
+        eng_c.stop()
+        front = FleetFront(factory, n=2, journal=os.path.join(tmp, "f.jsonl"),
+                           heartbeat_s=3600.0, lease_ttl_s=7200.0,
+                           start=False, engine_kwargs={"device": dev})
+        futs = [front.submit(r) for r in batch()]
+        front.kill_worker("w0")
+        moved = front.sweep()
+        front.workers["w1"].engine.flush()
+        if not all(f.done() for f in futs):
+            fail("serve (g): the fleet lost a request")
+        got = [f.result(timeout=0) for f in futs]
+        worst = serve_within("(g) fleet vs an uninterrupted engine", got,
+                             ref, SERVE_MODE_RTOL, atol=1e-18)
+        out["fleet"] = {"rehomed": moved,
+                        "unacknowledged": front.journal.counts()[
+                            "unacknowledged"],
+                        "worst": worst, "workers": front.snapshot()["workers"]}
+        front.stop()
+        if not (moved == len(base) // 2 and
+                out["fleet"]["unacknowledged"] == 0):
+            fail(f"serve (g): fleet {out['fleet']}")
+    print(f"serve (g): restart {out['restart']}; fleet {out['fleet']}")
+    return out
+
+
+def serve_cli(dev, tmp: str) -> dict:
+    """(h) pint_serve --demo 64 on the card; a stdin JSONL session on
+    NGC6440E (fit_step, residuals, phase, posterior, stats) with a
+    journal and the metrics port, /metrics and /healthz scraped, then
+    SIGTERM: one result line a request, the session snapshot last."""
+    import queue
+    import signal
+    import threading
+    import urllib.request
+
+    cmd = [sys.executable, "-m", "pint_tpu_torch.scripts.pint_serve"]
+    if torch_device(dev).type != "cuda":
+        cmd += ["--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    demo = subprocess.run(cmd + ["--demo", str(SERVE_NREQ)], env=env,
+                          capture_output=True, text=True, timeout=900)
+    demo_s = time.perf_counter() - t0
+    lines = [json.loads(x) for x in demo.stdout.strip().splitlines()]
+    if demo.returncode or lines[-1].get("metric") != "serve_session" or \
+            sum(x.get("ok") is True for x in lines[:-1]) != SERVE_NREQ:
+        fail(f"serve (h): --demo {SERVE_NREQ}: rc {demo.returncode}, "
+             f"{demo.stderr[-2000:]}")
+    out = {"demo": {"wall_s": demo_s, "completed": lines[-1]["completed"],
+                    "compile_count": lines[-1]["compile_count"],
+                    "classes": lines[-1]["bucket_count"],
+                    "dispatch": {k: lines[-1]["dispatch"][k] for k in (
+                        "failovers", "timeouts", "breaker_rejections")}}}
+    par, tim = NGC
+    jpath = os.path.join(tmp, "serve.jsonl")
+    recs = [{"kind": "fit_step", "par": par, "tim": tim, "id": "fit"},
+            {"kind": "residuals", "par": par, "tim": tim, "id": "res"},
+            {"kind": "phase", "par": par, "mjds": [53801.02],
+             "obs": "gbt", "id": "phase"},
+            {"kind": "posterior", "par": par, "tim": tim, "nsteps": 64,
+             "seed": 1, "id": "post"},
+            {"kind": "stats", "id": "stats"}]
+    proc = subprocess.Popen(cmd + ["--journal", jpath, "--metrics-port", "0",
+                                   "--window-ms", "5"], env=env,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    q: queue.Queue = queue.Queue()
+    reader = threading.Thread(target=lambda: [q.put(x) for x in proc.stdout],
+                              daemon=True)
+    reader.start()
+    err_tail: list = []
+    threading.Thread(target=lambda: [err_tail.append(x) for x in proc.stderr],
+                     daemon=True).start()
+    t0 = time.perf_counter()
+    for r in recs:
+        proc.stdin.write(json.dumps(r) + "\n")
+    proc.stdin.flush()
+    got, port = [], None
+    # one line a request (its result, or an error line), after the
+    # metrics server's announcement
+    while sum("event" not in x for x in got) < len(recs):
+        try:
+            x = json.loads(q.get(timeout=600))
+        except Exception:
+            proc.kill()
+            fail(f"serve (h): the session stalled: {''.join(err_tail)[-2000:]}")
+        if x.get("event") == "metrics_server":
+            port = x["port"]
+        got.append(x)
+    session_s = time.perf_counter() - t0
+    base = f"http://127.0.0.1:{port}"
+    metrics = urllib.request.urlopen(base + "/metrics", timeout=30).read() \
+        .decode()
+    health = json.loads(urllib.request.urlopen(base + "/healthz",
+                                               timeout=30).read().decode())
+    proc.send_signal(signal.SIGTERM)
+    proc.wait(timeout=300)
+    reader.join(timeout=60)
+    rest = []
+    while not q.empty():
+        rest.append(json.loads(q.get()))
+    lines = got + rest
+    per_id = {r["id"]: [x for x in lines if x.get("id") == r["id"]]
+              for r in recs}
+    snap = lines[-1]
+    out["session"] = {
+        "wall_s": session_s, "returncode": proc.returncode,
+        "lines_per_request": {k: len(v) for k, v in per_id.items()},
+        "ok": {k: all(x.get("ok") for x in v) for k, v in per_id.items()},
+        "metrics_bytes": len(metrics),
+        "healthz_ok": health.get("ok"),
+        "healthz_device_backend": health.get("pools", {}).get(
+            "device", {}).get("backend"),
+        "last_metric": snap.get("metric"),
+        "shutdown_signal": snap.get("shutdown_signal"),
+        "journal_unacknowledged": None}
+    from pint_tpu_torch.serve.journal import RequestJournal
+
+    j = RequestJournal(jpath)
+    out["session"]["journal_unacknowledged"] = j.counts()["unacknowledged"]
+    j.close()
+    s = out["session"]
+    if not (s["returncode"] == 0
+            and all(n == 1 for n in s["lines_per_request"].values())
+            and all(s["ok"].values()) and s["last_metric"] == "serve_session"
+            and s["shutdown_signal"] == "SIGTERM" and s["healthz_ok"]
+            and "pint_tpu_serve_completed_total" in metrics
+            and s["journal_unacknowledged"] == 0):
+        fail(f"serve (h): session {s}")
+    print(f"serve (h): --demo {SERVE_NREQ} {out['demo']}; session {s}")
+    return out
+
+
+def serve_phase(ctx: dict, dev) -> dict:
+    """Phase 17: the serving path on the card at full width, (a)-(h), each
+    fatal."""
+    from pint_tpu_torch import obs
+    from pint_tpu_torch.parallel import build_problem
+    from pint_tpu_torch.runtime import reset_runtime
+
+    reset_runtime()
+    obs.reset()
+    secs, out = {}, {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out[name] = fn(*a)
+        secs[name] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cells = {"fit": build_problem(ctx["toas"], ctx["model"]),
+             "stress": build_problem(ctx["stress_toas"], ctx["stress"])}
+    secs["build_problems"] = time.perf_counter() - t0
+    timed("mixed", serve_mixed, dev)
+    timed("full_width", serve_full_width, cells, dev)
+    timed("append", serve_append_check, ctx["par"], ctx["toas"], dev)
+    timed("phase", serve_phase_check, ctx["b_par"], ctx["seed"], dev)
+    timed("posterior_gwb", serve_posterior_gwb, ctx["array"], ctx["nfreq"],
+          dev)
+    timed("degraded", serve_degraded, dev)
+    timed("restart_fleet", serve_restart_fleet, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        timed("cli", serve_cli, dev, tmp)
+    reset_runtime()
+    obs.reset()
+    print("serve seconds: " + ", ".join(f"{k} {v:.3f}"
+                                        for k, v in secs.items()))
+    out["seconds"] = secs
+    return out
+
+
 def fmt(t: dict) -> str:
     return (f"{t['median']:.4f} ms median of 20 (min {t['min']:.4f}, "
             f"max {t['max']:.4f})")
@@ -6289,6 +7188,18 @@ def main() -> int:
          "stress_toas": s_toas, "stream": stream_keep, "bayes": bayes_keep,
          "k1": k1_roof}, dev)
     health_perf["seconds"]["total"] = time.perf_counter() - t0
+    # phase 17: serving on the card at full width (K1 launches 0 times)
+    k1_before = zmod.launches
+    t0 = time.perf_counter()
+    serve = serve_phase(
+        {"par": fit_par_text, "model": model, "toas": toas,
+         "stress": s_model, "stress_toas": s_toas, "b_par": b_par,
+         "array": array, "nfreq": args.pta_nfreq, "seed": args.seed}, dev)
+    serve["seconds"]["total"] = time.perf_counter() - t0
+    serve["k1_launches"] = zmod.launches - k1_before
+    if serve["k1_launches"]:
+        fail(f"serve: K1 launched {serve['k1_launches']} times on a path "
+             "that runs no H-test")
     print(f"profile check: K1's entry {k1_entry:.4f} ms a launch in the "
           f"path's profile, K1 between events at its shape "
           f"{k_path['median']:.4f} ms")
@@ -6403,6 +7314,7 @@ def main() -> int:
     print(json.dumps({"runtime": runtime}, default=str))
     print(json.dumps({"host_api": host_api}))
     print(json.dumps({"health_perf": health_perf}, default=str))
+    print(json.dumps({"serve": serve}, default=str))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     ledger_dir.cleanup()
     print(card())

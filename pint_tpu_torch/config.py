@@ -21,6 +21,10 @@ the port calls).
 - $PINT_TPU_PERF, $PINT_TPU_COMPILE_LEDGER, $PINT_TPU_PROFILE_DIR,
   $PINT_TPU_PROFILE_MAX_S: the performance-attribution plane
   (``obs.perf``)
+- $PINT_TPU_SERVE_*, $PINT_TPU_TENANT_*, $PINT_TPU_SHED_POLICY,
+  $PINT_TPU_AOT_DIR, $PINT_TPU_JOURNAL*, $PINT_TPU_DONATE,
+  $PINT_TPU_METRICS_PORT, $PINT_TPU_POOLS, $PINT_TPU_FLEET_*: the serve
+  layer (``serve``) and its fleet
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from __future__ import annotations
 import logging
 import os
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 __all__ = ["chain_chunk_steps", "clock_dir", "energy_draw_chunk",
            "ephem_dir", "grid_chunk", "gwb_chunk", "obs_override",
@@ -45,7 +49,13 @@ __all__ = ["chain_chunk_steps", "clock_dir", "energy_draw_chunk",
            "shadow_rate", "health_drift_sigma", "health_chi2_factor",
            "health_resid_sigma", "health_cg_budget_frac",
            "perf_enabled", "compile_ledger_path", "profile_dir",
-           "profile_max_s"]
+           "profile_max_s", "donation_enabled", "serve_bucket_edges",
+           "serve_window_s", "serve_max_batch", "serve_queue_cap",
+           "tenant_qps", "tenant_burst", "shed_policy", "aot_dir",
+           "journal_path", "serve_drain_timeout_s",
+           "journal_compact_bytes", "metrics_port",
+           "serve_pipeline_depth", "pool_spec", "fleet_lease_ttl_s",
+           "fleet_heartbeat_s", "fleet_workers"]
 
 log = logging.getLogger(__name__)
 _WARNED_ENV: set = set()
@@ -679,3 +689,193 @@ def profile_max_s() -> float:
     default 30): every requested window is clamped to it. Validated
     finite positive; warn-and-ignore otherwise."""
     return _env_positive_float("PINT_TPU_PROFILE_MAX_S", 30.0)
+
+
+# ------------------------------------------------------------ serving
+# (copies of pint_tpu/config.py's serve and fleet parsers, same
+# variables, defaults and validation)
+
+
+def donation_enabled(flag: Optional[bool] = None) -> bool:
+    """Buffer donation at the dispatch boundary ($PINT_TPU_DONATE,
+    default ON in the reference). Eager torch has no donation: the serve
+    engine parses the knob and records ``donation: false`` in its
+    snapshot, whatever it says."""
+    if flag is not None:
+        return bool(flag)
+    return os.environ.get("PINT_TPU_DONATE", "").lower() \
+        not in ("off", "false", "0")
+
+
+def serve_bucket_edges() -> tuple:
+    """TOA-count bucket edges of the serve layer's shape classes
+    (``serve.bucket``): requests pad up to the smallest edge that fits.
+    Default: powers of two 64..16384 (16384 covers the NANOGrav-scale
+    stress shape). $PINT_TPU_SERVE_BUCKETS, a comma-separated int list,
+    overrides."""
+    raw = os.environ.get("PINT_TPU_SERVE_BUCKETS")
+    if raw:
+        try:
+            edges = tuple(sorted(int(x) for x in raw.split(",")
+                                 if x.strip()))
+            if edges and all(e > 0 for e in edges):
+                return edges
+        except ValueError:
+            pass
+        if ("PINT_TPU_SERVE_BUCKETS", raw) not in _WARNED_ENV:
+            _WARNED_ENV.add(("PINT_TPU_SERVE_BUCKETS", raw))
+            log.warning("unparsable $PINT_TPU_SERVE_BUCKETS=%r; "
+                        "using defaults", raw)
+    return tuple(64 * 2 ** k for k in range(9))  # 64..16384
+
+
+def serve_window_s() -> float:
+    """Coalescing window of the threaded serving loop [s]
+    ($PINT_TPU_SERVE_WINDOW_MS, milliseconds; default 5 ms)."""
+    return float(_env_number("PINT_TPU_SERVE_WINDOW_MS", 5.0)) / 1e3
+
+
+def serve_max_batch() -> int:
+    """Max requests coalesced into one dispatch
+    ($PINT_TPU_SERVE_MAX_BATCH, default 64)."""
+    return max(1, int(_env_number("PINT_TPU_SERVE_MAX_BATCH", 64,
+                                  cast=int)))
+
+
+def serve_queue_cap() -> int:
+    """Admission-queue capacity ($PINT_TPU_SERVE_QUEUE_CAP, default
+    4096); a full queue rejects with ServeOverload."""
+    return max(1, int(_env_number("PINT_TPU_SERVE_QUEUE_CAP", 4096,
+                                  cast=int)))
+
+
+def tenant_qps() -> float:
+    """Per-tenant admission rate [requests/s] ($PINT_TPU_TENANT_QPS;
+    0, the default, disables the quotas)."""
+    return max(0.0, float(_env_number("PINT_TPU_TENANT_QPS", 0.0)))
+
+
+def tenant_burst() -> float:
+    """Token-bucket capacity per tenant ($PINT_TPU_TENANT_BURST;
+    default 2x the rate, at least 1)."""
+    qps = tenant_qps()
+    return max(1.0, float(_env_number("PINT_TPU_TENANT_BURST",
+                                      max(1.0, 2.0 * qps))))
+
+
+def shed_policy() -> str:
+    """Load shedding at capacity ($PINT_TPU_SHED_POLICY): "deadline"
+    (default; shed a request that will miss its deadline anyway, never
+    one that can still make it) or "reject" (plain backpressure)."""
+    v = os.environ.get("PINT_TPU_SHED_POLICY", "deadline").lower()
+    if v not in ("deadline", "reject"):
+        if ("PINT_TPU_SHED_POLICY", v) not in _WARNED_ENV:
+            _WARNED_ENV.add(("PINT_TPU_SHED_POLICY", v))
+            log.warning("unknown $PINT_TPU_SHED_POLICY=%r; using "
+                        "'deadline'", v)
+        return "deadline"
+    return v
+
+
+def aot_dir():
+    """Warm-restart store of the serve shape classes ($PINT_TPU_AOT_DIR;
+    None = off): the manifest of every class an engine served on its
+    device, which a fresh engine primes at construction."""
+    d = os.environ.get("PINT_TPU_AOT_DIR")
+    return d if d else None
+
+
+def journal_path():
+    """Append-only serve request journal ($PINT_TPU_JOURNAL; None =
+    off)."""
+    p = os.environ.get("PINT_TPU_JOURNAL")
+    return p if p else None
+
+
+def serve_drain_timeout_s() -> float:
+    """Bound on the graceful-shutdown drain
+    ($PINT_TPU_SERVE_DRAIN_TIMEOUT_S, default 30 s)."""
+    return max(0.0, float(_env_number(
+        "PINT_TPU_SERVE_DRAIN_TIMEOUT_S", 30.0)))
+
+
+def journal_compact_bytes() -> int:
+    """Journal size past which ``RequestJournal`` auto-compacts
+    ($PINT_TPU_JOURNAL_COMPACT_BYTES, default 16 MiB, 0 disables)."""
+    return max(0, int(_env_number("PINT_TPU_JOURNAL_COMPACT_BYTES",
+                                  16 * 1024 * 1024, cast=int)))
+
+
+def metrics_port() -> Optional[int]:
+    """Default /metrics port of the daemon ($PINT_TPU_METRICS_PORT;
+    None = off, 0 = ephemeral). Validated int in [0, 65535]."""
+    v = _env_number("PINT_TPU_METRICS_PORT", None, cast=int)
+    if v is None:
+        return None
+    v = int(v)
+    if not 0 <= v <= 65535:
+        raw = os.environ.get("PINT_TPU_METRICS_PORT")
+        key = ("PINT_TPU_METRICS_PORT", f"range:{raw}")
+        if key not in _WARNED_ENV:
+            _WARNED_ENV.add(key)
+            log.warning("$PINT_TPU_METRICS_PORT=%r out of range; "
+                        "metrics server stays off", raw)
+        return None
+    return v
+
+
+def serve_pipeline_depth() -> int:
+    """Sealed units the serve drain keeps in flight
+    ($PINT_TPU_SERVE_PIPELINE, default 2; 1 = the synchronous drain)."""
+    return max(1, int(_env_number("PINT_TPU_SERVE_PIPELINE", 2,
+                                  cast=int)))
+
+
+def pool_spec() -> Optional[Tuple[str, ...]]:
+    """Named capacity pools of the serve router ($PINT_TPU_POOLS,
+    comma-separated; None = the classic {"device", "host"} pair). The
+    spec must hold "device" and "host" and lowercase identifier-ish
+    names; a malformed spec warns once and is ignored."""
+    raw = os.environ.get("PINT_TPU_POOLS", "")
+    if not raw:
+        return None
+    names = tuple(s.strip() for s in raw.split(",") if s.strip())
+    ok = (len(names) == len(set(names)) and "device" in names
+          and "host" in names
+          and all(n.replace("_", "").replace("-", "").isalnum()
+                  and n == n.lower() for n in names))
+    if not ok:
+        if ("PINT_TPU_POOLS", raw) not in _WARNED_ENV:
+            _WARNED_ENV.add(("PINT_TPU_POOLS", raw))
+            log.warning(
+                "malformed $PINT_TPU_POOLS=%r (want unique lowercase "
+                "comma-separated names including 'device' and "
+                "'host'); using the classic pools", raw)
+        return None
+    return names
+
+
+def fleet_lease_ttl_s() -> float:
+    """Worker lease time-to-live [s] ($PINT_TPU_FLEET_LEASE_TTL_S,
+    default 15). Validated finite positive."""
+    return _env_positive_float("PINT_TPU_FLEET_LEASE_TTL_S", 15.0)
+
+
+def fleet_heartbeat_s() -> float:
+    """Worker heartbeat period [s] ($PINT_TPU_FLEET_HEARTBEAT_S, default
+    5); values at or above the lease TTL are clamped to TTL/3."""
+    v = _env_positive_float("PINT_TPU_FLEET_HEARTBEAT_S", 5.0)
+    ttl = fleet_lease_ttl_s()
+    if v >= ttl:
+        _warn_env_range("PINT_TPU_FLEET_HEARTBEAT_S", ttl / 3.0)
+        return ttl / 3.0
+    return v
+
+
+def fleet_workers() -> int:
+    """Default fleet size ($PINT_TPU_FLEET_WORKERS, default 3, min 1)."""
+    v = int(_env_number("PINT_TPU_FLEET_WORKERS", 3, cast=int))
+    if v < 1:
+        _warn_env_range("PINT_TPU_FLEET_WORKERS", 3)
+        return 3
+    return v

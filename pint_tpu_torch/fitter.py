@@ -285,9 +285,11 @@ class Fitter:
         the fitter picked runs there (reference: the breaker check of
         Fitter.auto).
 
-        The ``serve=`` route is not ported yet and raises
-        NotImplementedError (ValueError for wideband TOAs, which the
-        reference refuses there)."""
+        ``serve=engine`` returns a ``ServeGLSFitter``: each iteration's
+        solve is one ``FitStepRequest`` coalesced with whatever else the
+        ``serve.ServeEngine`` is serving. It excludes ``device=True``
+        and refuses wideband TOAs (ValueError): the batched serve solve
+        has no stacked [time; DM] system."""
         from pint_tpu_torch.config import solve_streaming
         from pint_tpu_torch.runtime import BackendUnavailable, \
             backend_of, breaker_for
@@ -295,15 +297,20 @@ class Fitter:
 
         wideband = has_wideband_dm(toas)
         if serve is not None:
+            if device:
+                raise ValueError(
+                    "serve= and device=True are exclusive: the serve "
+                    "path batches solves across requests, the device "
+                    "path chains iterations within one request")
             if wideband:
                 raise ValueError(
                     "serve= cannot fit wideband TOAs: the batched "
                     "serve solve has no [time; DM] stacked system — "
                     "dropping the DM channels silently would corrupt "
                     "the fit. Use Fitter.auto without serve=")
-            raise NotImplementedError(
-                "Fitter.auto(serve=): the serve path; pint_tpu_torch does "
-                "not have it yet: ROADMAP.md item 11c")
+            from pint_tpu_torch.serve import ServeGLSFitter
+
+            return ServeGLSFitter(toas, model, engine=serve, **kw)
         backend = backend_of(model.device)
         if backend != "cpu" and breaker_for(backend).is_open:
             rehome_to_cpu(model, BackendUnavailable(

@@ -93,6 +93,33 @@ _START_JOIN_S = 10.0
 _STOP_JOIN_S = 30.0
 
 
+_PROBE_THREADS: set = set()
+_PROBE_LOCK = threading.Lock()
+
+
+def _note_probe_thread(t: threading.Thread):
+    """Track a deferred cost probe so interpreter exit waits for it: a
+    daemon thread killed inside a torch op at finalization aborts the
+    process ("terminate called without an active exception")."""
+    with _PROBE_LOCK:
+        if not _PROBE_THREADS:
+            import atexit
+
+            atexit.register(join_cost_probes)
+        _PROBE_THREADS.add(t)
+
+
+def join_cost_probes(timeout_s: float = 30.0):
+    """Wait (at most ``timeout_s``) for every deferred cost probe to end:
+    interpreter exit does, and so does a measurement that must not share
+    the host with one."""
+    deadline = time.monotonic() + timeout_s
+    with _PROBE_LOCK:
+        threads = list(_PROBE_THREADS)
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+
+
 def cost_probe(fn, args) -> dict:
     """FLOPs of one call ``fn(*args)`` counted by
     ``torch.utils.flop_counter.FlopCounterMode``: ``{"flops": ...}``,
@@ -245,10 +272,12 @@ class CompileLedger:
                 want_probe=fn is not None)
             if need_probe:
                 if defer_cost:
-                    threading.Thread(
+                    t = threading.Thread(
                         target=self._probe_and_merge,
                         args=(key, fn, args), daemon=True,
-                        name="pint-perf-cost").start()
+                        name="pint-perf-cost")
+                    _note_probe_thread(t)
+                    t.start()
                 else:
                     self._probe_and_merge(key, fn, args)
                     snap = self.get(key) or snap

@@ -326,6 +326,103 @@ def _cg_schur(Sigma, b, rCr, cm, budget: int, tol: float):
     return dparams, cov, chi2, chi2r, xf, ok, int(torch.max(nact)), resid
 
 
+def _cg_schur_batch(Sigma, b, rCr, cm, budget: int, tol: float):
+    """``_cg_schur`` over a leading slot axis: Sigma (P, n, n), b (P, n),
+    rCr (P,), cm (P, p). Every slot runs the algebra of ``_cg_schur``
+    (its columns freeze as they converge, as they do there); the loop
+    ends when no column of any slot is active or at ``budget``. Returns
+    the same tuple with a leading P axis; ``iters`` is the (P,) long
+    tensor of each slot's CG iterations (at most ``budget``), ``ok`` and
+    ``rel_resid`` per slot. The serve append path's program (the
+    streaming fitter keeps ``_cg_schur``)."""
+    n = Sigma.shape[-1]
+    p = cm.shape[-1]
+    q = n - p
+    d = jacobi(Sigma)
+    St = Sigma / (d[..., :, None] * d[..., None, :])
+    bt = b / d
+    A = St[..., :p, :p]
+    if q:
+        B = St[..., p:, :p]
+        L = cho_factor(St[..., p:, p:])
+        CiB = cho_solve(L, B)
+        bF = bt[..., p:]
+        CibF = cho_solve(L, bF)
+        rhs0 = bt[..., :p] - (B.mT @ CibF[..., None])[..., 0]
+        chi2r = rCr - torch.sum(bF * CibF, dim=-1)
+        dS = 1.0 - torch.sum(B * CiB, dim=-2)
+    else:
+        rhs0 = bt[..., :p]
+        chi2r = rCr
+        dS = torch.ones_like(rhs0)
+    dS = torch.where(dS > 1e-14, dS, torch.ones_like(dS))
+
+    def op(V):
+        out = A @ V
+        if q:
+            out = out - CiB.mT @ (B @ V)
+        return out
+
+    eye = torch.eye(p, dtype=St.dtype, device=St.device).expand(
+        rhs0.shape[:-1] + (p, p))
+    RHS = torch.cat([rhs0[..., None], eye], dim=-1)
+    bnorm = torch.sqrt(torch.sum(RHS * RHS, dim=-2))
+    bnorm = torch.where(bnorm == 0, torch.ones_like(bnorm), bnorm)
+    X = torch.zeros_like(RHS)
+    R = RHS
+    Pd = R / dS[..., :, None]
+    rz = torch.sum(R * Pd, dim=-2)
+    nact = torch.zeros(rz.shape, dtype=torch.long, device=St.device)
+
+    def active(R):
+        return torch.sqrt(torch.sum(R * R, dim=-2)) > tol * bnorm
+
+    k = 0
+    while k < budget:
+        for _ in range(min(CG_CHECK_EVERY, budget - k)):
+            act = active(R)
+            AP = op(Pd)
+            pAp = torch.sum(Pd * AP, dim=-2)
+            alpha = torch.where(act & (pAp > 0),
+                                rz / torch.where(pAp > 0, pAp, 1.0), 0.0)
+            Xn = X + alpha[..., None, :] * Pd
+            Rn = R - alpha[..., None, :] * AP
+            Zn = Rn / dS[..., :, None]
+            rzn = torch.sum(Rn * Zn, dim=-2)
+            beta = torch.where(act & (rz > 0),
+                               rzn / torch.where(rz > 0, rz, 1.0), 0.0)
+            Pn = Zn + beta[..., None, :] * Pd
+            # converged columns (of every slot) stay as they are
+            X = torch.where(act[..., None, :], Xn, X)
+            R = torch.where(act[..., None, :], Rn, R)
+            Pd = torch.where(act[..., None, :], Pn, Pd)
+            rz = torch.where(act, rzn, rz)
+            nact = nact + act
+            k += 1
+        if not bool(torch.any(active(R))):
+            break
+    xt = X[..., 0]
+    Sinv = X[..., 1:]
+    if q:
+        yt = cho_solve(L, bF - (B @ xt[..., None])[..., 0])
+        chi2 = rCr - (torch.sum(xt * bt[..., :p], dim=-1)
+                      + torch.sum(yt * bF, dim=-1))
+        xf = yt / d[..., p:]
+    else:
+        chi2 = rCr - torch.sum(xt * bt[..., :p], dim=-1)
+        xf = xt.new_zeros(xt.shape[:-1] + (0,))
+    scale = d[..., :p] * cm
+    dparams = -xt / scale
+    cov = Sinv / (scale[..., :, None] * scale[..., None, :])
+    resid = torch.amax(torch.sqrt(torch.sum(R * R, dim=-2)) / bnorm,
+                       dim=-1)
+    ok = torch.all(torch.isfinite(xt), dim=-1) \
+        & torch.all(torch.isfinite(cov).flatten(-2), dim=-1) \
+        & torch.isfinite(chi2) & (resid <= tol ** 0.5)
+    return dparams, cov, chi2, chi2r, xf, ok, torch.amax(nact, dim=-1), \
+        resid
+
+
 def _finalize_kernel(state, phi, budget: int, tol: float,
                      incoffset: bool = True):
     """Flush the ECORR carry, mean-correct, and CG-solve."""

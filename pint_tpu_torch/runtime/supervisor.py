@@ -727,6 +727,35 @@ class DispatchSupervisor:
         with self._inflight_lock:
             return self._inflight
 
+    def pool_health(self, pools=None, device=None) -> dict:
+        """Capacity-pool health surface for the serve router: the
+        device pool's breaker (keyed by ``backend_of(device)``:
+        "cuda:0", or "cpu" for a CPU engine) and in-flight depth, and
+        the host pool (always available: its breaker is definitionally
+        closed). Read-only, never probes. ``pools`` names extra
+        device-class pools, each with its own breaker keyed
+        ``pool:<name>``."""
+        backend = backend_of(device)
+        br = breaker_for(backend)
+        out = {
+            "device": {
+                "backend": backend,
+                "breaker": br.snapshot(),
+                "open": br.is_open,
+                "inflight": self.inflight,
+            },
+            "host": {"backend": "cpu", "open": False},
+        }
+        for name in pools or ():
+            if name in out:
+                continue
+            br = breaker_for(f"pool:{name}")
+            out[name] = {"backend": f"pool:{name}",
+                         "breaker": br.snapshot(),
+                         "open": br.is_open,
+                         "inflight": 0}
+        return out
+
     def note_failover(self, key: str, exc: BaseException, sp=None):
         """Record a failover — performed by the CALL SITE (the device
         fitter swaps in the whole host fitter rather than a single

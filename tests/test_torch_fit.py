@@ -486,8 +486,11 @@ def test_fitter_auto_routes_and_refuses_unported(problem):
     assert type(Fitter.auto(nt, nm)) is DownhillWLSFitter
     assert type(Fitter.auto(tt, tm, streaming=True)) is StreamingGLSFitter
     assert type(Fitter.auto(tt, tm, device=True)) is DeviceDownhillGLSFitter
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Fitter.auto(tt, tm, serve=object())
+    from pint_tpu_torch.serve import ServeGLSFitter
+
+    assert type(Fitter.auto(tt, tm, serve=object())) is ServeGLSFitter
+    with pytest.raises(ValueError, match="exclusive"):
+        Fitter.auto(tt, tm, serve=object(), device=True)
 
 
 def test_pintempo_fits_a_binary(tmp_path, capsys):

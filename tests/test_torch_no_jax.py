@@ -12,7 +12,10 @@ par converted, polycos generated, an ecliptic round trip, a design
 matrix, select, d_phase_d_toa and the native MJD parser), and so do the
 health, perf and SLO planes (an armed step's health vector, a shadowed
 GLS solve, a padded step, the decomposition of a guarded dispatch, the
-compile ledger, a profiler window, an SLO tick, the scoreboard)."""
+compile ledger, a profiler window, an SLO tick, the scoreboard), and so
+does the serve layer (every module of pint_tpu_torch.serve and the
+pint_serve daemon import; one engine coalesces the array's fit steps and
+a polyco read into two device dispatches)."""
 
 import os
 import subprocess
@@ -61,7 +64,15 @@ for name in ("pint_tpu_torch.pta.gwb", "pint_tpu_torch.parallel.pta",
              "pint_tpu_torch.pint_matrix", "pint_tpu_torch.binaryconvert",
              "pint_tpu_torch.models.tcb_conversion",
              "pint_tpu_torch.obs.health", "pint_tpu_torch.obs.slo",
-             "pint_tpu_torch.obs.perf", "pint_tpu_torch.profiling"):
+             "pint_tpu_torch.obs.perf", "pint_tpu_torch.profiling",
+             "pint_tpu_torch.serve", "pint_tpu_torch.serve.request",
+             "pint_tpu_torch.serve.bucket", "pint_tpu_torch.serve.append",
+             "pint_tpu_torch.serve.scheduler",
+             "pint_tpu_torch.serve.metrics",
+             "pint_tpu_torch.serve.admission",
+             "pint_tpu_torch.serve.router", "pint_tpu_torch.serve.journal",
+             "pint_tpu_torch.serve.fleet", "pint_tpu_torch.serve.workload",
+             "pint_tpu_torch.scripts.pint_serve"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu")
@@ -96,6 +107,22 @@ like = GWBLikelihood(problems=probs, gamma_matrix=np.eye(3), nfreq=2,
                      device="cpu")
 val = like.loglik(-14.0, 13.0 / 3.0)
 assert np.isfinite(val)
+
+from pint_tpu_torch.serve import FitStepRequest, PhasePredictRequest, \
+    ServeEngine
+from pint_tpu_torch.serve.workload import demo_polyco_entry
+
+eng = ServeEngine(device="cpu")
+futs = [eng.submit(FitStepRequest(problem=pr)) for pr in probs]
+futs.append(eng.submit(PhasePredictRequest(demo_polyco_entry(),
+                                           [55000.0, 55000.001])))
+eng.flush()
+served = [f.result(timeout=0) for f in futs]
+np.testing.assert_allclose(np.stack([r.dparams for r in served[:3]]),
+                           dparams, rtol=1e-8, atol=1e-18)
+snap = eng.metrics.snapshot()
+assert snap["completed"] == 4 and snap["compile_count"] == 2, snap
+assert snap["router"]["device"]["dispatches"] == 2
 
 import io
 import warnings

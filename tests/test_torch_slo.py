@@ -5,11 +5,10 @@ the reference's pint_tpu.obs.slo on the CPU.
 (:96 and :453-590) through both packages, with injected clocks, and
 holds the outcomes equal: which ticks fire, the latch, the flight dump
 and its ``slo`` block, the ratio, gauge and latency specs, the config
-parsers and ``maybe_start``. The reference's :96 drives its serve
-engine's quota sheds; the port has no serve layer yet, so the case
-moves the same two counters (``pint_tpu_serve_shed_total`` and
-``pint_tpu_serve_attempts_total``) by hand: a storm of pure sheds must
-fire the default ``shed_rate`` spec, not evaluate to None.
+parsers and ``maybe_start``. The :96 case drives each package's serve
+engine (the port's on the CPU) through a storm of real quota sheds: a
+storm of pure sheds must fire the default ``shed_rate`` spec, not
+evaluate to None.
 """
 
 import json
@@ -28,14 +27,25 @@ def _ns(which):
         from pint_tpu import obs
         from pint_tpu.obs import metrics as om
         from pint_tpu.obs import slo
+        from pint_tpu.serve import ServeEngine, TenantOverQuota
+        from pint_tpu.serve.workload import build_workload
+        kw = {}
     else:
         import pint_tpu_torch.config as cfg
         import pint_tpu_torch.runtime as rt
         from pint_tpu_torch import obs
         from pint_tpu_torch.obs import metrics as om
         from pint_tpu_torch.obs import slo
-    return types.SimpleNamespace(name=which, config=cfg, rt=rt, obs=obs,
-                                 om=om, slo=slo)
+        from pint_tpu_torch.serve import ServeEngine, TenantOverQuota
+        from pint_tpu_torch.serve.workload import build_workload
+        kw = {"device": "cpu"}
+    return types.SimpleNamespace(
+        name=which, config=cfg, rt=rt, obs=obs, om=om, slo=slo,
+        TenantOverQuota=TenantOverQuota,
+        Engine=lambda **k: ServeEngine(**kw, **k),
+        workload=lambda n, base: build_workload(
+            n, sizes=(40, 90), base=base, prebuild=True,
+            entry_name="METR", **kw))
 
 
 def _reset(ns):
@@ -144,22 +154,33 @@ def s_shed_storm(ns, mp, tmp):
     clock = {"t": 0.0}
     wd = ns.slo.SLOWatchdog(specs=[spec], interval_s=5.0,
                             clock=lambda: clock["t"])
-    shed = ns.om.counter("pint_tpu_serve_shed_total")
-    attempts = ns.om.counter("pint_tpu_serve_attempts_total")
+    fresh = ns.workload(2, base=6700)
+    eng = ns.Engine(tenant_qps=1000.0, tenant_burst=100.0)
 
-    def tick(n_shed, n_ok):
-        shed.inc(n_shed, tenant="noisy")
-        attempts.inc(n_shed + n_ok)
+    def tick(noisy=False):
+        for r in fresh():
+            r.tenant = "noisy" if noisy else "calm"
+            try:
+                eng.submit(r)
+            except ns.TenantOverQuota:
+                pass
+        eng.flush()
         fired = wd.tick(now=clock["t"])
         clock["t"] += 5.0
         return fired
 
-    out = [tick(0, 4) for _ in range(8)]
+    out = [tick() for _ in range(8)]
+    # pure-shed storm: drain the noisy tenant's bucket every tick
+    plan = ns.rt.FaultPlan([ns.rt.Fault(match="serve.admit/noisy",
+                                        kind="tenant_burst")])
     fired = []
-    for _ in range(6):
-        fired += tick(8, 0)     # every attempt shed: a flat "submitted"
+    with plan.active():
+        for _ in range(6):
+            fired += tick(noisy=True)
     assert fired == ["shed_rate"]
-    return out + [fired, wd.fires]
+    assert eng.metrics.attempts > eng.metrics.submitted
+    return out + [fired, wd.fires, eng.metrics.attempts,
+                  eng.metrics.submitted, eng.admission.shed_quota]
 
 
 def s_default_specs_and_parsers(ns, mp, tmp):
