@@ -286,7 +286,7 @@ Phases, each fatal on failure:
    runtime-gwb (e): config 5's GWB likelihood on the card, every sweep
      chunk after the first hanging: each completes by the numpy mirror,
      the sweep within 1e-9 of the CPU sweep, labelled host-failover;
-   runtime-chain (e): the bayes-moments pulsar's chain (32 x 600, chunks
+   runtime-chain (e): the bayes-moments pulsar's chain (32 x 200, chunks
      of RT_CHAIN_CHUNK) on the card with every chunk from chunk 2 on
      failing: it continues on the CPU posterior from the carried state,
      and its positions equal an all-CPU chain's bitwise;
@@ -424,7 +424,32 @@ Phases, each fatal on failure:
      SIGTERM, one result line a request, the serve_session snapshot
      last;
    its `serve` JSON line holds the numbers;
-18. print the card's name and power limit, and one JSON line of kernel
+18. pintk, the scripts and the analysis plane (no hand-written kernel:
+   K1 launches 0 times here), each part fatal, after phase 17:
+   (a) pintk on the fit cell (its par and its TOAs written as a .tim):
+     Pulsar on the card against Pulsar on the CPU — the fit (auto:
+     downhill GLS) at fit-downhill's limits; then on both select a
+     quarter of the span, jump it, fit, unjump, delete 100 TOAs, undo,
+     fit (each fit held to the CPU's, each step's counts equal);
+     random_models(100) on the card, timed; plot_data postfit within
+     1e-12 s of the CPU's and its axes within 1e-12 relative; pulse
+     numbers equal;
+   (b) the scripts on the card against --device cpu, to
+     tests/test_torch_scripts.py's limits: pintbary at 100,000 MJDs of
+     config 2's par (1e-13 d; its delays card vs CPU 1e-12 s), zima at
+     10,000 TOAs of config 2's par with --addnoise --addcorrnoise --seed
+     0 (TOAs 1e-11 s, the other columns equal), pintpublish on the fit
+     cell (the same table, a straddled last digit held as the fitted
+     value to 1e-3 sigma), convert_parfile (ELL1 -> DD), t2binary2pint,
+     tcb2tdb and compare_parfiles (the same output);
+   (c) the port's linter over the tree it runs from exits 0 (its rule
+     and allowlist counts and its seconds); a Sanitizer around a
+     params_only sweep of the fit cell on the card counts one cache
+     build; Sanitizer.wrap flags a numpy operand entering a CUDA call
+     and a non-finite output;
+   every device-side object made lives on cuda:0; its `cli_gui` JSON
+   line holds the numbers and seconds;
+19. print the card's name and power limit, and one JSON line of kernel
    measurements.
 
 The last line of standard output is {"ok": true, "device": {...}}. The
@@ -651,6 +676,11 @@ POST_WALKERS, POST_STEPS, POST_BURN = 32, 600, 200
 # crossover, and the headroom every key's largest wall must leave
 RT_HANG_S, RT_DEADLINE_S = 300.0, 5.0
 RT_CHAIN_CHUNK = 64
+# runtime-chain's depth: 4 chunks, the last two failing over. Its check
+# is per chunk (bitwise the all-CPU chain), not statistical, so it runs
+# shorter than phase 12's 600 steps, which it ran two chains of (on the
+# card and on the CPU) inside the smoke's time limit
+RT_CHAIN_STEPS = 200
 RT_CROSSOVER_NTOA = (1_000,)     # and NGC6440E's 62, the fit cell's 10,000
 RT_HEADROOM = 10.0
 STEP_SIGMA_LIMIT = 1e-7           # one downhill step, card vs CPU (ROADMAP §3)
@@ -4518,7 +4548,7 @@ def runtime_chain(dev) -> dict:
         t0 = time.perf_counter()
         cpu = DeviceEnsembleSampler(POST_WALKERS, posts["cpu"].nparams,
                                     posts["cpu"].lnpost_batch, device="cpu")
-        cpu.run_mcmc(p0, POST_STEPS, seed=13)
+        cpu.run_mcmc(p0, RT_CHAIN_STEPS, seed=13)
         cpu_s = time.perf_counter() - t0
         s = DeviceEnsembleSampler(POST_WALKERS, posts["gpu"].nparams,
                                   posts["gpu"].lnpost_batch, device=dev,
@@ -4527,7 +4557,7 @@ def runtime_chain(dev) -> dict:
                                 after=2)])
         t0 = time.perf_counter()
         with plan.active():
-            s.run_mcmc(p0, POST_STEPS, seed=13)
+            s.run_mcmc(p0, RT_CHAIN_STEPS, seed=13)
         wall = time.perf_counter() - t0
     finally:
         del os.environ["PINT_TPU_CHAIN_CHUNK"]
@@ -4535,17 +4565,18 @@ def runtime_chain(dev) -> dict:
     same = bool(np.array_equal(s.chain, cpu.chain))
     lnp_rel = float(np.max(np.abs(s.lnprob - cpu.lnprob)
                            / np.maximum(np.abs(cpu.lnprob), 1e-300)))
-    nchunks = -(-POST_STEPS // RT_CHAIN_CHUNK)
-    res = {"walkers": POST_WALKERS, "steps": POST_STEPS,
+    nchunks = -(-RT_CHAIN_STEPS // RT_CHAIN_CHUNK)
+    res = {"walkers": POST_WALKERS, "steps": RT_CHAIN_STEPS,
            "chunk": RT_CHAIN_CHUNK, "chunks": s.dispatches,
            "failovers": snap["failovers"],
            "positions_bitwise_cpu_chain": same, "lnprob_max_rel": lnp_rel,
            "acceptance": [s.acceptance_fraction, cpu.acceptance_fraction],
            "wall_s": wall, "cpu_chain_s": cpu_s}
-    print(f"runtime-chain: {POST_WALKERS} x {POST_STEPS} in {nchunks} chunks "
-          f"of {RT_CHAIN_CHUNK}, chunks 2.. failed ({snap['failovers']} "
-          f"failovers) in {wall:.3f} s; positions bitwise the all-CPU "
-          f"chain's ({cpu_s:.3f} s) {same}, lnprob within {lnp_rel:.3e} "
+    print(f"runtime-chain: {POST_WALKERS} x {RT_CHAIN_STEPS} in {nchunks} "
+          f"chunks of {RT_CHAIN_CHUNK}, chunks 2.. failed "
+          f"({snap['failovers']} failovers) in {wall:.3f} s; positions "
+          f"bitwise the all-CPU chain's ({cpu_s:.3f} s) {same}, lnprob "
+          f"within {lnp_rel:.3e} "
           f"(chunks 0-1 scored on the card), acceptance "
           f"{s.acceptance_fraction:.4f} / {cpu.acceptance_fraction:.4f}")
     if not (same and s.dispatches == nchunks
@@ -6826,6 +6857,445 @@ def serve_phase(ctx: dict, dev) -> dict:
     return out
 
 
+# ------------------------------------ phase 18: the CLIs, pintk, analysis
+
+
+CLI_QUARTER = (54000.0, 55000.0)   # (a) a quarter of FIT_SPAN
+CLI_DELETE = 100                   # (a) TOAs the session deletes
+CLI_RANDOM = 100                   # (a) random_models draws
+CLI_BARY_NMJD = 100_000            # (b) pintbary's MJDs
+CLI_ZIMA_NTOA = 10_000             # (b) zima's TOAs
+# tests/test_torch_scripts.py's limits: pintbary's last printed digit of
+# the day, the delay, zima's TOAs, pintpublish's fitted values [sigma]
+CLI_BARY_DAY, CLI_DELAY_S, CLI_ZIMA_S, CLI_PUB_SIGMA = \
+    1e-13, 1e-12, 1e-11, 1e-3
+
+
+def on_card(label: str, objs: dict, dev) -> None:
+    """Every device-side object of the phase lives on the card (cuda:0
+    on the card; the given device in a CPU rehearsal)."""
+    import torch
+
+    def where(v):
+        d = torch.device(v.device if hasattr(v, "device") else v)
+        # "cuda" alone is the current device
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    want = torch.device("cuda", 0) if torch.device(dev).type == "cuda" \
+        else torch.device(dev)
+    bad = {k: str(where(v)) for k, v in objs.items() if where(v) != want}
+    if bad:
+        fail(f"{label}: objects off {want}: {bad}")
+
+
+def pulsar_fit_same(label: str, pg, pc) -> dict:
+    """The card's Pulsar fit against the CPU's, fit-downhill's limits:
+    the same fitter kind and free set, parameters within DP_SIGMA of the
+    CPU uncertainties, chi2 within CHI2_REL plus what the residual
+    difference explains, residuals within RESID_S."""
+    fg, fc = pg.fitter, pc.fitter
+    if type(fg) is not type(fc) or \
+            pg.model.free_params != pc.model.free_params:
+        fail(f"{label}: {type(fg).__name__} {pg.model.free_params} on the "
+             f"card, {type(fc).__name__} {pc.model.free_params} on the CPU")
+    sig = max(abs(pg.model.get_param(n).value - pc.model.get_param(n).value)
+              / fc.errors[n] for n in pc.model.free_params)
+    rg, rc = pg.postfit_resids, pc.postfit_resids
+    dr = rg.time_resids.cpu().numpy() - rc.time_resids.numpy()
+    cg, cc = float(rg.chi2), float(rc.chi2)
+    tol = chi2_tol(cc, dr, fc.model.scaled_toa_uncertainty(fc.toas),
+                   CHI2_REL)
+    out = {"fitter": type(fg).__name__, "nfree": len(pg.model.free_params),
+           "dp_sigma": sig, "chi2": cg, "chi2_rel": abs(cg - cc) / abs(cc),
+           "chi2_rel_limit": tol / abs(cc),
+           "resid_s": float(np.max(np.abs(dr)))}
+    print(f"{label}: {out}")
+    if not (sig <= DP_SIGMA and abs(cg - cc) <= tol
+            and out["resid_s"] <= RESID_S):
+        fail(f"{label}: the card's fit does not reach the CPU optimum")
+    return out
+
+
+def pintk_session(par: str, tim: str, dev) -> dict:
+    """(a) pintk on the fit cell: Pulsar on the card against Pulsar on
+    the CPU — the fit (auto: downhill GLS), then one session on both
+    (select a quarter, jump it, fit, unjump, delete CLI_DELETE TOAs,
+    undo, fit), random_models(CLI_RANDOM) on the card, plot_data postfit
+    and pulse numbers, each held to the CPU's."""
+    import torch
+
+    from pint_tpu_torch.pintk import Pulsar
+    from pint_tpu_torch.pintk.plk import PlkState
+
+    secs, out = {}, {}
+    t0 = time.perf_counter()
+    pg = Pulsar(par, tim, device=dev)
+    secs["load_card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pc = Pulsar(par, tim, device="cpu")
+    secs["load_cpu"] = time.perf_counter() - t0
+
+    def both(name, fn):
+        for tag, p in (("card", pg), ("cpu", pc)):
+            t0 = time.perf_counter()
+            r = fn(p)
+            sync(dev)
+            secs[f"{name}_{tag}"] = time.perf_counter() - t0
+            out.setdefault(name, []).append(r)
+        if out[name][0] != out[name][1]:
+            fail(f"pintk {name}: card {out[name][0]!r}, CPU "
+                 f"{out[name][1]!r}")
+
+    both("fit", lambda p: p.fit() is not None)
+    out["fit"] = pulsar_fit_same("pintk fit", pg, pc)
+    both("select", lambda p: (p.select_mjd_range(*CLI_QUARTER),
+                              int(p.selected.sum()))[1])
+    both("jump", lambda p: p.jump_selection())
+    both("fit2", lambda p: p.fit() is not None)
+    out["fit2"] = pulsar_fit_same("pintk jumped fit", pg, pc)
+    both("unjump", lambda p: p.unjump_selection())
+    drop = np.zeros(pg.all_toas.ntoas, bool)
+    drop[np.linspace(0, pg.all_toas.ntoas - 1, CLI_DELETE).astype(int)] = \
+        True
+    both("delete", lambda p: (p.delete_TOAs(drop), p.all_toas.ntoas))
+    both("undo", lambda p: (p.undo(), p.all_toas.ntoas, len(p._undo_stack)))
+    both("fit3", lambda p: p.fit() is not None)
+    out["fit3"] = pulsar_fit_same("pintk session end", pg, pc)
+    t0 = time.perf_counter()
+    curves = pg.random_models(n=CLI_RANDOM, rng=np.random.default_rng(7))
+    sync(dev)
+    secs["random_models_card"] = time.perf_counter() - t0
+    spread = float(curves.std(dim=0).max())
+    if curves.shape != (CLI_RANDOM, pg.all_toas.ntoas) or \
+            not bool(torch.isfinite(curves).all()) or not spread > 0:
+        fail(f"pintk random_models: shape {tuple(curves.shape)}, spread "
+             f"{spread}")
+    out["random_models"] = {"n": CLI_RANDOM, "spread_s": spread}
+    t0 = time.perf_counter()
+    dg, dc = pg.plot_data(), pc.plot_data()
+    secs["plot_data"] = time.perf_counter() - t0
+    plot = {"resid_s": float(np.max(np.abs(dg["resids_us"]
+                                           - dc["resids_us"]))) * 1e-6}
+    for k in ("mjds", "errors_us", "freqs", "elongation"):
+        plot[k] = float(np.max(np.abs(dg[k] - dc[k])
+                               / np.maximum(np.abs(dc[k]), 1e-300)))
+    st_g, st_c = PlkState(pg), PlkState(pc)
+    for ax in ("year", "day_of_year", "serial"):
+        st_g.set_axis(xaxis=ax)
+        st_c.set_axis(xaxis=ax)
+        xg, xc = st_g.xy()[0], st_c.xy()[0]
+        plot[f"x_{ax}"] = float(np.max(np.abs(xg - xc)
+                                       / np.maximum(np.abs(xc), 1e-300)))
+    out["plot_data"] = plot
+    if plot["resid_s"] > RESID_S or \
+            max(v for k, v in plot.items() if k != "resid_s") > 1e-12 or \
+            dg["obs"] != dc["obs"] or \
+            not np.array_equal(dg["selected"], dc["selected"]):
+        fail(f"pintk plot_data: {plot}")
+    both("pulse_numbers", lambda p: (p.compute_pulse_numbers(),
+                                     p.all_toas.get_pulse_numbers())[1]
+         .tolist())
+    out["pulse_numbers"] = len(out["pulse_numbers"][0])
+    on_card("pintk", {"model": pg.model.device, "toas": pg.all_toas.device,
+                      "fitter": pg.fitter.device, "curves": curves,
+                      "resids": pg.postfit_resids.time_resids,
+                      "batch": pg.model.get_cache(pg.all_toas)["batch"]
+                      .tdb_day}, dev)
+    for k in ("select", "jump", "unjump", "delete", "undo"):
+        out[k] = out[k][0]
+    out["seconds"] = secs
+    print(f"pintk: {json.dumps(out, default=str)}")
+    return out
+
+
+def capture_main(main, argv) -> tuple:
+    """(return code, stdout) of a script's main, not echoed as run_main
+    echoes it (pintbary prints 100,000 lines), its warnings silenced."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def tim_columns(path: str) -> tuple:
+    """(day, frac-dd, freqs, errors, obs, flags) of a written tim file."""
+    from pint_tpu_torch.io.tim import parse_tim
+    from pint_tpu_torch.time.mjd import parse_mjd_strings
+
+    rows = parse_tim(path)
+    day, frac = parse_mjd_strings([t.mjd_str for t in rows])
+    return (day, frac, [t.freq_mhz for t in rows],
+            [t.error_us for t in rows], [t.obs for t in rows],
+            [dict(t.flags) for t in rows])
+
+
+def scripts_on_card(fit_par: str, fit_tim: str, b_par: str, seed: int,
+                    dev, tmp: str) -> dict:
+    """(b) the scripts on the card against --device cpu, to
+    tests/test_torch_scripts.py's limits: pintbary at CLI_BARY_NMJD MJDs
+    of config 2's par (and its delays directly, card vs CPU), zima at
+    CLI_ZIMA_NTOA TOAs with both noise draws, pintpublish on the fit
+    cell, convert_parfile (ELL1 -> DD), t2binary2pint, tcb2tdb and
+    compare_parfiles."""
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.models.timing_model import copy_model
+    from pint_tpu_torch.scripts import (compare_parfiles, convert_parfile,
+                                        pintbary, pintpublish,
+                                        t2binary2pint, tcb2tdb, zima)
+    from pint_tpu_torch.toa import get_TOAs_array
+
+    devs = (("card", str(dev)), ("cpu", "cpu"))
+    secs, out = {}, {}
+    bpath = os.path.join(tmp, "config2.par")
+    with open(bpath, "w") as f:
+        f.write(b_par)
+
+    def run(name, main, argv_of):
+        res = {}
+        for tag, d in devs:
+            t0 = time.perf_counter()
+            rc, text = capture_main(main, argv_of(tag) + ["--device", d])
+            secs[f"{name}_{tag}"] = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"{name} --device {d} returned {rc}")
+            res[tag] = text
+        return res
+
+    # pintbary: 100,000 seeded MJDs over config 2's span at gbt, 1400 MHz
+    rng = np.random.default_rng(seed + 18)
+    mjds = np.round(rng.uniform(B1855_SPAN[0], B1855_SPAN[1],
+                                CLI_BARY_NMJD), 6)
+    args = [repr(float(m)) for m in mjds]
+    txt = run("pintbary", pintbary.main,
+              lambda t: args + ["--parfile", bpath, "--obs", "gbt",
+                                "--freq", "1400"])
+    bat = {t: np.array([float(ln.split("->")[1])
+                        for ln in txt[t].splitlines() if "->" in ln])
+           for t in txt}
+    day_err = float(np.max(np.abs(bat["card"] - bat["cpu"])))
+    # the delay pintbary subtracts, card against CPU, of one TOA table
+    delays = {}
+    for tag, d in devs:
+        m = copy_model(get_model(bpath, device=d))
+        for nm in [c for c in m.components if c.startswith("Binary")]:
+            m.remove_component(nm)
+        if not delays:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                t = get_TOAs_array(mjds, obs="gbt", freqs=1400.0,
+                                   errors=1.0, ephem=m.EPHEM.value,
+                                   device="cpu")
+        delays[tag] = m.delay(t)
+    delay_err = float((delays["card"].cpu() - delays["cpu"]).abs().max())
+    out["pintbary"] = {"n": len(bat["card"]), "day_err": day_err,
+                       "delay_s_err": delay_err}
+    if len(bat["card"]) != CLI_BARY_NMJD or \
+            day_err > CLI_BARY_DAY * (1 + 1e-6) or delay_err > CLI_DELAY_S:
+        fail(f"pintbary: {out['pintbary']}")
+    on_card("pintbary", {"delay": delays["card"]}, dev)
+
+    # zima: 10,000 TOAs from config 2's par, white and correlated draws
+    run("zima", zima.main,
+        lambda t: [bpath, os.path.join(tmp, f"zima_{t}.tim"), "--ntoa",
+                   str(CLI_ZIMA_NTOA), "--startMJD", str(B1855_SPAN[0]),
+                   "--duration", str(B1855_SPAN[1] - B1855_SPAN[0]),
+                   "--addnoise", "--addcorrnoise", "--seed", "0"])
+    zg = tim_columns(os.path.join(tmp, "zima_card.tim"))
+    zc = tim_columns(os.path.join(tmp, "zima_cpu.tim"))
+    ds = ((zg[1][0] - zc[1][0]) + (zg[1][1] - zc[1][1])) * 86400.0
+    out["zima"] = {"n": len(zg[0]),
+                   "toa_s_err": float(np.max(np.abs(ds))),
+                   "same_days": bool(np.array_equal(zg[0], zc[0])),
+                   "same_columns": zg[2:] == zc[2:]}
+    if not (out["zima"]["n"] == CLI_ZIMA_NTOA and out["zima"]["same_days"]
+            and out["zima"]["same_columns"]
+            and out["zima"]["toa_s_err"] <= CLI_ZIMA_S):
+        fail(f"zima: {out['zima']}")
+
+    # pintpublish on the fit cell: the CLI on both devices, its fitters
+    # kept (main calls the module's publish_table) for the numbers
+    fitters = []
+    table_fn = pintpublish.publish_table
+
+    def keep(f, **kw):
+        fitters.append(f)
+        return table_fn(f, **kw)
+
+    pintpublish.publish_table = keep
+    try:
+        txt = run("pintpublish", pintpublish.main,
+                  lambda t: [fit_par, fit_tim])
+    finally:
+        pintpublish.publish_table = table_fn
+    fg, fc = fitters
+    straddled = []
+    tg, tc = txt["card"].splitlines(), txt["cpu"].splitlines()
+    if len(tg) != len(tc):
+        fail("pintpublish: tables of different lengths")
+    for g, c in zip(tg, tc):
+        if g == c:
+            continue
+        nm = g.split(" & ", 1)[0].split(" (")[0].replace(r"\_", "_")
+        if nm not in fc.model.free_params or \
+                abs(fg.model.get_param(nm).value
+                    - fc.model.get_param(nm).value) \
+                > CLI_PUB_SIGMA * fc.errors[nm]:
+            fail(f"pintpublish: card {g!r}, CPU {c!r}")
+        straddled.append(nm)
+    out["pintpublish"] = {"rows": len(tg), "fitter": type(fg).__name__,
+                          "straddled": straddled}
+    if len(straddled) > 2:
+        fail(f"pintpublish: {out['pintpublish']}")
+    on_card("pintpublish", {"fitter": fg.device}, dev)
+
+    # the converters and compare_parfiles: the same text on both devices
+    t2 = os.path.join(tmp, "t2.par")
+    with open(t2, "w") as f:
+        f.write(b_par.replace("BINARY ELL1", "BINARY T2"))
+    tcb = os.path.join(tmp, "tcb.par")
+    with open(tcb, "w") as f:
+        f.write(b_par.replace("UNITS TDB", "UNITS TCB"))
+    conv = {"convert_parfile": run(
+                "convert_parfile", convert_parfile.main,
+                lambda t: [bpath, "-o", os.path.join(tmp, f"dd_{t}.par"),
+                           "--binary", "DD"]),
+            "t2binary2pint": run(
+                "t2binary2pint", t2binary2pint.main,
+                lambda t: [t2, os.path.join(tmp, f"native_{t}.par")]),
+            "tcb2tdb": run(
+                "tcb2tdb", tcb2tdb.main,
+                lambda t: [tcb, os.path.join(tmp, f"tdb_{t}.par")]),
+            "compare_parfiles": run(
+                "compare_parfiles", compare_parfiles.main,
+                lambda t: [bpath, os.path.join(tmp, f"dd_{t}.par")])}
+    files = {"convert_parfile": "dd", "t2binary2pint": "native",
+             "tcb2tdb": "tdb"}
+    for name, txt in conv.items():
+        same = txt["card"].replace("_card", "_cpu") == txt["cpu"]
+        if name in files:
+            with open(os.path.join(tmp, f"{files[name]}_card.par")) as f:
+                a = f.read()
+            with open(os.path.join(tmp, f"{files[name]}_cpu.par")) as f:
+                same = same and a == f.read()
+        out[name] = {"same": same}
+        if not same:
+            fail(f"{name}: the card's output differs from the CPU's")
+    dd = get_model(os.path.join(tmp, "dd_card.par"), device=dev)
+    native = get_model(os.path.join(tmp, "native_card.par"), device=dev)
+    if "BinaryDD" not in dd.components or \
+            "BinaryELL1" not in native.components:
+        fail(f"converters: {list(dd.components)}, {list(native.components)}")
+    on_card("converters", {"dd": dd.device, "native": native.device}, dev)
+    out["seconds"] = secs
+    print(f"scripts: {json.dumps(out)}")
+    return out
+
+
+def analysis_plane(fit_par: str, toas, dev) -> dict:
+    """(c) the port's linter over the tree it runs from (exit 0, its rule
+    and allowlist counts, its seconds); a Sanitizer around a params_only
+    sweep of the fit cell on the card (one device-cache build); wrap
+    flagging a numpy operand that enters a CUDA call, and a non-finite
+    output."""
+    import torch
+
+    from pint_tpu_torch.analysis import Sanitizer, graftlint
+    from pint_tpu_torch.analysis.allowlist import ALLOWLIST
+    from pint_tpu_torch.analysis.sanitizer import SanitizerError
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.residuals import Residuals
+
+    out = {}
+    t0 = time.perf_counter()
+    rc, text = capture_main(graftlint.main, [
+        "--root", os.path.dirname(os.path.abspath(__file__)),
+        "--format", "json"])
+    lint_s = time.perf_counter() - t0
+    summary = json.loads(text.splitlines()[-1])
+    out["lint"] = {"rc": rc, "rules": len(graftlint.RULES),
+                   "allowlist": len(ALLOWLIST),
+                   "files": summary["files_scanned"],
+                   "suppressed": summary["suppressed"], "seconds": lint_s}
+    print(f"graftlint: {out['lint']}")
+    if rc != 0 or not summary["clean"]:
+        fail(f"graftlint over the tree: {text[-2000:]}")
+
+    model = get_model(io.StringIO(fit_par), device=dev)
+    with Sanitizer() as san:
+        t0 = time.perf_counter()
+        first = Residuals(toas, model).time_resids
+        for delta in (1e-11, 2e-11, -1e-11):
+            model.F0.add_delta(delta)
+            model.invalidate_cache(params_only=True)
+            last = Residuals(toas, model).time_resids
+        sync(dev)
+        sweep_s = time.perf_counter() - t0
+    out["sanitizer"] = {"builds": san.compiles("phase"), "seconds": sweep_s,
+                        "moved_s": float((last - first).abs().max())}
+    on_card("sanitizer", {"first": first, "last": last}, dev)
+    if san.compiles("phase") != 1 or not out["sanitizer"]["moved_s"] > 0:
+        fail(f"sanitizer: {out['sanitizer']}")
+
+    wrap = Sanitizer(nan_check=True)
+    call = wrap.wrap(lambda x: torch.as_tensor(x, device=dev) * 2.0,
+                     "upload")
+    call(torch.ones(8, dtype=torch.float64, device=dev))
+    clean = list(wrap.host_crossings)
+    call(np.ones(8))
+    try:
+        wrap.wrap(lambda: torch.full((2,), float("nan"), device=dev),
+                  "nan")()
+        nan_raised = False
+    except SanitizerError:
+        nan_raised = True
+    out["wrap"] = {"device_operand": clean, "numpy_operand":
+                   wrap.host_crossings, "nan_raised": nan_raised}
+    if clean or wrap.host_crossings != [("upload", 1)] or not nan_raised:
+        fail(f"sanitizer wrap: {out['wrap']}")
+    print(f"analysis: {json.dumps(out)}")
+    return out
+
+
+def cli_gui_phase(ctx: dict, dev) -> dict:
+    """Phase 18: pintk, the scripts and the analysis plane on the card,
+    (a)-(c), each fatal."""
+    from pint_tpu_torch import obs
+    from pint_tpu_torch.runtime import reset_runtime
+
+    reset_runtime()
+    obs.reset()
+    secs, out = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        par = os.path.join(tmp, "fit.par")
+        tim = os.path.join(tmp, "fit.tim")
+        t0 = time.perf_counter()
+        with open(par, "w") as f:
+            f.write(ctx["par"])
+        write_toas_tim(ctx["toas"], tim)
+        secs["write"] = time.perf_counter() - t0
+        for name, fn, args in (
+                ("pintk", pintk_session, (par, tim, dev)),
+                ("scripts", scripts_on_card,
+                 (par, tim, ctx["b_par"], ctx["seed"], dev, tmp)),
+                ("analysis", analysis_plane,
+                 (ctx["par"], ctx["toas"], dev))):
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                out[name] = fn(*args)
+            secs[name] = time.perf_counter() - t0
+    out["clean"] = supervisor_clean("the CLIs and pintk")
+    reset_runtime()
+    obs.reset()
+    print("cli-gui seconds: " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in secs.items()))
+    out["seconds"] = secs
+    return out
+
+
 def fmt(t: dict) -> str:
     return (f"{t['median']:.4f} ms median of 20 (min {t['min']:.4f}, "
             f"max {t['max']:.4f})")
@@ -7200,6 +7670,19 @@ def main() -> int:
     if serve["k1_launches"]:
         fail(f"serve: K1 launched {serve['k1_launches']} times on a path "
              "that runs no H-test")
+    # phase 18: pintk, the scripts and the analysis plane on the card
+    # (K1 launches 0 times: no script or pintk action runs an H-test)
+    k1_before = zmod.launches
+    t0 = time.perf_counter()
+    cli_gui = cli_gui_phase({"par": fit_par_text, "toas": toas,
+                             "b_par": b_par, "seed": args.seed}, dev)
+    cli_gui["seconds"]["total"] = time.perf_counter() - t0
+    cli_gui["k1_launches"] = zmod.launches - k1_before
+    print(f"cli-gui: {cli_gui['seconds']['total']:.3f} s, K1 launches "
+          f"{cli_gui['k1_launches']}")
+    if cli_gui["k1_launches"]:
+        fail(f"cli-gui: K1 launched {cli_gui['k1_launches']} times on a "
+             "path that runs no H-test")
     print(f"profile check: K1's entry {k1_entry:.4f} ms a launch in the "
           f"path's profile, K1 between events at its shape "
           f"{k_path['median']:.4f} ms")
@@ -7315,6 +7798,7 @@ def main() -> int:
     print(json.dumps({"host_api": host_api}))
     print(json.dumps({"health_perf": health_perf}, default=str))
     print(json.dumps({"serve": serve}, default=str))
+    print(json.dumps({"cli_gui": cli_gui}, default=str))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     ledger_dir.cleanup()
     print(card())

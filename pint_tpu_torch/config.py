@@ -55,7 +55,7 @@ __all__ = ["chain_chunk_steps", "clock_dir", "energy_draw_chunk",
            "journal_path", "serve_drain_timeout_s",
            "journal_compact_bytes", "metrics_port",
            "serve_pipeline_depth", "pool_spec", "fleet_lease_ttl_s",
-           "fleet_heartbeat_s", "fleet_workers"]
+           "fleet_heartbeat_s", "fleet_workers", "cuda_home"]
 
 log = logging.getLogger(__name__)
 _WARNED_ENV: set = set()
@@ -74,6 +74,19 @@ def ephem_dir() -> Optional[Path]:
 def obs_override() -> Optional[Path]:
     d = os.environ.get("PINT_TPU_OBS_OVERRIDE")
     return Path(d) if d else None
+
+
+def cuda_home() -> Optional[Path]:
+    """$CUDA_HOME, the CUDA toolkit the kernels are built with when
+    ``nvcc`` is not on PATH; unset gives None, and a value that is not a
+    directory warns once and is ignored (None)."""
+    raw = os.environ.get("CUDA_HOME")
+    if not raw:
+        return None
+    if not os.path.isdir(raw):
+        _warn_once("CUDA_HOME", "is not a directory", raw, None)
+        return None
+    return Path(raw)
 
 
 def _warn_once(name: str, why: str, raw: str, fallback) -> None:

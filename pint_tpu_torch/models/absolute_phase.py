@@ -22,7 +22,8 @@ from pint_tpu_torch.ops.dd import DD
 
 
 class AbsPhase(PhaseComponent):
-    """Absolute-phase anchor parameters."""
+    """Absolute-phase anchor parameters (reference:
+    src/pint/models/absolute_phase.py AbsPhase)."""
 
     category = "phase_offset"
 

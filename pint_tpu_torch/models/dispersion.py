@@ -87,7 +87,7 @@ class DispersionDM(Dispersion):
         for name in self.params:
             if name.startswith("DM") and name not in (
                     "DM", "DM1", "DMEPOCH") and name[2:].isdigit():
-                extras.append((int(name[2:]), name))
+                extras.append((int(name[2:]), name))  # graftlint: allow G1 -- name is a str (a parameter name parsed on the host)
         out.extend(nm for _, nm in sorted(extras))
         return out
 

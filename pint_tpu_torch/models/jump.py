@@ -15,7 +15,8 @@ from pint_tpu_torch.ops.dd import DD
 
 
 class PhaseJump(PhaseComponent):
-    """Per-TOA-subset constant offsets: each JUMPn maskParameter is
+    """Per-TOA-subset constant offsets (reference:
+    src/pint/models/jump.py PhaseJump): each JUMPn maskParameter is
     seconds on its selected TOAs."""
 
     category = "phase_jump"

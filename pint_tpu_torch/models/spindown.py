@@ -24,7 +24,8 @@ from pint_tpu_torch.ops.taylor import dd_taylor_horner
 
 
 class Spindown(PhaseComponent):
-    """Rotational phase Σ Fᵢ·dtⁱ⁺¹/(i+1)!."""
+    """Rotational phase Σ Fᵢ·dtⁱ⁺¹/(i+1)! (reference:
+    src/pint/models/spindown.py Spindown.spindown_phase)."""
 
     category = "spindown"
 

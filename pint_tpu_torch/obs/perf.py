@@ -94,7 +94,7 @@ _STOP_JOIN_S = 30.0
 
 
 _PROBE_THREADS: set = set()
-_PROBE_LOCK = threading.Lock()
+_PROBE_LOCK = locks.make_lock("obs.perf_probe")
 
 
 def _note_probe_thread(t: threading.Thread):

@@ -43,6 +43,8 @@ from typing import Optional
 
 import torch
 
+from pint_tpu_torch import config
+
 __all__ = ["z2_harmonics", "z2_harmonics_plain", "build", "ptxas_report",
            "launches", "cost"]
 
@@ -101,7 +103,7 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    home = config.cuda_home() or "/usr/local/cuda"
     cand = os.path.join(home, "bin", "nvcc")
     if os.path.exists(cand):
         return cand

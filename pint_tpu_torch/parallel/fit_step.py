@@ -124,7 +124,7 @@ class SegmentSum:
         return torch.cat([head, tail])
 
 
-def _build_fit_core(model, toas, device=None, hybrid_jac=False,
+def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: allow G14 -- the producer's builder: the step it returns computes the health vector (output 5), which the callers of the step observe
                     wideband=False, arg_device=None, pad_to=None,
                     health=None):
     """(step_fn, parts_fn, args, names, meta) on ``device`` (the model's
@@ -338,7 +338,7 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,
                 torch.cat([nvec, cache["wb_dme"] ** 2]),
                 torch.cat([Fv, cache["wb_Fdm"] * valid[:, None]]))
 
-    def step_fn(th, tl, fh, fl, batch, cache, F, phi, nvec, valid,
+    def step_fn(th, tl, fh, fl, batch, cache, F, phi, nvec, valid,  # graftlint: allow G14 -- the producer: the step computes the health vector on the device (output 5); its callers observe it
                 eid, jvar):
         M, Fv, r0, nvec2, valid2, _, tmask = parts_fn(
             th, tl, fh, fl, batch, cache, F, phi, nvec, valid, eid, jvar)

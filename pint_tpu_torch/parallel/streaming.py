@@ -819,6 +819,7 @@ class StreamingGLS:
         line-search trials: a rejected overshoot is the damping
         working, not an incident; the fitter observes the passes it
         keeps)."""
+        from pint_tpu_torch import obs
         from pint_tpu_torch.runtime import get_supervisor
 
         sup = get_supervisor()
@@ -850,18 +851,20 @@ class StreamingGLS:
         state = None
         hv_worst = None
         self.last_pass_hv = None
-        for k in range(self.nchunks):
-            out = sup.dispatch(run, state, k, key="stream.chunk",
-                               device=dev)
-            if health_on:
-                # the pass's worst chunk vector (max over both slots):
-                # one observation a pass, not one a chunk
-                state, hv = out
-                hv = hv.cpu().numpy()
-                hv_worst = hv if hv_worst is None else \
-                    np.maximum(hv_worst, hv)
-            else:
-                state = out
+        with obs.span("stream.accumulate", ntoa=self.ntoa,
+                      chunk=self.chunk, nchunks=self.nchunks):
+            for k in range(self.nchunks):
+                out = sup.dispatch(run, state, k, key="stream.chunk",
+                                   device=dev)
+                if health_on:
+                    # the pass's worst chunk vector (max over both
+                    # slots): one observation a pass, not one a chunk
+                    state, hv = out
+                    hv = hv.cpu().numpy()
+                    hv_worst = hv if hv_worst is None else \
+                        np.maximum(hv_worst, hv)
+                else:
+                    state = out
         if hv_worst is not None:
             self.last_pass_hv = hv_worst
             if observe:
@@ -888,6 +891,7 @@ class StreamingGLS:
         CG mirror in a background thread and records the drift in sigma
         (the state is host-resident and (p+q)^2 small: the cheapest
         shadow of the stack)."""
+        from pint_tpu_torch import obs
         from pint_tpu_torch.obs import health as _health
         from pint_tpu_torch.runtime import get_supervisor
 
@@ -915,9 +919,11 @@ class StreamingGLS:
             return _health.drift_sigma(out[0].cpu().numpy(),
                                        out[1].cpu().numpy(), mdp)
 
-        dp, cov, chi2, chi2r, xf, ok, iters, resid = \
-            get_supervisor().dispatch(run, key="stream.solve", device=dev,
-                                      shadow=shadow, shadow_kind="stream")
+        with obs.span("stream.solve", p=self.p, q=self.q):
+            dp, cov, chi2, chi2r, xf, ok, iters, resid = \
+                get_supervisor().dispatch(run, key="stream.solve",
+                                          device=dev, shadow=shadow,
+                                          shadow_kind="stream")
         if observe:
             _health.observe("stream.solve",
                             {"cg_iters": int(iters),

@@ -557,7 +557,7 @@ def gwb_sweep_driver(like: GWBLikelihood, log10A: np.ndarray,
 
         def host_counted():
             fell_over.append(True)
-            return run_pinned()
+            return run_pinned()  # graftlint: allow G6 -- inside the host failover the supervisor itself runs (fallback=host_counted): the numpy mirror on the host, no device call
 
         return run, run_pinned, host_counted
 

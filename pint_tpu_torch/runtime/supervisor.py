@@ -306,7 +306,7 @@ def bounded_backend_probe(timeout_s: Optional[float] = None,
     try:
         r = subprocess.run(
             [sys.executable, "-c", _PROBE_SRC.format(dev=device)],
-            timeout=timeout_s, capture_output=True, env=dict(os.environ))
+            timeout=timeout_s, capture_output=True, env=dict(os.environ))  # graftlint: allow G17 -- whole-env passthrough to the hang-probe subprocess (forwards, never parses; the probe needs the caller's CUDA_VISIBLE_DEVICES and library paths)
         return r.returncode == 0
     except (subprocess.TimeoutExpired, OSError):
         return False

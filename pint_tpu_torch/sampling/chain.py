@@ -171,7 +171,7 @@ class DeviceEnsembleSampler(ChainStats):
 
             def run_pinned(call=call):
                 # the SAME chunk on the CPU, from the carried state
-                return call(torch.device("cpu"), True)
+                return call(torch.device("cpu"), True)  # graftlint: allow G6 -- inside the fallback the supervisor runs: the same chunk on the CPU posterior from the carried state, no card
 
             with obs.span("sampling.chunk", steps=budget):
                 dinfo: dict = {}

@@ -196,7 +196,7 @@ def posterior_chunk_driver(fnv, stacked: dict, seeds, nsteps,
 
         def host_counted():
             fell_over.append(True)
-            return run_pinned()
+            return run_pinned()  # graftlint: allow G6 -- inside the host failover the supervisor itself runs (fallback=host_counted): the same chunk on the CPU
 
         return (lambda: call(dev)), run_pinned, host_counted
 
@@ -212,7 +212,7 @@ def posterior_chunk_driver(fnv, stacked: dict, seeds, nsteps,
         return supervisor.dispatch(run, key=key, steps=K,
                                    fallback=host_counted, device=dev)
 
-    def run(first):
+    def drain(first):
         pos = lp = None
         acc = np.zeros(P, np.int64)
         rows_done = np.zeros(P, np.int64)
@@ -258,10 +258,10 @@ def posterior_chunk_driver(fnv, stacked: dict, seeds, nsteps,
         return chain_out, lnp_out, acc, rows_done
 
     if sync or pool == "host":
-        return lambda: run(None)
+        return lambda: drain(None)
     with obs.span("posterior.chunk.issue", chunk=0, steps=K):
         first = issue(0, None, None, asynchronous=True)
-    return lambda: run(first)
+    return lambda: drain(first)
 
 
 def sample_problems(problems: Sequence, nwalkers: int, nsteps: int,

@@ -341,7 +341,7 @@ class ExecutableCache:
 
         def host_counted():
             fell_over.append(True)
-            return host()
+            return host()  # graftlint: allow G6 -- inside the host failover the supervisor itself runs (fallback=host_counted): the numpy mirror on the host, no device call
 
         def _record():
             if fell_over:

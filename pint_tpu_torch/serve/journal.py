@@ -549,7 +549,7 @@ class AotStore:
                         _primed, key="serve.aot_restore",
                         device=self.device, fallback=lambda: {})
             else:
-                restored = _primed()
+                restored = _primed()  # graftlint: allow G6 -- a store built without a supervisor (tests, tools) primes in the caller's thread; ServeEngine always passes its supervisor
         except Exception as e:
             self._c["restore_errors"].inc()
             _log().warning("AOT restore pass failed: %r", e)

@@ -475,7 +475,7 @@ class ServeEngine:
             req._journal_replayed = True
             self.journal.ack(rec["rid"], "replayed")
             futs.append(self.submit(req))
-        self.metrics.restart_info["replayed"] = self.metrics.restart_info.get("replayed", 0) + len(futs)
+        self.metrics.restart_info["replayed"] = self.metrics.restart_info.get("replayed", 0) + len(futs)  # graftlint: allow G13 -- restart_info is the labeled restart-summary dict on the snapshot surface, not registry counter state; it accumulates because a fleet re-home may call replay() several times on one survivor
         return futs
 
     # -- queue bookkeeping (all under self._lock) ----------------------

@@ -15,7 +15,10 @@ GLS solve, a padded step, the decomposition of a guarded dispatch, the
 compile ledger, a profiler window, an SLO tick, the scoreboard), and so
 does the serve layer (every module of pint_tpu_torch.serve and the
 pint_serve daemon import; one engine coalesces the array's fit steps and
-a polyco read into two device dispatches)."""
+a polyco read into two device dispatches), and so do the scripts, pintk
+and the analysis plane (every script, pintk and analysis module imports,
+none of them importing Tk or matplotlib; a Pulsar's plot arrays under a
+Sanitizer, compare_parfiles, a T2 conversion, a G17 finding)."""
 
 import os
 import subprocess
@@ -72,12 +75,31 @@ for name in ("pint_tpu_torch.pta.gwb", "pint_tpu_torch.parallel.pta",
              "pint_tpu_torch.serve.admission",
              "pint_tpu_torch.serve.router", "pint_tpu_torch.serve.journal",
              "pint_tpu_torch.serve.fleet", "pint_tpu_torch.serve.workload",
-             "pint_tpu_torch.scripts.pint_serve"):
+             "pint_tpu_torch.scripts.pint_serve",
+             "pint_tpu_torch.scripts.compare_parfiles",
+             "pint_tpu_torch.scripts.convert_parfile",
+             "pint_tpu_torch.scripts.pintbary",
+             "pint_tpu_torch.scripts.pintpublish",
+             "pint_tpu_torch.scripts.t2binary2pint",
+             "pint_tpu_torch.scripts.tcb2tdb", "pint_tpu_torch.scripts.zima",
+             "pint_tpu_torch.pintk", "pint_tpu_torch.pintk.pulsar",
+             "pint_tpu_torch.pintk.plk", "pint_tpu_torch.pintk.colormodes",
+             "pint_tpu_torch.pintk.paredit", "pint_tpu_torch.pintk.timedit",
+             "pint_tpu_torch.pintk.fitbox", "pint_tpu_torch.analysis",
+             "pint_tpu_torch.analysis.graftlint",
+             "pint_tpu_torch.analysis.concurrency",
+             "pint_tpu_torch.analysis.lock_registry",
+             "pint_tpu_torch.analysis.allowlist",
+             "pint_tpu_torch.analysis.sanitizer"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
+# the GUI modules import neither Tk nor matplotlib at module level
+gui = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("tkinter", "_tkinter", "matplotlib"))
+assert not gui, gui
 
 from pint_tpu_torch.parallel import pta_solve, stack_problems
 from pint_tpu_torch.parallel.pta import PulsarProblem
@@ -254,6 +276,39 @@ with profiling.annotate("nojax"):
     pass
 assert profiling.scoreboard.counts["nojax"] == 1
 obs.reset()
+
+from pint_tpu_torch.analysis import Sanitizer
+from pint_tpu_torch.analysis import graftlint
+from pint_tpu_torch.pintk import Pulsar
+from pint_tpu_torch.pintk.plk import PlkState
+from pint_tpu_torch.scripts.t2binary2pint import t2_to_native_parfile
+from pint_tpu_torch.scripts.compare_parfiles import main as compare_main
+
+with tempfile.TemporaryDirectory() as d:
+    par, tim = os.path.join(d, "p.par"), os.path.join(d, "p.tim")
+    with open(par, "w") as f:
+        f.write(model.as_parfile())
+    toas.write_TOA_file(tim)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with Sanitizer() as san:
+            psr = Pulsar(par, tim, device="cpu")
+            x, y, _, data = PlkState(psr).xy()
+        assert compare_main([par, par, "--device", "cpu"]) == 0
+assert san.compiles("phase") == 1 and np.all(np.isfinite(y))
+assert len(x) == toas.ntoas and data["resids_us"].dtype == np.float64
+assert "BINARY DDK" in t2_to_native_parfile(
+    "PSR T\nBINARY T2\nPB 1.0 1\nA1 1.0\nT0 55000\nECC 0.1\nOM 10\n"
+    "KIN 70\nKOM 80\n")
+from pint_tpu_torch.analysis import concurrency
+
+mod = graftlint.ModuleInfo("pint_tpu_torch/serve/_f.py",
+                           "import os\nx = os.environ['X']\n")
+assert [(v.rule, v.line) for v in concurrency.check_g17(mod)] == \
+    [("G17", 2)]
+gui = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("tkinter", "_tkinter", "matplotlib"))
+assert not gui, gui
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu")
                 and sys.modules[m] is not None)
