@@ -449,7 +449,24 @@ Phases, each fatal on failure:
      and a non-finite output;
    every device-side object made lives on cuda:0; its `cli_gui` JSON
    line holds the numbers and seconds;
-19. print the card's name and power limit, and one JSON line of kernel
+19. the opt-in precision routes of the fit step (no hand-written
+   kernel: K1 launches 0 times here), each check fatal, on phase 6's
+   fit cell: torch's float32 matmul precision "highest" and TF32 off; a
+   step built with every flag None and no route environment variable
+   bitwise phase 6's step with the same launches; then each route of
+   PRECISION_ROUTES (float64, anchored, jac_f32, matmul_f32, jac_f32
+   with the Gram left to follow it, and the reference's TPU production
+   stack anchored + jac_f32 + matmul_f32): its step against phase 6's
+   (|d dparams| 1e-4 sigma and chi2 1e-6 relative on a float64 route;
+   0.1 sigma and 1e-4 on a float32 one), launches and busy ms of an
+   eager step, the step replayed from a CUDA graph bitwise its eager
+   step (replay and eager ms), Sanitizer.dtype_probe on the card equal
+   to graftflow.predict_profile, the same route on a CPU twin at 400
+   TOAs within the CPU tests' limits, and a DeviceDownhillGLSFitter fit
+   (1e-6 sigma from phase 6's float64 fit on a float64 route, 0.1 sigma
+   on a float32 one); graftlint with G9 clean over the port; its
+   `precision` JSON line holds the numbers;
+20. print the card's name and power limit, and one JSON line of kernel
    measurements.
 
 The last line of standard output is {"ok": true, "device": {...}}. The
@@ -7296,6 +7313,210 @@ def cli_gui_phase(ctx: dict, dev) -> dict:
     return out
 
 
+# Phase 19: the opt-in precision routes of the fit step on the fit cell.
+# Each route is a build_fit_step flag set; "jac_f32-auto" leaves the Gram
+# unset, so it follows the float32 Jacobian (the reference's coupling);
+# "production" is the reference's TPU configuration.
+PRECISION_ROUTES = (
+    ("float64", {}),
+    ("anchored", {"anchored": True}),
+    ("jac_f32", {"jac_f32": True, "matmul_f32": False}),
+    ("matmul_f32", {"matmul_f32": True}),
+    ("jac_f32-auto", {"jac_f32": True}),
+    ("production", {"anchored": True, "jac_f32": True, "matmul_f32": True}),
+)
+ROUTE_ENV = ("PINT_TPU_ANCHORED", "PINT_TPU_JAC", "PINT_TPU_GLS_MATMUL")
+# a float64 route against the float64 step: the CPU tests' anchored limit
+# (tests/test_torch_precision_routes.py); a float32 route: a sanity bound
+# above the float32 Gram's measured 0.041 sigma on this cell (phase 16)
+ROUTE_F64_SIGMA, ROUTE_F32_SIGMA = 1e-4, 0.1
+ROUTE_F64_CHI2, ROUTE_F32_CHI2 = 1e-6, 1e-4
+# the CPU twin, at the CPU tests' limits: anchored 1e-4 sigma, chi2 1e-6
+# relative, residuals 1e-11 s; float32 routes 1e-2 sigma, chi2 1e-6
+TWIN_NTOA, TWIN_NDMX = 400, 4
+TWIN_F64_SIGMA, TWIN_F32_SIGMA, TWIN_CHI2, TWIN_RESID_S = \
+    1e-4, 1e-2, 1e-6, 1e-11
+
+
+def route_against(got, want, wide: bool) -> dict:
+    """A route's step outputs `got` against the float64 step's `want`
+    (numpy): the largest |d dparams| in sigma, the chi2 gap (absolute
+    and relative) and the largest residual difference."""
+    sig = np.sqrt(np.diag(want[1]))
+    gap = float(got[2]) - float(want[2])
+    return {"dp_sigma": float(np.max(np.abs(got[0] - want[0]) / sig)),
+            "chi2_gap": gap, "chi2_rel": abs(gap) / abs(float(want[2])),
+            "resid_s": float(np.max(np.abs(got[3] - want[3]))),
+            "float32": wide}
+
+
+def route_twin(flags: dict, twin: tuple) -> dict:
+    """The route on the CPU twin (the fit cell at TWIN_NTOA TOAs) against
+    the twin's float64 step, at the CPU tests' limits."""
+    from pint_tpu_torch.parallel import build_fit_step
+
+    model, toas, want = twin
+    step, args, _ = build_fit_step(model, toas, device="cpu", **flags)
+    got = [x.numpy() for x in step(*args)]
+    wide = bool(flags.get("jac_f32") or flags.get("matmul_f32"))
+    d = route_against(got, want, wide)
+    lim = TWIN_F32_SIGMA if wide else TWIN_F64_SIGMA
+    if not (d["dp_sigma"] <= lim and d["chi2_rel"] <= TWIN_CHI2 and
+            (wide or d["resid_s"] <= TWIN_RESID_S)):
+        fail(f"precision: the CPU twin's route {flags} is off its float64 "
+             f"step: {d}")
+    return d
+
+
+def precision_route(name: str, flags: dict, ctx: dict, dev) -> dict:
+    """One route on the fit cell on the card: its step against phase 6's
+    float64 step, launches and busy ms of an eager step, the replay from
+    a CUDA graph (bitwise its eager step), the dtype probe against
+    graftflow's prediction, the CPU twin, and a DeviceDownhillGLSFitter
+    fit against phase 6's float64 fit."""
+    from pint_tpu_torch.analysis import Sanitizer, graftflow
+    from pint_tpu_torch.gls import DeviceDownhillGLSFitter
+    from pint_tpu_torch.models import get_model
+    from pint_tpu_torch.parallel.fit_step import _build_fit_core
+
+    out = {"flags": flags}
+    t0 = time.perf_counter()
+    step, _, args, names, meta = _build_fit_core(
+        ctx["model"], ctx["toas"], device=dev, **flags)
+    sync(dev)
+    out["build_s"] = time.perf_counter() - t0
+    out["resolved"] = {k: bool(meta[k]) for k in
+                       ("anchored", "jac32", "f32mm")}
+    step(*args)
+    got = [x.cpu().numpy() for x in step(*args)]
+    if names != ctx["names"] or not all(np.all(np.isfinite(x))
+                                        for x in got):
+        fail(f"precision {name}: the step is not finite or has other "
+             f"parameters")
+    wide = meta["jac32"] or meta["f32mm"]
+    out["vs_float64"] = route_against(got, ctx["f64"], wide)
+    d = out["vs_float64"]
+    if d["dp_sigma"] > (ROUTE_F32_SIGMA if wide else ROUTE_F64_SIGMA) or \
+            d["chi2_rel"] > (ROUTE_F32_CHI2 if wide else ROUTE_F64_CHI2):
+        fail(f"precision {name}: the step is off the float64 step: {d}")
+    out["busy"] = device_busy(lambda: step(*args), f"precision {name}")
+    out["graph"] = graph_step_check(step, args, names,
+                                    f"precision {name} graph-step", reps=5)
+    san = Sanitizer()
+    with san.dtype_probe():
+        step(*args)
+    observed = {k: sorted(v["dtypes"])
+                for k, v in san.observed_profile().items()}
+    predicted = graftflow.predict_profile(
+        jac32=meta["jac32"], f32mm=meta["f32mm"],
+        anchored=meta["anchored"], hybrid=False)
+    for label, pred in predicted.items():
+        obs = observed.get(label)
+        if (obs is not None) != pred["active"] or \
+                (pred["active"] and pred["dtype"] not in obs):
+            fail(f"precision {name}: dtype probe {label} observed {obs}, "
+                 f"graftflow predicts {pred}")
+    if not set(observed) <= set(predicted):
+        fail(f"precision {name}: unpredicted probes {observed}")
+    out["dtype_probe"] = observed
+    out["cpu_twin"] = route_twin(flags, ctx["twin"])
+    ref = ctx["f64_fit"]
+    m = get_model(io.StringIO(ctx["par"]), device=dev)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        f = DeviceDownhillGLSFitter(ctx["toas"], m, **flags)
+        chi2 = f.fit_toas()
+    sync(dev)
+    fit_s = time.perf_counter() - t0
+    dist = max(abs(m.get_param(n).value - ref.model.get_param(n).value)
+               / ref.errors[n] for n in ref.model.free_params)
+    out["fit"] = {"seconds": fit_s, "chi2": chi2, "sigma_from_f64": dist,
+                  "step_evals": f.step_evals, "converged": f.converged}
+    if not (f.converged and dist <= (ROUTE_F32_SIGMA if wide else
+                                     DP_SIGMA)):
+        fail(f"precision {name}: the device fit is {dist:.3e} sigma from "
+             f"phase 6's float64 fit")
+    print(f"precision {name}: {out['resolved']}, build {out['build_s']:.3f}"
+          f" s; vs float64 |d dparams| {d['dp_sigma']:.3e} sigma, chi2 gap "
+          f"{d['chi2_gap']:.6e} ({d['chi2_rel']:.3e} relative), residuals "
+          f"{d['resid_s']:.3e} s; {out['busy']['launches']} launches, busy "
+          f"{out['busy']['busy_ms']} ms; replay "
+          f"{out['graph']['replay_event_ms'][0]:.3f} ms (events), eager "
+          f"{out['graph']['eager_host_ms'][0]:.3f} ms (host); CPU twin "
+          f"{out['cpu_twin']['dp_sigma']:.3e} sigma; device fit "
+          f"{fit_s:.3f} s, {f.step_evals} steps, {dist:.3e} sigma from "
+          f"phase 6's fit; dtype probe {observed}")
+    return out
+
+
+def precision_phase(ctx: dict, dev) -> dict:
+    """Phase 19: the precision routes on the fit cell, each fatal: torch's
+    float32 matmul precision "highest" with TF32 off; the default step
+    (every flag None, no environment) bitwise phase 6's step with the same
+    launches; each route of PRECISION_ROUTES (precision_route); graftlint
+    with G9 clean over the port."""
+    import torch
+
+    from pint_tpu_torch.analysis import graftlint
+    from pint_tpu_torch.analysis import precision_registry as reg
+    from pint_tpu_torch.parallel import build_fit_step
+
+    t_phase = time.perf_counter()
+    if torch.get_float32_matmul_precision() != "highest" or \
+            torch.backends.cuda.matmul.allow_tf32:
+        fail("precision: float32 matmuls would use TF32")
+    if any(os.environ.get(k) for k in ROUTE_ENV):
+        fail(f"precision: a route's environment variable is set: "
+             f"{[k for k in ROUTE_ENV if os.environ.get(k)]}")
+    model, toas, step = ctx["model"], ctx["toas"], ctx["step"]
+    f64 = [x.cpu().numpy() for x in step["step"](*step["args"])]
+    dstep, dargs, dnames = build_fit_step(model, toas, device=dev)
+    got = [x.cpu().numpy() for x in dstep(*dargs)]
+    same = dnames == step["names"] and all(
+        np.array_equal(a.view(np.int64), b.view(np.int64))
+        for a, b in zip(got, f64))
+    l6 = device_busy(lambda: step["step"](*step["args"]),
+                     "precision: phase 6's step")["launches"]
+    l19 = device_busy(lambda: dstep(*dargs),
+                      "precision: the default step")["launches"]
+    print(f"precision: the default step bitwise phase 6's: {same}; "
+          f"launches {l19} (phase 6's {l6})")
+    if not same or l6 != l19:
+        fail("precision: the default step is not phase 6's float64 step")
+    t0 = time.perf_counter()
+    _, tw_model, tw_toas = fit_build(TWIN_NTOA, TWIN_NDMX, 1, "cpu")
+    tstep, targs, _ = build_fit_step(tw_model, tw_toas, device="cpu")
+    twin = (tw_model, tw_toas, [x.numpy() for x in tstep(*targs)])
+    twin_s = time.perf_counter() - t0
+    rctx = {"model": model, "toas": toas, "names": step["names"],
+            "f64": f64, "twin": twin, "par": ctx["par"],
+            "f64_fit": ctx["f64_fit"]}
+    routes, secs = {}, {"twin_build": twin_s}
+    for name, flags in PRECISION_ROUTES:
+        t0 = time.perf_counter()
+        routes[name] = precision_route(name, flags, rctx, dev)
+        secs[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report = graftlint.run_lint(
+        os.path.dirname(os.path.abspath(__file__)), dynamic=False)
+    g9 = [v for v, _ in report.suppressed if v.rule == "G9"]
+    lint = {"clean": report.clean, "g9_sanctioned": len(g9),
+            "registry_entries": len(reg.DEMOTIONS),
+            "seconds": time.perf_counter() - t0}
+    print(f"precision: graftlint with G9 {lint}")
+    if not report.clean or len(g9) != sum(e.get("max_hits", 1)
+                                          for e in reg.DEMOTIONS):
+        fail("precision: graftlint with G9 is not clean over the port")
+    secs["lint"] = lint["seconds"]
+    secs["total"] = time.perf_counter() - t_phase
+    print("precision seconds: " + ", ".join(f"{k} {v:.3f}"
+                                            for k, v in secs.items()))
+    return {"default_bitwise": same, "default_launches": l19,
+            "phase6_launches": l6, "routes": routes, "lint": lint,
+            "seconds": secs}
+
+
 def fmt(t: dict) -> str:
     return (f"{t['median']:.4f} ms median of 20 (min {t['min']:.4f}, "
             f"max {t['max']:.4f})")
@@ -7683,6 +7904,18 @@ def main() -> int:
     if cli_gui["k1_launches"]:
         fail(f"cli-gui: K1 launched {cli_gui['k1_launches']} times on a "
              "path that runs no H-test")
+    # phase 19: the opt-in precision routes on the fit cell (K1 launches
+    # 0 times: the routes run on the fit path)
+    k1_before = zmod.launches
+    precision = precision_phase(
+        {"par": fit_par_text, "model": model, "toas": toas, "step": step,
+         "f64_fit": downhill["fitter"]}, dev)
+    precision["k1_launches"] = zmod.launches - k1_before
+    print(f"precision: {precision['seconds']['total']:.3f} s, K1 launches "
+          f"{precision['k1_launches']}")
+    if precision["k1_launches"]:
+        fail(f"precision: K1 launched {precision['k1_launches']} times on "
+             "a path that runs no H-test")
     print(f"profile check: K1's entry {k1_entry:.4f} ms a launch in the "
           f"path's profile, K1 between events at its shape "
           f"{k_path['median']:.4f} ms")
@@ -7799,6 +8032,7 @@ def main() -> int:
     print(json.dumps({"health_perf": health_perf}, default=str))
     print(json.dumps({"serve": serve}, default=str))
     print(json.dumps({"cli_gui": cli_gui}, default=str))
+    print(json.dumps({"precision": precision}, default=str))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
     ledger_dir.cleanup()
     print(card())

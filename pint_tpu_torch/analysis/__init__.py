@@ -4,16 +4,19 @@ of pint_tpu/analysis, for the rules that mean something without jax).
 Two layers:
 
 - ``graftlint`` (+ ``concurrency``, ``lock_registry``, ``allowlist``):
-  the AST/registry linter encoding the port's conventions as rules G1-G8
-  and G12-G17 (``python -m pint_tpu_torch.analysis.graftlint``); the
-  reference's dataflow half (G9-G11: ``graftflow``, ``cfg``,
-  ``precision_registry``) has no target in the port yet (graftlint's
-  module docstring says why);
+  the AST/registry linter encoding the port's conventions as rules G1-G9
+  and G12-G17 (``python -m pint_tpu_torch.analysis.graftlint``); G9, the
+  dataflow rule (precision demotions only at the registered boundaries
+  of the opt-in float32 routes), is ``graftflow`` over ``cfg`` with
+  ``precision_registry``; G10 and G11 have no target in eager torch
+  (graftflow's module docstring says why);
 - ``sanitizer``: the runtime ``Sanitizer`` context manager that counts
   per-TOAs device-cache builds per TimingModel (the "params_only must
   not rebuild" invariant), flags host-array operands crossing into
   CUDA dispatches (nested containers and opaque request objects
-  included) and NaN-checks outputs.
+  included), NaN-checks outputs, and with ``dtype_probe`` records the
+  dtypes crossing the registered precision boundaries (G9's runtime
+  half).
 """
 
 from pint_tpu_torch.analysis.sanitizer import Sanitizer  # noqa: F401

@@ -9,12 +9,11 @@ runtime supervisor, and no host sync inside the float64 compute paths.
 One silent host round trip, unsupervised device call, or stray global
 switch corrupts a result or a wall without failing a test.
 
-Rules. **Unchanged in meaning from the reference**: G3, G4, G5, G8, G12,
-G13, G14, G16 and G17. **Re-meant for eager torch**: G1/G2, G6(b), G7 and
-G15. **Not ported**: G9 (precision demotions; it comes with the opt-in
-float32 routes, whose demotion sites it checks), G10 (parameter values
-baked as trace constants: eager torch traces nothing) and
-G11 (use-after-donate: the port records buffer donation as off).
+Rules. **Unchanged in meaning from the reference**: G3, G4, G5, G8, G9,
+G12, G13, G14, G16 and G17. **Re-meant for eager torch**: G1/G2, G6(b),
+G7 and G15. **Not ported**: G10 (parameter values baked as trace
+constants: eager torch traces nothing) and G11 (use-after-donate: the
+port records buffer donation as off); analysis/graftflow.py says why.
 
   G1  no host sync (float/int/bool/complex coercion, .item/.tolist/
       .cpu/.numpy) inside a compute path: a function whose early
@@ -54,6 +53,14 @@ G11 (use-after-donate: the port records buffer donation as off).
       precision or the default dtype under every other caller
   G8  no functools.lru_cache/cache on methods (the cache keys `self`
       — a model leak — and any tensor arg is hashed by object id)
+  G9  precision demotions (``.to(torch.float32)``, ``.float()``,
+      ``dtype=torch.float32``, ``"float32"``, the dd32 converters) only
+      at the boundary sites declared in analysis/precision_registry.py,
+      each with its gate checked against the code; no float32-provenance
+      value into a dd consumer of the exact-precision modules; no mixed
+      float32 x float64 arithmetic (analysis/graftflow.py, a dataflow
+      pass over analysis/cfg.py). Eager torch has no trace boundary, so
+      it reads every function of the package
   G12 supervised-dispatch call sites in the dispatch layer (the G6
       file set) must run under a tracer span context
       (``pint_tpu_torch.obs.span``/``attach``): the supervisor's
@@ -141,6 +148,9 @@ RULES = {
     "G7": "process-global torch switches only in sanctioned entry "
           "points",
     "G8": "no functools.lru_cache on methods",
+    "G9": "precision demotions only at registered boundary sites "
+          "(analysis/precision_registry.py); no float32 provenance into "
+          "the dd chain",
     "G12": "supervised-dispatch call sites must run under a tracer "
            "span context (obs.span/attach) so dispatch telemetry "
            "has a causal parent",
@@ -1526,6 +1536,13 @@ def run_lint(root: str, dynamic: bool = True,
         report.violations += check_g6_python(m)
     report.violations += _conc.g16_stale_entries(g16_hits)
     report.violations += _conc.check_g16_scrape_paths(modules)
+    # G9, the dataflow rule (analysis/graftflow): registry-sanctioned
+    # demotions are reported as suppressed with the registry's reason
+    from pint_tpu_torch.analysis import graftflow as _flow
+
+    flow_v, flow_sup = _flow.run_flow_checks(modules)
+    report.violations += flow_v
+    report.suppressed += flow_sup
     graph = ClassGraph(modules)
     report.violations += check_g3(graph)
     report.violations += check_g4_static(graph)

@@ -32,8 +32,13 @@ count observable:
   NamedTuples (``DD``) and plain objects (request/entry dataclasses
   reaching the serve bucket dispatch).
 
-The reference's ``dtype_probe`` (the runtime half of graftflow's G9)
-comes with the opt-in float32 routes, whose demotion sites it checks.
+- ``dtype_probe()`` is the runtime half of graftflow's G9: inside it,
+  the precision-boundary functions of ``precision_registry.PROBES`` are
+  intercepted and record the dtype of every TENSOR operand that crosses
+  them while a built step runs; ``observed_profile()`` is then held
+  against ``graftflow.predict_profile(...)``. numpy operands (the host
+  build of the anchor and its dd32 reference pairs) are not recorded,
+  as the reference records only tracers.
 
 Usage::
 
@@ -70,6 +75,8 @@ class Sanitizer:
     # (model id, kind) -> build count
     builds: Dict[Tuple[int, str], int] = field(default_factory=dict)
     host_crossings: List[Tuple[str, int]] = field(default_factory=list)
+    # (probe label, dtype name) of every probed boundary crossing
+    dtype_records: List[Tuple[str, str]] = field(default_factory=list)
     _saved: Optional[tuple] = None
 
     # ---------------------------------------------------- build count
@@ -114,6 +121,7 @@ class Sanitizer:
         inside the context)."""
         self.builds.clear()
         self.host_crossings.clear()
+        self.dtype_records.clear()
 
     # ----------------------------------------------- executable count
 
@@ -160,6 +168,83 @@ class Sanitizer:
                 f"{self.host_crossings} — convert once with "
                 f"torch.as_tensor(..., device=) at build time, not per "
                 f"call")
+
+    # ------------------------------------------------- dtype probing
+
+    def dtype_probe(self):
+        """Context manager: intercept the registered precision-boundary
+        functions (``precision_registry.PROBES``: the Gram ``_symm_mm``,
+        the dd32 split, the fractional phase, the closed-form design
+        columns) and record (label, dtype) for every tensor operand that
+        crosses them. Run a built step inside it, then compare
+        ``observed_profile()`` with ``graftflow.predict_profile(...)``."""
+        import contextlib
+
+        import torch
+
+        import pint_tpu_torch.gls as _gls
+        import pint_tpu_torch.parallel.fit_step as _fs
+        from pint_tpu_torch.models.timing_model import TimingModel
+
+        san = self
+
+        def name(t) -> str:
+            return str(t.dtype).rsplit(".", 1)[-1]
+
+        orig_symm = _gls._symm_mm
+        orig_dd32 = _fs.dd_to_dd32
+        orig_frac = _fs.dd_frac
+        orig_cols = TimingModel.linear_design_columns
+
+        def symm_mm(X, Y, f32=False):
+            if isinstance(X, torch.Tensor):
+                san.dtype_records.append(("symm_mm", name(X)))
+                if f32:
+                    san.dtype_records.append(("symm_mm_f32", "float32"))
+            return orig_symm(X, Y, f32)
+
+        def dd32(a):
+            out = orig_dd32(a)
+            if isinstance(out.hi, torch.Tensor):
+                san.dtype_records.append(("dd32_split", name(out.hi)))
+            return out
+
+        def frac(a):
+            if isinstance(a.hi, torch.Tensor):
+                san.dtype_records.append(("phase_frac", name(a.hi)))
+            return orig_frac(a)
+
+        def cols(model, pv, batch, cache, names):
+            if isinstance(batch.freq_mhz, torch.Tensor):
+                san.dtype_records.append(("linear_design_columns",
+                                          name(batch.freq_mhz)))
+            return orig_cols(model, pv, batch, cache, names)
+
+        @contextlib.contextmanager
+        def _ctx():
+            _gls._symm_mm = symm_mm
+            _fs.dd_to_dd32 = dd32
+            _fs.dd_frac = frac
+            TimingModel.linear_design_columns = cols
+            try:
+                yield san
+            finally:
+                _gls._symm_mm = orig_symm
+                _fs.dd_to_dd32 = orig_dd32
+                _fs.dd_frac = orig_frac
+                TimingModel.linear_design_columns = orig_cols
+
+        return _ctx()
+
+    def observed_profile(self) -> Dict[str, dict]:
+        """{probe label: {"active": True, "dtypes": set}} from the dtype
+        records; an absent label means the boundary never fired while
+        probed."""
+        out: Dict[str, dict] = {}
+        for label, dt in self.dtype_records:
+            d = out.setdefault(label, {"active": True, "dtypes": set()})
+            d["dtypes"].add(dt)
+        return out
 
 
 def _leaves(obj) -> list:

@@ -596,6 +596,29 @@ def _env_nonneg_int(name: str, default: int) -> int:
     return v
 
 
+def f32_mode(env_name: str,
+             flag: Optional[bool] = None) -> Optional[bool]:
+    """The one tri-state parser of the precision-route env vars
+    ($PINT_TPU_ANCHORED, $PINT_TPU_JAC, $PINT_TPU_GLS_MATMUL): an
+    explicit ``flag`` wins; else True for f32-ish values, False for
+    f64-ish ones, None (auto) when unset. An unrecognized value warns
+    once and counts as unset. Auto means float64 on the GPU and on the
+    CPU (``parallel.fit_step._resolve_f32``)."""
+    if flag is not None:
+        return bool(flag)
+    raw = os.environ.get(env_name, "")
+    v = raw.lower()
+    if v in ("f32", "float32", "on", "true", "1"):
+        return True
+    if v in ("f64", "float64", "off", "false", "0"):
+        return False
+    if v and (env_name, raw) not in _WARNED_ENV:
+        _WARNED_ENV.add((env_name, raw))
+        log.warning("unparsable $%s=%r (want f32/f64/on/off); "
+                    "using the float64 default", env_name, raw)
+    return None
+
+
 def health_enabled(flag: Optional[bool] = None) -> bool:
     """In-trace numerical-health taps armed? ($PINT_TPU_HEALTH, default
     OFF.) Armed, the fit step, the fit loop, the GLS solve and the
@@ -619,18 +642,29 @@ def shadow_rate() -> int:
 
 
 def health_drift_sigma() -> float:
-    """Shadow-oracle drift band [sigma] ($PINT_TPU_HEALTH_DRIFT_SIGMA,
-    default 1e-5): device-vs-mirror parameter drift beyond this many
-    sigma is a ``numerics:drift`` incident. Every route of the port is
-    IEEE float64 on the card as on the CPU, so the auto band is always
-    the reference's f64 one (its measured replay floor sits decades
-    below; an unsanctioned float32 demotion lands above it). The
-    reference widens its auto band to 2e-2 when a sanctioned float32
-    route is active or its backend is a TPU, which it learns by peeking
-    jax's client table; the port has neither the float32 routes nor
-    jax, so it keeps neither branch. An explicit env value wins
-    (validated finite positive, warn-and-ignore otherwise)."""
-    return _env_positive_float("PINT_TPU_HEALTH_DRIFT_SIGMA", 1e-5)
+    """Shadow-oracle drift band [sigma] ($PINT_TPU_HEALTH_DRIFT_SIGMA;
+    route-aware auto default): device-vs-mirror parameter drift beyond
+    this many sigma is a ``numerics:drift`` incident. The auto band
+    follows the active precision routes, as the reference's does:
+
+    - float64 routes (the default): 1e-5. The measured float64 replay
+      floor sits decades below it, while an unsanctioned float32
+      demotion lands above it;
+    - a sanctioned float32 route set through the environment
+      ($PINT_TPU_GLS_MATMUL or $PINT_TPU_JAC reading f32): 2e-2, above
+      the routes' documented agreement bound, so a healthy worker on
+      its own sanctioned quantization does not flap.
+
+    The reference also widens the band when its backend is a TPU (where
+    auto picks float32); the port never picks float32 by itself, so it
+    keeps no such branch. An explicit env value wins (validated finite
+    positive, warn-and-ignore otherwise)."""
+    auto = 1e-5
+    for env in ("PINT_TPU_GLS_MATMUL", "PINT_TPU_JAC"):
+        if f32_mode(env) is True:
+            auto = 2e-2
+            break
+    return _env_positive_float("PINT_TPU_HEALTH_DRIFT_SIGMA", auto)
 
 
 def health_chi2_factor() -> float:

@@ -119,17 +119,26 @@ def cho_solve(L, b):
     return x[..., 0] if vec else x
 
 
-def _symm_mm(X, Y):
-    """X^T @ Y in float64: the Gram products of ``_gls_kernel`` (the
-    reference's ``_symm_mm`` without its float32 route, which the port
-    does not have; one seam where a test can force a demotion)."""
-    return X.T @ Y
+def _symm_mm(X, Y, f32: bool = False):
+    """X^T @ Y, the Gram products of the normal equations (``Y`` a
+    matrix or a vector); the result is always float64. With ``f32`` the
+    operands are rounded to float32 and multiplied in float32 (the
+    matmul_f32 route: no TF32, see ``_gls_kernel``); without it they are
+    upcast and accumulated in float64 (a no-op on float64 operands). The
+    one seam where a test can force a demotion."""
+    if not f32:
+        return X.to(torch.float64).T @ Y.to(torch.float64)
+    return (X.to(torch.float32).T @ Y.to(torch.float32)).to(torch.float64)
 
 
-def _gls_kernel(M, F, phi, r, nvec, health: bool = False):  # graftlint: allow G14 -- the producer: the kernel computes the health vector on the device and returns it; the fitters' dispatch sites hand it to HealthMonitor.observe
+def _gls_kernel(M, F, phi, r, nvec, health: bool = False,  # graftlint: allow G14 -- the producer: the kernel computes the health vector on the device and returns it; the fitters' dispatch sites hand it to HealthMonitor.observe
+                f32mm: bool = False):
     """Basis-Woodbury GLS solve. Returns (dparams, cov_pp, chi2,
     noise_resid, xhat_full, ok) — ok False when the Cholesky failed or
     its solve does not check out (callers then use the eigh solve).
+    ``f32mm`` takes the Gram products in float32 (the matmul_f32 route,
+    ``parallel.fit_step._use_f32_matmul``), which needs torch's float32
+    matmul precision "highest" and TF32 off, torch's defaults.
 
     With ``health`` a seventh output follows: the health vector
     [nonfinite count, max |r|/sigma, chi2, relative residual of the
@@ -141,11 +150,15 @@ def _gls_kernel(M, F, phi, r, nvec, health: bool = False):  # graftlint: allow G
     big = torch.cat([Mn, F], dim=1)
     sw = torch.sqrt(w)
     bigs = big * sw[:, None]
-    Sigma = _symm_mm(bigs, bigs)
+    if f32mm:
+        Sigma = _symm_mm(bigs, bigs, True)
+        b = _symm_mm(bigs, (r * sw)[:, None], True)[:, 0]
+    else:
+        Sigma = _symm_mm(bigs, bigs)
+        b = _symm_mm(bigs, (r * sw)[:, None])[:, 0]
     prior = torch.cat([torch.zeros(p, dtype=M.dtype, device=M.device),
                        1.0 / phi])
     Sigma = Sigma + torch.diag(prior)
-    b = _symm_mm(bigs, (r * sw)[:, None])[:, 0]
     d = jacobi(Sigma)
     dd = torch.outer(d, d)
     L = cho_factor(Sigma / dd)
@@ -508,7 +521,15 @@ class GLSFitter(Fitter):
                     f"{self._KEY}.svd", _gls_kernel_svd,
                     threshold=float(threshold))
             else:
+                from pint_tpu_torch.parallel.fit_step import \
+                    _use_f32_matmul
+
                 kw = {"health": True} if health_on else {}
+                # the float32 Gram only when asked for
+                # ($PINT_TPU_GLS_MATMUL) and the solve is not pinned to
+                # the host CPU, whose float64 is native
+                if not pinned and _use_f32_matmul(None):
+                    kw["f32mm"] = True
                 if keep:
                     kw["held"] = True
                 res = go(f"{self._KEY}.solve", _gls_kernel,

@@ -11,6 +11,12 @@ working set of a chunk (the refit step's jacfwd tangents: ~50 MB a node
 at 10,000 TOAs and 39 columns on an H100, PERF.md) fits a stated memory
 budget. Every node is computed alone inside the vmapped batch, so the
 chunking changes no bit of the result.
+
+The refit step takes the precision routes from their environment
+variables ($PINT_TPU_ANCHORED, $PINT_TPU_JAC, $PINT_TPU_GLS_MATMUL). The
+gridded parameters vary through the step's frozen slots, which the
+anchored route reads as deltas against its anchor, so an anchored grid
+is the direct grid's surface, not the build point's.
 """
 
 from __future__ import annotations

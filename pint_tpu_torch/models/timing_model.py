@@ -37,8 +37,8 @@ from pint_tpu_torch.models.parameter import (
     maskParameter,
     strParameter,
 )
-from pint_tpu_torch.ops.dd import DD, dd_add, dd_add_f, dd_mul_f, dd_sub, \
-    dd_sub_f
+from pint_tpu_torch.ops.dd import DD, dd_add, dd_add_f, dd_frac, dd_mul_f, \
+    dd_sub, dd_sub_f
 from pint_tpu_torch.phase import Phase
 
 SECS_PER_DAY = 86400.0
@@ -471,6 +471,186 @@ class TimingModel:
                                          fh, fl), batch, cache)
 
         return fn, (free_names, frozen_names)
+
+    # -------- anchored delta phase (the opt-in anchored route) --------
+    #
+    # The direct chain above carries the absolute pulse phase (~1e10
+    # turns) in dd. The anchored form removes every large intermediate:
+    # the host computes the exact reference phase and delays once, and
+    # the step evaluates only the difference
+    #   Delta = taylor(x, F - F_ref)                      [<= turns]
+    #         + sum_i F_ref,i (x^(i+1) - y^(i+1))/(i+1)!  [powdiff,
+    #           applied through the small difference d_ref - d]
+    #         + (phi_other(theta) - phi_other(theta_ref)) [small]
+    # (ops.taylor.taylor_powdiff). The reference needs it because TPU
+    # float64 is emulated; on IEEE float64 it is an opt-in route
+    # (parallel.fit_step, $PINT_TPU_ANCHORED).
+
+    def _phase_pieces(self, pv, batch, cache, sub: str, skip=()):
+        """(delay, tb_dd, other_phase): the delay chain, the
+        delay-subtracted barycentric time, and the summed phase (hi +
+        lo) of every PhaseComponent except those whose class name is in
+        ``skip``."""
+        delay, tb, ctx = self._delay_tb(pv, batch, cache, sub)
+        other = torch.zeros_like(delay)
+        for comp in self.phase_components:
+            if type(comp).__name__ in skip:
+                continue
+            if sub == "tzr" and not getattr(comp, "apply_to_tzr", True):
+                continue
+            p = comp.phase(pv, batch, cache[sub], ctx, tb)
+            other = other + (p.hi + p.lo)
+        return delay, tb, other
+
+    def supports_anchored(self) -> bool:
+        """The anchored route needs Spindown with a frozen, set PEPOCH."""
+        spin = self.components.get("Spindown")
+        return spin is not None and "PEPOCH" not in self.free_params \
+            and spin.PEPOCH.value is not None
+
+    def build_anchor(self, toas, device=None):
+        """(anchor arrays, anchor statics) of the anchored route: the
+        reference fractional phase, the reference delays and non-spindown
+        phase sums (main and TZR rows), computed once on the CPU in
+        float64 dd from the cache the step is built on (``device``, the
+        model's by default); the arrays are numpy. The statics hold the
+        reference F coefficients, which of them are free, the PEPOCH
+        shift and the time scale of ``taylor_powdiff``."""
+        if not self.supports_anchored():
+            raise ValueError("anchored step needs Spindown with a "
+                             "frozen PEPOCH")
+        free, frozen, th0, tl0, fh0, fl0 = self._pack()
+        cache = _to_host(self.get_cache(toas, device))
+        batch = cache["batch"]
+        spin = self.components["Spindown"]
+        pv0 = params_from_packed(free, frozen, th0, tl0, fh0, fl0,
+                                 device="cpu")
+        with torch.no_grad():
+            ph, _ = self.phase_fn(pv0, batch, cache)
+            fr = dd_frac(ph)
+            d_ref, _, oth_ref = self._phase_pieces(
+                pv0, batch, cache, "main", skip=("Spindown",))
+            anc = {"r_ref": (fr.hi + fr.lo).numpy(),
+                   "d_ref": d_ref.numpy(), "oth_ref": oth_ref.numpy()}
+            if "tzr_batch" in cache:
+                d_t, _, o_t = self._phase_pieces(
+                    pv0, cache["tzr_batch"], cache, "tzr",
+                    skip=("Spindown",))
+                anc["d_ref_tzr"] = d_t.numpy()
+                anc["oth_ref_tzr"] = o_t.numpy()
+        fnames = spin.f_terms()
+        name_to_val = {nm: th0[i] + tl0[i] for i, nm in enumerate(free)}
+        name_to_val.update({nm: fh0[j] + fl0[j]
+                            for j, nm in enumerate(frozen)})
+        anc_static = {
+            "fnames": fnames,
+            "fref": [float(name_to_val[nm]) for nm in fnames],
+            "fidx": [free.index(nm) if nm in free else None
+                     for nm in fnames],
+            "pepoch_shift": (float(spin.PEPOCH.value) - self.ref_day)
+            * SECS_PER_DAY,
+        }
+        mjd = batch.tdb_day.numpy() + batch.tdb_frac.hi.numpy()
+        anc_static["t_scale"] = max(
+            float(np.max(np.abs((mjd - self.ref_day) * SECS_PER_DAY
+                                - anc_static["pepoch_shift"]))), 1.0) \
+            * 1.05
+        return anc, anc_static
+
+    def _build_anchored_fn(self, anc_static):
+        """fn(dth, dtl, fh, fl, batch, cache) -> (frac_resid, delay),
+        with ``fn.pv_of(dth, dtl, fh, fl)`` its parameter dict (for the
+        step's auxiliary channels: the DM rows, the hybrid columns).
+
+        (dth, dtl) is the exact delta theta - theta_ref of the free
+        parameters; (fh, fl) are the full frozen pairs, the build-time
+        values unless a caller substitutes others (``grid_chisq`` varies
+        frozen parameters through these slots). batch and cache may be
+        float64 or their float32/dd32 conversions (the dtype follows
+        dth); cache["anchor"] holds ``build_anchor``'s arrays. The
+        reference pairs reach each device once, at the first call in a
+        dtype, so that later calls copy nothing from the host."""
+        from pint_tpu_torch.ops.dd import dd_to_dd32, dd_to_f64
+        from pint_tpu_torch.ops.taylor import taylor_horner, taylor_powdiff
+
+        free, frozen, th0, tl0, fh0, fl0 = self._pack()
+        fnames = anc_static["fnames"]
+        fref = anc_static["fref"]
+        fidx = anc_static["fidx"]
+        # frozen-slot index of each F term (grid-varied frozen Fs)
+        fjdx = [frozen.index(nm) if nm in frozen else None
+                for nm in fnames]
+        pep = anc_static["pepoch_shift"]
+        t_scale = anc_static["t_scale"]
+        ref_day = self.ref_day
+        refs: dict = {}
+
+        def reference(like):
+            """The build-time (free, frozen) pairs in ``like``'s dtype
+            (dd32-split for the float32 Jacobian) on its device."""
+            key = (like.dtype, str(like.device))
+            if key not in refs:
+                src = (th0, tl0, fh0, fl0)
+                if like.dtype == torch.float32:
+                    src = tuple(dd_to_dd32(DD(np.asarray(th0),
+                                              np.asarray(tl0)))) + \
+                        tuple(dd_to_dd32(DD(np.asarray(fh0),
+                                            np.asarray(fl0))))
+                refs[key] = tuple(torch.as_tensor(a, dtype=like.dtype,
+                                                  device=like.device)
+                                  for a in src)
+            return refs[key]
+
+        def pv_of(dth, dtl, fh, fl):
+            """The parameter dict at the reference + delta point."""
+            rh, rl, _, _ = reference(dth)
+            pv = {nm: dd_add(DD(rh[i], rl[i]), DD(dth[i], dtl[i]))
+                  for i, nm in enumerate(free)}
+            pv.update({nm: DD(fh[j], fl[j]) for j, nm in enumerate(frozen)})
+            return pv
+
+        def fn(dth, dtl, fh, fl, batch, cache):
+            _, _, qh, ql = reference(dth)
+            delta = dth + dtl
+            pv = pv_of(dth, dtl, fh, fl)
+            # frozen deltas against the anchor (zero unless a caller
+            # substituted values through fh/fl)
+            fdelta = dd_to_f64(dd_sub(DD(fh, fl), DD(qh, ql)))
+            anc = cache["anchor"]
+
+            def delta_phase(batch_x, sub, d_ref, oth_ref):
+                d, _, oth = self._phase_pieces(pv, batch_x, cache, sub,
+                                               skip=("Spindown",))
+                # x = seconds since PEPOCH at the current delay
+                t_rel = (batch_x.tdb_day - ref_day) * SECS_PER_DAY \
+                    + (batch_x.tdb_frac.hi + batch_x.tdb_frac.lo) \
+                    * SECS_PER_DAY
+                x = t_rel - d - pep
+                dxy = d_ref - d      # small: a cancellation of ~500 s
+                coeffs = [0.0]
+                for k in range(len(fnames)):
+                    if fidx[k] is not None:
+                        coeffs.append(delta[fidx[k]])
+                    elif fjdx[k] is not None:
+                        coeffs.append(fdelta[fjdx[k]])
+                    else:
+                        coeffs.append(0.0)
+                A = taylor_horner(x, coeffs)
+                B = taylor_powdiff(x, dxy, [0.0] + fref, t_scale=t_scale)
+                return A + B + (oth - oth_ref), d
+
+            dphi, d_main = delta_phase(batch, "main", anc["d_ref"],
+                                       anc["oth_ref"])
+            if "tzr_batch" in cache:
+                dphi_t, _ = delta_phase(cache["tzr_batch"], "tzr",
+                                        anc["d_ref_tzr"],
+                                        anc["oth_ref_tzr"])
+                dphi = dphi - dphi_t[0]
+            v = anc["r_ref"] + dphi
+            return v - torch.round(v), d_main
+
+        fn.pv_of = pv_of
+        return fn
 
     # -------- hybrid Jacobian: closed-form design columns -------------
     #
@@ -1117,3 +1297,13 @@ def dd_addf_day(batch, ref_day: float) -> DD:
     """(tdb - ref_day) in days as DD: exact integer-day difference plus
     the dd fraction."""
     return dd_add_f(batch.tdb_frac, batch.tdb_day - ref_day)
+
+
+def _to_host(tree):
+    """``tree`` (dicts, ToaBatch and DD NamedTuples of tensors) with
+    every tensor on the CPU."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_host(v) for v in tree))
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree

@@ -70,7 +70,7 @@ import time
 from typing import Optional
 
 __all__ = ["CompileLedger", "ProfilerWindows", "PEAKS", "cost_probe",
-           "get_ledger", "get_profiler", "note_compile",
+           "get_ledger", "get_profiler", "ledger_summary", "note_compile",
            "roofline", "roofline_block", "roofline_from_latency",
            "request_window", "auto_window",
            "enabled", "configure", "reset", "status"]
@@ -479,6 +479,24 @@ def roofline_from_latency(latency_snapshot: Optional[dict],
         if block is not None:
             out[row_key] = block
     return out or None
+
+
+def ledger_summary(max_keys: int = 64) -> dict:
+    """The compact ``compiles`` block of a benchmark artifact: counts
+    and, for at most ``max_keys`` keys, each one's compile wall and
+    costs (an artifact stays a summary)."""
+    snap = get_ledger().snapshot()
+    keys = {}
+    for k, e in list(snap["entries"].items())[:max_keys]:
+        keys[k] = {f: e[f] for f in
+                   ("backend", "compile_wall_s", "flops",
+                    "bytes_accessed", "peak_bytes", "aot_restored")
+                   if e.get(f) is not None}
+    return {"compiles": snap["compiles"],
+            "aot_restored": snap["aot_restored"],
+            "total_compile_wall_s": snap["total_compile_wall_s"],
+            "prior": snap["prior"],
+            "keys": keys}
 
 
 # ------------------------------------------------------------------

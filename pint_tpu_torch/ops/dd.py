@@ -16,12 +16,17 @@ same order, so on the CPU the results are bitwise those of the reference.
   carrying the reference's custom JVP rules (plain float64 tangents), so
   ``torch.func.jacfwd`` through the phase chain gives the reference's
   design-matrix columns.
+- Every op follows the dtype of its inputs: float32 pairs ("dd32",
+  ~2^-48) run the same transforms with the float32 splitter. The opt-in
+  float32 Jacobian (``parallel.fit_step``) re-runs the phase chain in
+  dd32; ``f64_to_dd32`` and ``dd_to_dd32`` split its inputs.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Union
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -45,10 +50,15 @@ def operand(b: FloatLike, like: Tensor) -> FloatLike:
     argument, with no copy and no launch (``torch.as_tensor`` would copy
     it from pageable host memory, a copy that synchronizes the stream
     and cannot be captured in a CUDA graph), and float64 arithmetic
-    with it is that with a 0-d tensor, bit for bit. Anything else
-    becomes a tensor of ``like``'s dtype and device."""
-    if isinstance(b, Tensor) or like.dtype != torch.float64:
+    with it is that with a 0-d tensor, bit for bit. Against another
+    dtype (the dd32 chain) a number becomes a 0-d tensor of that dtype
+    made by a fill on the device, which a CUDA graph captures; a tensor
+    is cast to ``like``'s dtype and device."""
+    if isinstance(b, Tensor):
         return torch.as_tensor(b, dtype=like.dtype, device=like.device)
+    if like.dtype != torch.float64:
+        return torch.full((), float(b), dtype=like.dtype,
+                          device=like.device)
     return float(b)
 
 
@@ -60,6 +70,20 @@ def dd(hi: Tensor, lo: FloatLike = 0.0) -> DD:
         hi, lo = torch.broadcast_tensors(hi, lo)
     s = two_sum(hi, lo)
     return _quick_two_sum(s.hi, s.lo)
+
+
+def dd_from_parts(hi, lo) -> DD:
+    """Trusted constructor: the caller guarantees (hi, lo) is already
+    normalized. The dtype is float32 only when both parts are float32
+    tensors, float64 otherwise."""
+    def t(x):
+        return x if isinstance(x, Tensor) else \
+            torch.as_tensor(x, dtype=torch.float64)
+
+    hi, lo = t(hi), t(lo)
+    dt = torch.float32 if hi.dtype == lo.dtype == torch.float32 \
+        else torch.float64
+    return DD(hi.to(dt), lo.to(dt))
 
 
 def dd_to_f64(a: DD) -> Tensor:
@@ -391,3 +415,35 @@ def dd_sum(a: DD, axis=None) -> DD:
     hi_s = s.select(axis, n - 1)
     lo_s = torch.sum(err, dim=axis) + torch.sum(a.lo, dim=axis)
     return _quick_two_sum(hi_s, lo_s)
+
+
+# ----------------------------------------------------------------------
+# float64 -> dd32 (the float32 Jacobian's input split)
+# ----------------------------------------------------------------------
+
+def f64_to_dd32(x) -> DD:
+    """Split float64 values into a float32 pair (hi, lo) with hi + lo ==
+    x to ~2^-48 relative: an error-free split to a float32 head and a
+    remainder (it splits, it does not truncate). Tensors stay on their
+    device; anything else is split on the host into numpy float32."""
+    if isinstance(x, Tensor):
+        hi = x.to(torch.float32)
+        lo = (x - hi.to(torch.float64)).to(torch.float32)
+        return DD(hi, lo)
+    x = np.asarray(x, np.float64)
+    hi = x.astype(np.float32)
+    lo = (x - hi.astype(np.float64)).astype(np.float32)
+    return DD(hi, lo)
+
+
+def dd_to_dd32(a: DD) -> DD:
+    """Narrow a dd64 to dd32 (~2^-48): hi32 takes the top 24 bits, lo32
+    the next 24 plus whatever of a.lo still fits."""
+    if isinstance(a.hi, Tensor):
+        hi = a.hi.to(torch.float32)
+        rem = (a.hi - hi.to(torch.float64)) + a.lo
+        return DD(hi, rem.to(torch.float32))
+    hi = np.asarray(a.hi, np.float64).astype(np.float32)
+    rem = (np.asarray(a.hi, np.float64) - hi.astype(np.float64)) \
+        + np.asarray(a.lo, np.float64)
+    return DD(hi, rem.astype(np.float32))

@@ -18,11 +18,28 @@ channel's residuals (-pp_dm/-pp_dme flags, DMEFAC/DMEQUAD-scaled) and
 its ``jacfwd`` rows ride below the time rows, DM-process bases
 (PLDMNoise) couple into them, and ``resids`` stays the N time residuals.
 
-This is the route the reference takes on its CPU backend, where float64
-is IEEE, as it is on the GPU: the direct dd phase chain, the float64
-Jacobian and the float64 Gram, with the reference's hybrid Jacobian
-split an option (off by default, see ``_build_fit_core``). The anchored,
-f32-Jacobian and f32-Gram routes are not ported (ROADMAP.md).
+By default the step takes the route the reference takes on its CPU
+backend, where float64 is IEEE, as it is on the GPU: the direct dd phase
+chain, the float64 Jacobian and the float64 Gram, with the reference's
+hybrid Jacobian split an option (off by default, see
+``_build_fit_core``). The reference's three precision routes are opt-in
+flags, each also read from its environment variable through
+``config.f32_mode`` (values f32/f64/on/off):
+
+- ``anchored`` ($PINT_TPU_ANCHORED): the host computes the exact
+  reference phase once (``TimingModel.build_anchor``) and the step
+  evaluates only the small difference; its (th, tl) slots then carry
+  delta theta against the anchor (zeros in the returned args);
+- ``jac_f32`` ($PINT_TPU_JAC): the design matrix from a float32/dd32
+  re-run of the same phase chain, with per-parameter power-of-two
+  scales for the high spin terms (F8 and up fall back to float64);
+- ``matmul_f32`` ($PINT_TPU_GLS_MATMUL): the Gram products in float32
+  (no TF32), the float64 Gram taken instead where the float32 Cholesky
+  fails. Left unset it follows ``jac_f32``.
+
+Auto (None and no environment variable) is float64 for every route off
+a TPU, so on the GPU and the CPU each route runs only when asked for,
+and the default step runs exactly the ops it runs without them.
 
 ``pad_to`` pads the TOA axis to a fixed length: the padded rows repeat
 the last TOA (zero rows would put the observer at the SSB and give NaN
@@ -39,15 +56,18 @@ updates the host replays in exact dd (reference: build_fit_loop).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from pint_tpu_torch import gls as _gls
 from pint_tpu_torch import resolve_device
 from pint_tpu_torch.gls import cho_factor, cho_solve, downhill_dd, \
     equilibrate, jacobi
 from pint_tpu_torch.models.timing_model import make_pv
-from pint_tpu_torch.ops.dd import dd, dd_add, dd_frac
+from pint_tpu_torch.ops.dd import DD, dd, dd_add, dd_frac, dd_to_dd32
 
 __all__ = ["build_fit_step", "build_fit_parts", "build_fit_loop",
            "SegmentSum"]
@@ -85,6 +105,98 @@ def _pad_leaf(a, pad: int):
             tuple(a.shape) == (1,):
         return a
     return _pad_rows(a, pad, dim=1 if a.ndim == 3 else 0)
+
+
+def _resolve_f32(flag, env_name: str) -> bool:
+    """A precision route's resolution: an explicit argument, else the
+    environment variable (``config.f32_mode``: f32/f64/on/off; an
+    unrecognized value warns once and counts as unset), else auto. The
+    reference's auto picks float32 only on a TPU, whose float64 is
+    emulated; off a TPU it is float64, so here auto is always off."""
+    from pint_tpu_torch.config import f32_mode
+
+    mode = f32_mode(env_name, flag)
+    return bool(mode) if mode is not None else False
+
+
+def _use_f32_matmul(flag) -> bool:
+    """The normal equations' Gram in float32 ($PINT_TPU_GLS_MATMUL): the
+    equilibrated normal equations need ~1e-7 relative accuracy, which
+    float32 products without TF32 give."""
+    return _resolve_f32(flag, "PINT_TPU_GLS_MATMUL")
+
+
+def _use_anchored(flag) -> bool:
+    """The anchored delta phase ($PINT_TPU_ANCHORED): the host computes
+    the exact reference phase once and the step evaluates only the small
+    difference, so no ~1e10-turn intermediate survives."""
+    return _resolve_f32(flag, "PINT_TPU_ANCHORED")
+
+
+def _use_f32_jac(flag) -> bool:
+    """The design matrix in float32 ($PINT_TPU_JAC): the same phase chain
+    run with float32 inputs, dd ops as dd32 pairs (~2^-48). Design
+    columns need ~1e-6 relative accuracy; the residuals keep the float64
+    dd chain."""
+    return _resolve_f32(flag, "PINT_TPU_JAC")
+
+
+def _tree_to32(tree):
+    """Every float64 tensor of dicts and NamedTuples cast to float32, dd
+    pairs split by ``dd_to_dd32`` (48 bits survive)."""
+    def conv(x):
+        if isinstance(x, DD):
+            return dd_to_dd32(x)
+        if isinstance(x, torch.Tensor) and x.dtype == torch.float64:
+            return x.to(torch.float32)
+        return x
+
+    def walk(x):
+        if isinstance(x, DD):
+            return conv(x)
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(walk(v) for v in x))
+        return conv(x)
+
+    return walk(tree)
+
+
+def _split32(hi, lo=None):
+    """Device-side float64 (+ float64) -> dd32 split: (float32 head,
+    float32 remainder)."""
+    d = dd_to_dd32(DD(hi, torch.zeros_like(hi) if lo is None else lo))
+    return d.hi, d.lo
+
+
+def _spin_scales(model, free, batch):
+    """(scale, jac32): the float32 Jacobian's power-of-two scale of each
+    free parameter. F_i (i >= 2) columns are dt^(i+1)/(i+1)! and leave
+    float32 range from i = 4; differentiating with respect to
+    u_i = F_i 2^e keeps scaled columns ~O(dt). Each exponent lies in the
+    window where both the scaled column stays in normal float32 range and
+    the tangent seed s/(i+1)! stays normal. Where no window exists (F8
+    and up over decade spans) jac32 comes back False: the step falls back
+    to the float64 Jacobian, correct and slower."""
+    scale = np.ones(len(free))
+    mjd = batch.tdb_day.cpu().numpy() + batch.tdb_frac.hi.cpu().numpy()
+    T = max(float(np.max(np.abs(mjd - model.ref_day))) * 86400.0, 1.0)
+    L = math.log2(T)
+    for i, nm in enumerate(free):
+        p = model.get_param(nm)
+        if getattr(p, "prefix", None) == "F" and \
+                getattr(p, "index", 0) >= 2:
+            idx = p.index
+            lf = math.log2(math.factorial(idx + 1))
+            e_hi = 122.0 - lf                     # tangent seed normal
+            e_lo = (idx + 1) * L - lf - 120.0     # column in range
+            if e_lo > e_hi:
+                return np.ones(len(free)), False
+            e = int(min(max(round(idx * L), math.ceil(e_lo), 0),
+                        math.floor(e_hi), 126))
+            scale[i] = 2.0 ** (-e)
+    return scale, True
 
 
 class SegmentSum:
@@ -126,7 +238,8 @@ class SegmentSum:
 
 def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: allow G14 -- the producer's builder: the step it returns computes the health vector (output 5), which the callers of the step observe
                     wideband=False, arg_device=None, pad_to=None,
-                    health=None):
+                    health=None, anchored=None, jac_f32=None,
+                    matmul_f32=None):
     """(step_fn, parts_fn, args, names, meta) on ``device`` (the model's
     by default), the TOA-axis arguments on ``arg_device`` (``device`` by
     default; the streaming accumulator keeps them on the host and
@@ -137,7 +250,11 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
     Offset column leads unless the model has a PhaseOffset, and then
     the residuals are not mean-subtracted either (check names[0]).
     ``wideband`` stacks the DM channel's rows below the time rows
-    (module docstring).
+    (module docstring). ``anchored``, ``jac_f32`` and ``matmul_f32``
+    are the precision routes (module docstring); None reads each one's
+    environment variable, and auto is float64. The anchored route falls
+    back to the direct chain, with a warning, on a model without a
+    frozen PEPOCH or when the anchor cannot be built.
 
     Every design column comes from one vmapped jacfwd over all free
     parameters. ``hybrid_jac=True`` takes the reference's default
@@ -147,6 +264,7 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
     TZR rows), while more tangents do not add launches (vmap), so the
     all-jacfwd step is the faster one (PERF.md)."""
     from pint_tpu_torch import config
+    from pint_tpu_torch.config import f32_mode
 
     dev = model.device if device is None else resolve_device(device)
     adev = dev if arg_device is None else resolve_device(arg_device)
@@ -159,6 +277,7 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
     # PHOFF replaces the implicit Offset column (both at once are
     # exactly collinear)
     incoffset = "PhaseOffset" not in model.components
+    noff = 1 if incoffset else 0
     batch = cache["batch"]
     sc = {k: v for k, v in cache.items() if k != "batch"}
     n = toas.ntoas
@@ -173,9 +292,25 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
     if has_padd:
         sc = {**sc, "padd": tensor(padd_np)}
 
+    f32mm = _use_f32_matmul(matmul_f32)
+    jac32 = _use_f32_jac(jac_f32)
+    scale_np = np.ones(len(free))
+    if jac32:
+        scale_np, jac32 = _spin_scales(model, free, batch)
+    if matmul_f32 is None and f32_mode("PINT_TPU_GLS_MATMUL") is None:
+        # left unset, the Gram follows the final Jacobian dtype (after
+        # the F8+ fallback above): float32 columns lose nothing to a
+        # float32 Gram, and _gls_core takes the float64 Gram where the
+        # float32 Cholesky fails
+        f32mm = f32mm or jac32
+
     # with hybrid_jac, closed-form columns for the linear params and AD
-    # tangents only for the rest (static split at build time)
+    # tangents only for the rest (static split at build time). A
+    # parameter the float32 scales touch stays on AD: the closed-form
+    # columns are d(phase)/d(theta), the AD ones d(phase)/d(u)
     lin_set = model.linear_design_names() if hybrid_jac else set()
+    lin_set = {nm for i, nm in enumerate(free)
+               if nm in lin_set and scale_np[i] == 1.0}
     nl_idx_list = [i for i, nm in enumerate(free) if nm not in lin_set]
     nl_idx = torch.as_tensor(nl_idx_list, dtype=torch.long, device=dev)
 
@@ -191,6 +326,29 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
         dm_set = model.dm_affecting_free_params()
         dm_idx_list = [i for i, nm in enumerate(free) if nm in dm_set]
         dm_idx = torch.as_tensor(dm_idx_list, dtype=torch.long, device=dev)
+
+    # anchored delta phase: the host computes the exact reference once;
+    # the step's (th, tl) slots then carry delta theta - theta_ref
+    anchored_on = _use_anchored(anchored) and model.supports_anchored()
+    afn = None
+    f0_ref = 0.0
+    if anchored_on:
+        try:
+            anc_arrays, anc_static = model.build_anchor(toas, adev)
+            afn = model._build_anchored_fn(anc_static)
+        except Exception as e:
+            # on an IEEE backend the direct chain is equally exact: the
+            # reference degrades to it with this warning
+            from pint_tpu_torch.logging import log
+
+            log.warning(
+                "anchored fit-step build failed (%r); falling back "
+                "to the direct phase chain (exact on this backend)", e)
+            anchored_on = False
+        else:
+            sc = {**sc, "anchor": {k: tensor(v)
+                                   for k, v in anc_arrays.items()}}
+            f0_ref = anc_static["fref"][0]
 
     nvec_np = model.scaled_toa_uncertainty(toas) ** 2
     # ECORR rides the Sherman-Morrison segment path (one rank-1
@@ -250,21 +408,87 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
                                                           nseg)
         return plans["plan"]
 
+    # the float32 Jacobian's constants, made once on the step's device:
+    # the column scales (float64 and their exact float32 twins) and the
+    # unscale vector of (dparams, cov)
+    sfull_np = np.concatenate([np.ones(noff), scale_np])
+    if jac32:
+        s64 = torch.as_tensor(scale_np, dtype=torch.float64, device=dev)
+        s32 = s64.to(torch.float32)
+        sfull = torch.as_tensor(sfull_np, dtype=torch.float64, device=dev)
+
+    def make_pv_x(thx, tlx, fhx, flx):
+        """pv for the auxiliary channels (DM rows, hybrid columns): in
+        anchored mode the anchored function's, reference + delta."""
+        if anchored_on:
+            return afn.pv_of(thx, tlx, fhx, flx)
+        return make_pv(free, frozen, thx, tlx, fhx, flx)
+
     def parts_fn(th, tl, fh, fl, batch, cache, F, phi, nvec, valid,
                  eid, jvar):
         """Design/residual assembly: (M, Fv, r0, nvec, valid, eid,
         tmask), r0 the masked residuals WITHOUT the weighted-mean
         subtraction."""
-        def phase_f64(thx):
-            ph, _ = phase_fn(thx, tl, fh, fl, batch, cache)
-            # the absolute dd phase collapses to float64 only after
-            # the fractional part is taken
-            f = dd_frac(ph)
-            return f.hi + f.lo
+        if anchored_on:
+            def phase_f64(thx):
+                fr, _ = afn(thx, tl, fh, fl, batch, cache)
+                return fr
+        else:
+            def phase_f64(thx):
+                ph, _ = phase_fn(thx, tl, fh, fl, batch, cache)
+                # the absolute dd phase collapses to float64 only after
+                # the fractional part is taken
+                f = dd_frac(ph)
+                return f.hi + f.lo
 
         i = f0_src[1]
-        f0 = (th[i] + tl[i]) if f0_src[0] == "free" else (fh[i] + fl[i])
+        if anchored_on and f0_src[0] == "free":
+            f0 = f0_ref + (th[i] + tl[i])  # th carries delta theta
+        else:
+            f0 = (th[i] + tl[i]) if f0_src[0] == "free" \
+                else (fh[i] + fl[i])
+        x32 = None
+        if jac32:
+            x32 = _inputs32(th, tl, fh, fl, batch, cache)
+            frac, M = _jacobian32(th, x32, f0, valid, phase_f64)
+        else:
+            frac, M = _jacobian64(th, tl, fh, fl, batch, cache, f0, valid,
+                                  phase_f64)
+        if has_padd:
+            frac = frac + cache["padd"]
+        r = frac / f0 * valid
+        Fv = F * valid[:, None]
+        tmask = valid
+        if wideband:
+            with record_function("fit_step.dm_jacobian"):
+                M, r, nvec, Fv = _dm_rows(th, tl, fh, fl, batch, cache, M, r,
+                                          nvec, Fv, valid, x32)
+            tmask = torch.cat([valid, torch.zeros_like(valid)])
+            valid = torch.cat([valid, valid])
+            eid = stack_eid(eid)
+        return M, Fv, r, nvec, valid, eid, tmask
+
+    def _assemble(jac_nl, lin_cols, f0, valid):
+        """The design matrix: the AD and closed-form columns in free
+        order, over f0, masked, the Offset column first."""
+        cols, k = [], 0
+        for nm in free:
+            if nm in lin_set:
+                cols.append(lin_cols[nm])
+            else:
+                cols.append(jac_nl[:, k])
+                k += 1
+        if cols:
+            cols = [torch.stack(cols, dim=1) / f0 * valid[:, None]]
+        if incoffset:
+            cols.insert(0, (valid / f0)[:, None])
+        return torch.cat(cols, dim=1)
+
+    def _jacobian64(th, tl, fh, fl, batch, cache, f0, valid, phase_f64):
+        """(frac, M): the fractional phase and the float64 design
+        matrix, the primal riding along jacfwd's tangents."""
         with record_function("fit_step.phase_jacobian"):
+            jac_nl = None
             if nl_idx_list:
                 def sub(th_nl):
                     out = phase_f64(th.index_put((nl_idx,), th_nl))
@@ -276,49 +500,87 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
                     th[nl_idx])
             else:
                 frac = phase_f64(th)
+        lin_cols = None
         if lin_set:
             with record_function("fit_step.linear_columns"):
                 lin_cols = model.linear_design_columns(
-                    make_pv(free, frozen, th, tl, fh, fl), batch, cache,
-                    lin_set)
-        cols, k = [], 0
-        for nm in free:
-            if nm in lin_set:
-                cols.append(lin_cols[nm])
-            else:
-                cols.append(jac_nl[:, k])
-                k += 1
-        if has_padd:
-            frac = frac + cache["padd"]
-        r = frac / f0 * valid
-        if cols:
-            cols = [torch.stack(cols, dim=1) / f0 * valid[:, None]]
-        if incoffset:
-            cols.insert(0, (valid / f0)[:, None])
-        M = torch.cat(cols, dim=1)
-        Fv = F * valid[:, None]
-        tmask = valid
-        if wideband:
-            with record_function("fit_step.dm_jacobian"):
-                M, r, nvec, Fv = _dm_rows(th, tl, fh, fl, batch, cache, M, r,
-                                          nvec, Fv, valid)
-            tmask = torch.cat([valid, torch.zeros_like(valid)])
-            valid = torch.cat([valid, valid])
-            eid = stack_eid(eid)
-        return M, Fv, r, nvec, valid, eid, tmask
+                    make_pv_x(th, tl, fh, fl), batch, cache, lin_set)
+        return frac, _assemble(jac_nl, lin_cols, f0, valid)
 
-    def _dm_rows(th, tl, fh, fl, batch, cache, M, r, nvec, Fv, valid):
+    if jac32:
+        def _inputs32(th, tl, fh, fl, batch, cache):
+            """The float32 re-run's inputs, split on the device (the
+            step's arguments stay float64): the batch and cache as dd32
+            and float32, the free pairs at the scaled point u = theta / s,
+            the frozen pairs."""
+            ua, ub = _split32(th / s64, tl / s64)
+            fa, fb = _split32(fh, fl)
+            return _tree_to32(batch), _tree_to32(cache), ua, ub, fa, fb
+
+        def _jacobian32(th, x32, f0, valid, phase_f64):
+            """(frac, M): the fractional phase from the float64 chain
+            and the design matrix from the float32/dd32 re-run of the
+            same chain on ``x32`` (``_inputs32``)."""
+            batch32, cache32, ua, ub, fa, fb = x32
+            with record_function("fit_step.phase_jacobian"):
+                frac = phase_f64(th)
+                if anchored_on:
+                    def phase32(ua_):
+                        fr, _ = afn(ua_ * s32, ub * s32, fa, fb, batch32,
+                                    cache32)
+                        return fr
+                else:
+                    def phase32(ua_):
+                        ph, _ = phase_fn(ua_ * s32, ub * s32, fa, fb,
+                                         batch32, cache32)
+                        return ph.hi + ph.lo
+
+                jac_nl = None
+                if nl_idx_list:
+                    def sub32(u_nl):
+                        return phase32(ua.index_put((nl_idx,), u_nl))
+
+                    jac_nl = torch.func.jacfwd(sub32)(ua[nl_idx])
+            lin_cols = None
+            if lin_set:
+                with record_function("fit_step.linear_columns"):
+                    lin_cols = model.linear_design_columns(
+                        make_pv_x(ua * s32, ub * s32, fa, fb), batch32,
+                        cache32, lin_set)
+            return frac, _assemble(jac_nl, lin_cols,
+                                   f0.to(torch.float32),
+                                   valid.to(torch.float32))
+
+    def _dm_rows(th, tl, fh, fl, batch, cache, M, r, nvec, Fv, valid, x32):
         """The stacked [time; DM] rows: the DM residuals in float64, the
         DM Jacobian (columns negated, r_dm = measured - model; zero in
         the Offset column; jacfwd over the DM-affecting parameters, the
-        other columns zero), the DM variances and the DM-channel noise
-        basis below the time rows."""
+        other columns zero; in float32 at the scaled point with
+        jac_f32, as the time rows), the DM variances and the DM-channel
+        noise basis below the time rows."""
         def dm_of(thx):
             return model.dm_total_device(
-                make_pv(free, frozen, thx, tl, fh, fl), batch,
-                cache["main"])
+                make_pv_x(thx, tl, fh, fl), batch, cache["main"])
 
-        if dm_idx_list:
+        if jac32:
+            dm = dm_of(th)
+            batch32, cache32, ua, ub, fa, fb = x32
+            rows_valid = valid.to(torch.float32)
+
+            def dm_of32(ua_):
+                return model.dm_total_device(
+                    make_pv_x(ua_ * s32, ub * s32, fa, fb), batch32,
+                    cache32["main"])
+
+            jac_dm = ua.new_zeros((dm.shape[0], th.shape[0]))
+            if dm_idx_list:
+                def sub32(u_dm):
+                    return dm_of32(ua.index_put((dm_idx,), u_dm))
+
+                jac_dm[:, dm_idx] = torch.func.jacfwd(sub32)(ua[dm_idx])
+        elif dm_idx_list:
+            rows_valid = valid
+
             def sub(th_dm):
                 out = dm_of(th.index_put((dm_idx,), th_dm))
                 return out, out
@@ -327,9 +589,10 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
             jac_dm = jac_sub.new_zeros((jac_sub.shape[0], th.shape[0]))
             jac_dm[:, dm_idx] = jac_sub
         else:
+            rows_valid = valid
             dm = dm_of(th)
             jac_dm = dm.new_zeros((dm.shape[0], th.shape[0]))
-        dm_cols = [-jac_dm * valid[:, None]]
+        dm_cols = [-jac_dm * rows_valid[:, None]]
         if incoffset:
             dm_cols.insert(0, jac_dm.new_zeros((jac_dm.shape[0], 1)))
         r_dm = (cache["wb_dm"] - dm) * valid
@@ -349,7 +612,11 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
         else:
             r = r0
         dp, cov, chi2 = _gls_core(M, Fv, phi, r, nvec2, valid2, jvar,
-                                  segment_plan(eid))
+                                  segment_plan(eid), f32mm=f32mm)
+        if jac32:
+            # back from the scaled parameters u = theta / s
+            dp = dp * sfull
+            cov = cov * torch.outer(sfull, sfull)
         # the time residuals only (the first N rows of a wideband stack)
         rt = r[:valid.shape[0]]
         if not health_on:
@@ -367,36 +634,50 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
         ])
         return dp, cov, chi2, rt, hv
 
+    if anchored_on:
+        # the (th, tl) slots carry delta theta against the anchor: zero
+        # at the reference point build_anchor just captured
+        th, tl = np.zeros_like(th), np.zeros_like(tl)
     args = (tensor(th), tensor(tl), tensor(fh), tensor(fl), batch, sc,
             tensor(F_np), tensor(phi_np), tensor(nvec_np), tensor(valid_np),
             eid_t, tensor(jvar_np))
     meta = {"incoffset": incoffset, "nseg": nseg, "wideband": wideband,
-            "has_ecorr": seg is not None, "health": health_on}
+            "has_ecorr": seg is not None, "health": health_on,
+            "f32mm": f32mm, "jac32": jac32, "sfull": sfull_np,
+            "anchored": anchored_on}
     return (step_fn, parts_fn, args,
             (["Offset"] if incoffset else []) + free, meta)
 
 
 def build_fit_step(model, toas, device=None, hybrid_jac=False,
-                   wideband=False, pad_to=None, health=None):
+                   wideband=False, pad_to=None, health=None, anchored=None,
+                   jac_f32=None, matmul_f32=None):
     """(step_fn, args, names): one fit iteration and its arguments on
     ``device`` (the model's by default); see ``_build_fit_core``. With
     ``health`` armed (or $PINT_TPU_HEALTH) the step returns a FIFTH
     output, the health vector [nonfinite_count, max_resid_sigma, chi2];
     disarmed, the 4-tuple and the ops that make it are the ones of a
-    step built without health."""
+    step built without health. ``anchored``, ``jac_f32`` and
+    ``matmul_f32`` are the opt-in precision routes (module docstring)."""
     step_fn, _, args, names, _ = _build_fit_core(
         model, toas, device, hybrid_jac, wideband, pad_to=pad_to,
-        health=health)
+        health=health, anchored=anchored, jac_f32=jac_f32,
+        matmul_f32=matmul_f32)
     return step_fn, args, names
 
 
 def build_fit_parts(model, toas, device=None, hybrid_jac=False,
-                    wideband=False, arg_device=None):
+                    wideband=False, arg_device=None, anchored=None,
+                    jac_f32=None, matmul_f32=None):
     """(parts_fn, args, names, meta): the design/residual assembly half
     of the step, taking the same 12 arguments as ``step_fn``; ``args``
-    on ``arg_device`` (``device`` by default)."""
+    on ``arg_device`` (``device`` by default). ``meta`` carries what a
+    consumer needs to finish the algebra as ``step_fn`` does:
+    incoffset, nseg, has_ecorr, the routes as resolved (f32mm, jac32,
+    anchored) and the float32 Jacobian's unscale vector ``sfull``."""
     _, parts_fn, args, names, meta = _build_fit_core(
-        model, toas, device, hybrid_jac, wideband, arg_device)
+        model, toas, device, hybrid_jac, wideband, arg_device,
+        anchored=anchored, jac_f32=jac_f32, matmul_f32=matmul_f32)
     return parts_fn, args, names, meta
 
 
@@ -442,8 +723,10 @@ def build_fit_loop(model, toas, max_iter: int = 8,
     ``dd_add(dd(th, tl), dd(delta))``, the counterpart of the host's
     ``dd_np.add(dd_np.dd(th, tl), dd_np.dd(delta))``, so replaying
     ``deltas`` on the host gives (th', tl') bit for bit. ``step_flags``
-    (``hybrid_jac``, ``wideband``, ``pad_to``, ``health``) go to
-    ``build_fit_step``."""
+    (``hybrid_jac``, ``wideband``, ``pad_to``, ``health`` and the
+    precision routes ``anchored``, ``jac_f32``, ``matmul_f32``) go to
+    ``build_fit_step``; in anchored mode (th, tl) are deltas against the
+    anchor, and the ledger replays the same way."""
     from pint_tpu_torch import config
 
     step_fn, args, names = build_fit_step(model, toas, device, **step_flags)
@@ -489,7 +772,7 @@ def build_fit_loop(model, toas, max_iter: int = 8,
     return loop_fn, args + (K,), names
 
 
-def _gls_core(M, F, phi, r, nvec, valid, jvar, seg=None):
+def _gls_core(M, F, phi, r, nvec, valid, jvar, seg=None, f32mm=False):
     """The basis-Woodbury solve of ``pint_tpu.gls`` with ECORR as the
     effective white covariance N_eff = diag(nvec) + sum_k jvar_k u_k u_k^T
     (u_k the indicator of epoch k). Each epoch block is rank-1, so for
@@ -497,51 +780,84 @@ def _gls_core(M, F, phi, r, nvec, valid, jvar, seg=None):
         a^T N_eff^-1 b = a^T W b - sum_k g_k (u_k^T W a)(u_k^T W b),
         g_k = jvar_k / (1 + jvar_k s_k),  s_k = u_k^T w,  W = diag(w);
     the u_k^T W contractions are the segment sums ``seg`` (None: no
-    ECORR). Returns (dparams, cov, chi2)."""
+    ECORR). Returns (dparams, cov, chi2).
+
+    A float32 ``M`` (the float32 Jacobian) keeps the (N, p+q)-wide
+    elementwise work in float32, while the (N,) vectors and the (p+q)^2
+    solve stay float64. ``f32mm`` takes the Gram products in float32
+    (``gls._symm_mm``); where that solve fails (a non-finite result, or
+    an inverse with a negative diagonal: a float32 Gram of a nearly
+    degenerate model can lose positive definiteness), the float64 Gram's
+    solve is taken instead. Both are computed and one is selected on the
+    device, so the step never reads a value back to decide (the
+    reference branches with ``lax.cond``)."""
     p = M.shape[1]
     q = F.shape[1]
+    mdt = M.dtype
     with record_function("fit_step.gram"):
         w = valid / nvec
-        Mn, colmax, norm = equilibrate(M, w)
-        big = torch.cat([Mn, F], dim=1)
+        Mn, colmax, norm = equilibrate(M, w.to(mdt))
+        big = torch.cat([Mn, F.to(mdt)], dim=1)
         # symmetric sqrt(w) split: Sigma is exactly symmetric
         sw = torch.sqrt(w)
-        bigs = big * sw[:, None]
+        bigs = big * sw.to(mdt)[:, None]
         rs = r * sw
-        Sigma = bigs.T @ bigs
-        b = bigs.T @ rs
         rCr = torch.sum(rs * rs)
     if seg is not None:
         with record_function("fit_step.ecorr_segments"):
             s_seg = seg(w)
             g = jvar / (1.0 + jvar * s_seg)
-            E = seg(big * w[:, None])
+            E = seg(big * w.to(mdt)[:, None])
             wr_seg = seg(w * r)
             sg = torch.sqrt(g)
-            Eg = E * sg[:, None]
-            Sigma = Sigma - Eg.T @ Eg
-            b = b - Eg.T @ (sg * wr_seg)
-            rCr = rCr - torch.sum(g * wr_seg ** 2)
+            Eg = E * sg.to(mdt)[:, None]
+
+    def assemble(use32):
+        with record_function("fit_step.gram"):
+            Sigma = _gls._symm_mm(bigs, bigs, use32)
+            b = _gls._symm_mm(bigs, rs.to(mdt), use32)
+        rcr = rCr
+        if seg is not None:
+            with record_function("fit_step.ecorr_segments"):
+                Sigma = Sigma - _gls._symm_mm(Eg, Eg, use32)
+                b = b - Eg.to(torch.float64).T @ (sg * wr_seg)
+                rcr = rCr - torch.sum(g * wr_seg ** 2)
+        return Sigma, b, rcr
+
+    def solve(Sigma, b, rcr):
+        with record_function("fit_step.cholesky_solves"):
+            zeros = torch.zeros(p, dtype=torch.float64, device=M.device)
+            Sigma = Sigma + torch.diag(torch.cat([zeros, 1.0 / phi]) if q
+                                       else zeros)
+            # Jacobi-precondition to unit diagonal: Sigma mixes O(1)
+            # data terms with 1/phi priors up to ~1e25
+            d = jacobi(Sigma)
+            dd = torch.outer(d, d)
+            L = cho_factor(Sigma / dd)
+            xhat = cho_solve(L, b / d) / d
+            eye = torch.eye(p + q, dtype=torch.float64, device=M.device)
+            inv = cho_solve(L, eye) / dd
+            # chi2 at the point: marginalize the noise (F-basis + ECORR)
+            # only, not the parameter block
+            if q:
+                bF, dF = b[p:], d[p:]
+                LF = cho_factor(Sigma[p:, p:] / torch.outer(dF, dF))
+                chi2 = rcr - bF @ (cho_solve(LF, bF / dF) / dF)
+            else:
+                chi2 = rcr
+        return xhat, inv, chi2
+
+    xhat, inv, chi2 = solve(*assemble(f32mm))
+    if f32mm:
+        ok = (torch.all(torch.isfinite(xhat)) & torch.isfinite(chi2)
+              & torch.all(torch.isfinite(inv))
+              & torch.all(torch.diagonal(inv) >= 0.0))
+        xhat64, inv64, chi264 = solve(*assemble(False))
+        xhat = torch.where(ok, xhat, xhat64)
+        inv = torch.where(ok, inv, inv64)
+        chi2 = torch.where(ok, chi2, chi264)
     with record_function("fit_step.cholesky_solves"):
-        zeros = torch.zeros(p, dtype=M.dtype, device=M.device)
-        Sigma = Sigma + torch.diag(torch.cat([zeros, 1.0 / phi]) if q
-                                   else zeros)
-        # Jacobi-precondition to unit diagonal: Sigma mixes O(1) data
-        # terms with 1/phi priors up to ~1e25
-        d = jacobi(Sigma)
-        dd = torch.outer(d, d)
-        L = cho_factor(Sigma / dd)
-        xhat = cho_solve(L, b / d) / d
-        eye = torch.eye(p + q, dtype=M.dtype, device=M.device)
-        inv = cho_solve(L, eye) / dd
-        # chi2 at the point: marginalize the noise (F-basis + ECORR)
-        # only, not the parameter block
-        if q:
-            bF, dF = b[p:], d[p:]
-            LF = cho_factor(Sigma[p:, p:] / torch.outer(dF, dF))
-            chi2 = rCr - bF @ (cho_solve(LF, bF / dF) / dF)
-        else:
-            chi2 = rCr
+        colmax, norm = colmax.to(torch.float64), norm.to(torch.float64)
         dparams = -xhat[:p] / colmax / norm  # r ≈ M(θ−θ_true): −x
         cov = inv[:p, :p] / torch.outer(colmax, colmax) \
             / torch.outer(norm, norm)

@@ -1,6 +1,10 @@
 """Matrix-free GLS: streaming normal-equation accumulation and a
-preconditioned conjugate-gradient solve (a port of the float64 route of
-pint_tpu/parallel/streaming.py).
+preconditioned conjugate-gradient solve (a port of
+pint_tpu/parallel/streaming.py). The step's precision routes reach it
+through ``build_fit_parts``: a float32 chunk design (``jac_f32``) keeps
+the chunk's wide elementwise work in float32, ``matmul_f32`` takes the
+chunk Gram in float32, and the finalize unscales the float32 Jacobian's
+parameters (``meta["sfull"]``).
 
 The noise covariance is diagonal (plus ECORR's rank-1 block per
 observing epoch) plus a rank-q basis term, so the whitened normal
@@ -58,7 +62,7 @@ from torch.profiler import record_function
 
 from pint_tpu_torch import resolve_device
 from pint_tpu_torch.config import stream_chunk
-from pint_tpu_torch.gls import cho_factor, cho_solve, jacobi
+from pint_tpu_torch.gls import _symm_mm, cho_factor, cho_solve, jacobi
 from pint_tpu_torch.parallel.fit_step import SegmentSum, _tree_map, \
     build_fit_parts
 
@@ -109,7 +113,7 @@ def _add_at(x, i, v):
 
 
 def _acc_chunk(state, M, Fv, r0, nvec, valid, tmask, seg=None, jvar=None,
-               seg_eid=None, health=False):
+               seg_eid=None, health=False, f32mm=False):
     """Fold one chunk into the accumulator state. ``seg`` (a
     ``SegmentSum`` over the chunk's epochs, in order), ``jvar`` (the
     per-epoch jitter variances) and ``seg_eid`` (each segment's global
@@ -120,12 +124,18 @@ def _acc_chunk(state, M, Fv, r0, nvec, valid, tmask, seg=None, jvar=None,
     [nonfinite count across the accumulated (Sig, b) and the chunk's
     design and residual rows, the worst running-colmax growth this
     chunk caused] (a huge late rescale is the scale-safety machinery
-    working overtime). Without it, the ops of the health-free chunk."""
+    working overtime). Without it, the ops of the health-free chunk.
+
+    A float32 ``M`` keeps the chunk's (C, p+q)-wide work in float32;
+    ``f32mm`` takes the Gram products in float32 (``gls._symm_mm``).
+    The state stays float64."""
     cm, Sig, b, u, vE, scal, carE, cjv, cid = state
     p = cm.shape[0]
+    mdt = M.dtype
     w = valid / nvec
     # running column max: grow only, then rescale the history
-    cm_c = torch.amax(torch.abs(M) * valid[:, None], dim=0)
+    cm_c = torch.amax(torch.abs(M) * valid[:, None].to(mdt),
+                      dim=0).to(torch.float64)
     cm_new = torch.maximum(cm, torch.where(cm_c == 0, cm, cm_c))
     cm_new = torch.where(cm_new == 0, torch.ones_like(cm_new), cm_new)
     if health:
@@ -144,10 +154,10 @@ def _acc_chunk(state, M, Fv, r0, nvec, valid, tmask, seg=None, jvar=None,
 
         return st, torch.stack([nf(st[1]) + nf(st[2]) + nf(M) + nf(r0),
                                 resc])
-    big = torch.cat([M / cm[None, :], Fv], dim=1)
-    bigs = big * torch.sqrt(w)[:, None]
-    Sig = Sig + bigs.T @ bigs
-    bigw = big * w[:, None]
+    big = torch.cat([M / cm[None, :].to(mdt), Fv.to(mdt)], dim=1)
+    bigs = big * torch.sqrt(w)[:, None].to(mdt)
+    Sig = Sig + _symm_mm(bigs, bigs, f32mm)
+    bigw = big.to(torch.float64) * w[:, None]
     b = b + bigw.T @ r0
     u = u + bigw.T @ tmask
     wt = w * tmask
@@ -184,7 +194,7 @@ def _acc_chunk(state, M, Fv, r0, nvec, valid, tmask, seg=None, jvar=None,
     g = jv_seg / (1.0 + jv_seg * s_seg) * mask
     sg = torch.sqrt(g)
     Eg = E_seg * sg[:, None]
-    Sig = Sig - Eg.T @ Eg
+    Sig = Sig - _symm_mm(Eg.to(mdt), Eg.to(mdt), f32mm)
     b = b - Eg.T @ (sg * wr_seg)
     vE = vE + Eg.T @ (sg * s_seg)
     scal = _add_at(scal, 3, torch.sum(g * wr_seg * wr_seg))
@@ -424,10 +434,15 @@ def _cg_schur_batch(Sigma, b, rCr, cm, budget: int, tol: float):
 
 
 def _finalize_kernel(state, phi, budget: int, tol: float,
-                     incoffset: bool = True):
-    """Flush the ECORR carry, mean-correct, and CG-solve."""
+                     incoffset: bool = True, sfull=None):
+    """Flush the ECORR carry, mean-correct, and CG-solve. ``sfull`` (the
+    float32 Jacobian's column scales, None without it) maps dparams and
+    cov back from the scaled parameters."""
     Sigma, b, rCr, cm = _finalize_prep(_flush_carry(state), phi, incoffset)
-    return _cg_schur(Sigma, b, rCr, cm, budget, tol)
+    out = _cg_schur(Sigma, b, rCr, cm, budget, tol)
+    if sfull is None:
+        return out
+    return (out[0] * sfull, out[1] * torch.outer(sfull, sfull)) + out[2:]
 
 
 # ------------------------------------------------------ numpy mirror
@@ -619,9 +634,10 @@ def cg_solve_np(Sigma, b, rCr, cm, budget=None, tol=1e-13):
             resid)
 
 
-def acc_finalize_np(state, phi, incoffset=True, budget=None, tol=1e-13):
+def acc_finalize_np(state, phi, incoffset=True, budget=None, tol=1e-13,
+                    sfull=None):
     """Numpy mirror of ``_finalize_kernel``: flush carry,
-    mean-correct, prior-load, CG-solve."""
+    mean-correct, prior-load, CG-solve (and unscale by ``sfull``)."""
     if int(state[8]) >= 0:
         _downdate_np(state, float(state[7]))
     cm, Sig, b, u, vE, scal = state[0], state[1], state[2], \
@@ -637,7 +653,12 @@ def acc_finalize_np(state, phi, incoffset=True, budget=None, tol=1e-13):
     prior = np.concatenate([np.zeros(p), 1.0 / np.asarray(phi)]) \
         if q else np.zeros(p)
     Sigma = Sig + np.diag(prior)
-    return cg_solve_np(Sigma, b, float(rCr), cm, budget=budget, tol=tol)
+    out = cg_solve_np(Sigma, b, float(rCr), cm, budget=budget, tol=tol)
+    if sfull is None:
+        return out
+    sfull = np.asarray(sfull, np.float64)
+    return (out[0] * sfull, out[1] * np.outer(sfull, sfull)) + \
+        tuple(out[2:])
 
 
 def stream_solve_np(M, F, phi, r0, nvec, chunk: int,
@@ -680,7 +701,8 @@ class StreamingGLS:
     uploads one chunk at a time to ``device`` (the model's by default);
     the last chunk is padded by repeating its last row with valid = 0
     (the reference's ``_pad_leaf`` convention). ``flags`` go to
-    ``build_fit_parts`` (``hybrid_jac``); wideband TOAs are refused.
+    ``build_fit_parts`` (``hybrid_jac`` and the precision routes
+    ``anchored``, ``jac_f32``, ``matmul_f32``); wideband TOAs are refused.
     ``health`` (None: $PINT_TPU_HEALTH) arms the chunk and solve taps
     (module docstring)."""
 
@@ -715,6 +737,12 @@ class StreamingGLS:
         self.p = len(names)
         self.q = self.phi.shape[0]
         self.incoffset = bool(meta["incoffset"])
+        self.f32mm = bool(meta["f32mm"])
+        # the float32 Jacobian's unscale vector (None without it)
+        self.sfull = np.asarray(meta["sfull"], np.float64) \
+            if meta["jac32"] else None
+        self._sfull = None if self.sfull is None else \
+            torch.as_tensor(self.sfull, device=dev)
         eid_np = eid.numpy()
         # epoch-sort permutation for the boundary-carry ECORR path
         perm = None
@@ -841,12 +869,15 @@ class StreamingGLS:
                 M, Fv, r0, nvec2, valid2, _, tmask = self.parts_fn(
                     th_d, tl_d, self._fh, self._fl, batch_c, sc_c, F_c,
                     self._phi, nvec_c, valid_c, eid_c, self._jvar)
+                kw = {"health": health_on}
+                if self.f32mm:
+                    kw["f32mm"] = True
                 if plan is None:
                     return _acc_chunk(state, M, Fv, r0, nvec2, valid2,
-                                      tmask, health=health_on)
+                                      tmask, **kw)
                 return _acc_chunk(state, M, Fv, r0, nvec2, valid2,
                                   tmask, plan[0], self._jvar, plan[1],
-                                  health=health_on)
+                                  **kw)
 
         state = None
         hv_worst = None
@@ -903,7 +934,7 @@ class StreamingGLS:
             with record_function("stream.solve"):
                 return _finalize_kernel(
                     tuple(x.to(dev) for x in state), self._phi,
-                    int(budget), float(tol), self.incoffset)
+                    int(budget), float(tol), self.incoffset, self._sfull)
 
         def shadow(out):
             # the numpy mirror of the SAME state (copied: the mirror's
@@ -915,7 +946,8 @@ class StreamingGLS:
             mirror = [x.cpu().numpy().copy() for x in state]
             mdp = acc_finalize_np(mirror, self.phi,
                                   incoffset=self.incoffset,
-                                  budget=budget, tol=tol)[0]
+                                  budget=budget, tol=tol,
+                                  sfull=self.sfull)[0]
             return _health.drift_sigma(out[0].cpu().numpy(),
                                        out[1].cpu().numpy(), mdp)
 

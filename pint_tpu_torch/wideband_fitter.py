@@ -59,7 +59,9 @@ def build_dm_designmatrix(model, toas, names: List[str],
 
 class WidebandTOAFitter(GLSFitter):
     """Joint TOA+DM GLS fit (reference: WidebandTOAFitter): GLSFitter's
-    solve and loop over the stacked system of ``_system``."""
+    solve and loop over the stacked system of ``_system``, its Cholesky
+    solve with the float32 Gram under $PINT_TPU_GLS_MATMUL (the
+    reference's ``run_chol(f32mm)``) as GLSFitter's."""
 
     _KEY = "wideband"
     _WHAT = "wideband normal matrix"

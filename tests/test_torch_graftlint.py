@@ -70,11 +70,11 @@ def _lines(violations, rule):
 
 def test_rules_list_the_ported_rules_only():
     assert set(gl.RULES) == {"G1", "G2", "G3", "G4", "G5", "G6", "G7",
-                             "G8", "G12", "G13", "G14", "G15", "G16",
-                             "G17"}
+                             "G8", "G9", "G12", "G13", "G14", "G15",
+                             "G16", "G17"}
     assert set(gl.RULES) < set(rgl.RULES)
     doc = gl.__doc__
-    for rid in ("G9", "G10", "G11"):
+    for rid in ("G10", "G11"):
         assert rid not in gl.RULES and f"{rid} (" in doc
     for rid in gl.RULES:
         assert rid in doc
@@ -574,7 +574,7 @@ def test_repo_clean(capsys):
     assert rc == 0, lines
     summary = lines[-1]
     assert summary["clean"] and summary["violations"] == 0
-    assert summary["rules"] == len(gl.RULES) == 14
+    assert summary["rules"] == len(gl.RULES) == 15
     assert summary["files_scanned"] > 100
     report = gl.run_lint(REPO, dynamic=False)
     assert report.clean, [v.format() for v in report.violations]

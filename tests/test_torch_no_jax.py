@@ -18,7 +18,9 @@ pint_serve daemon import; one engine coalesces the array's fit steps and
 a polyco read into two device dispatches), and so do the scripts, pintk
 and the analysis plane (every script, pintk and analysis module imports,
 none of them importing Tk or matplotlib; a Pulsar's plot arrays under a
-Sanitizer, compare_parfiles, a T2 conversion, a G17 finding)."""
+Sanitizer, compare_parfiles, a T2 conversion, a G17 and a G9 finding),
+and so do the precision routes (an anchored step and the anchored,
+float32-Jacobian, float32-Gram step)."""
 
 import os
 import subprocess
@@ -90,7 +92,10 @@ for name in ("pint_tpu_torch.pta.gwb", "pint_tpu_torch.parallel.pta",
              "pint_tpu_torch.analysis.concurrency",
              "pint_tpu_torch.analysis.lock_registry",
              "pint_tpu_torch.analysis.allowlist",
-             "pint_tpu_torch.analysis.sanitizer"):
+             "pint_tpu_torch.analysis.sanitizer",
+             "pint_tpu_torch.analysis.cfg",
+             "pint_tpu_torch.analysis.graftflow",
+             "pint_tpu_torch.analysis.precision_registry"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu")
@@ -306,6 +311,17 @@ mod = graftlint.ModuleInfo("pint_tpu_torch/serve/_f.py",
                            "import os\nx = os.environ['X']\n")
 assert [(v.rule, v.line) for v in concurrency.check_g17(mod)] == \
     [("G17", 2)]
+from pint_tpu_torch.analysis import graftflow
+
+mod = graftlint.ModuleInfo("pint_tpu_torch/models/_f.py",
+                           "import torch\ndef f(pv, x):\n"
+                           "    return x.to(torch.float32)\n")
+assert [v.rule for v in graftflow.run_flow_checks(
+    [mod], registry=[], verify_probe_sites=False)[0]] == ["G9"]
+for flags in (dict(anchored=True),
+              dict(anchored=True, jac_f32=True, matmul_f32=True)):
+    rstep, rargs, _ = build_fit_step(model, toas, **flags)
+    assert np.isfinite(float(rstep(*rargs)[2]))
 gui = sorted(m for m in sys.modules
              if m.split(".")[0] in ("tkinter", "_tkinter", "matplotlib"))
 assert not gui, gui

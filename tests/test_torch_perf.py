@@ -301,8 +301,20 @@ def s_roofline(ns, mp, tmp):
             ns.perf.roofline_block("k", 1e-3)]
 
 
+def s_ledger_summary(ns, mp, tmp):
+    """One CompileLedger snapshot through ``ledger_summary``: counts,
+    the bounded key list and each key's recorded fields only."""
+    led = ns.perf.get_ledger()
+    led.record("fit.step", backend="cpu", compile_wall_s=0.25, flops=4e9,
+               bytes_accessed=3e8, peak_bytes=1e7)
+    led.record("gls.solve", backend="cpu", compile_wall_s=0.125)
+    led.record("serve.unit", backend="cpu", aot_restored=True)
+    return [ns.perf.ledger_summary(), ns.perf.ledger_summary(max_keys=2)]
+
+
 SHARED = {
     "test_ledger_registry_vs_snapshot_parity": s_ledger_parity,
+    "ledger_summary": s_ledger_summary,
     "test_ledger_jsonl_persists_and_restores_as_prior": s_ledger_prior,
     "test_supervisor_first_call_feeds_the_ledger": s_first_call,
     "test_decomposition_phases_sum_to_at_most_the_wall": s_decomposition,
