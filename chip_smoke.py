@@ -1519,10 +1519,11 @@ def device_busy(fn, label: str) -> dict:
     return out
 
 
-def fit_time(step, args, label: str, reps: int = 20) -> dict:
+def fit_time(step, args, label: str, reps: int = 10) -> dict:
     """Host-clock and CUDA-event times of `reps` steps, then a profiler
-    window of 3 steps: device-busy share, launches per step, device time
-    by stage (the fit_step.* spans) and by operation."""
+    window of one step: device-busy share, launches per step, device time
+    by stage (the fit_step.* spans) and by operation. One step, since
+    reading the profiler's trace of a step takes seconds."""
     import torch
 
     for _ in range(3):
@@ -1548,7 +1549,7 @@ def fit_time(step, args, label: str, reps: int = 20) -> dict:
           f"max {out['host_ms'][2]:.3f}); {out['event_ms'][0]:.3f} ms "
           f"between CUDA events (min {out['event_ms'][1]:.3f}, max "
           f"{out['event_ms'][2]:.3f})")
-    nsteps = 3
+    nsteps = 1
     prof, wall_ms, spans, work, launches = profile_window(
         lambda: step(*args), nsteps)
     busy_us = sum(b - a for a, b, _ in work)
@@ -1575,7 +1576,7 @@ def fit_time(step, args, label: str, reps: int = 20) -> dict:
     for _, _, name in work:
         kernels[name] = kernels.get(name, 0) + 1
     if work:
-        print(f"fit-time, {label}: profiler window of {nsteps} steps, "
+        print(f"fit-time, {label}: a {nsteps}-step profiler window, "
               f"{out['window_ms']:.3f} ms a step: device busy "
               f"{busy_us / 1e3 / nsteps:.3f} ms a step (kernels, copies "
               f"and sets), busy share {out['busy_share']:.4f} (idle share "
@@ -2176,7 +2177,7 @@ def device_fit_check(model, toas, truth, dev, label: str,
     return out
 
 
-def graph_step_check(step, args, names, label: str, reps: int = 20) -> dict:
+def graph_step_check(step, args, names, label: str, reps: int = 10) -> dict:
     """One step captured into a torch.cuda.CUDAGraph with (th, tl) in
     static buffers copied in before each replay: the replayed outputs
     bitwise equal to the eager step's at the entry point and at a second
@@ -7517,6 +7518,210 @@ def precision_phase(ctx: dict, dev) -> dict:
             "seconds": secs}
 
 
+# ---------------------------------------------- phase 20: the device mesh
+
+
+MESH_SHARDS = (1, 3, 4, 8)   # (a): 1 bitwise, 3 pads N, 4 and 8 divide it
+MESH_TIMED_SHARDS = (1, 8)   # (a) profiled, timed eager and graph-replayed
+MESH_GRAPH_REPS = 5
+MESH_WB_SHARDS = 4           # (b)
+MESH_PTA_SHARDS = 4          # (c), (d)
+# tests/test_sharded_fit_step.py's limits (tests/test_torch_mesh.py)
+MESH_DP_RTOL, MESH_DP_ATOL, MESH_COV_RTOL, MESH_CHI2_REL = \
+    1e-7, 1e-14, 1e-7, 1e-8
+MESH_R_RTOL, MESH_R_ATOL = 1e-7, 1e-12
+MESH_WB_SIGMA = 1e-7         # (b) dparams [sigma] of the float64 route
+# tests/test_pta.py's, test_gwb.py's and test_serve.py's mesh limits
+MESH_SOLVE_RTOL, MESH_SOLVE_ATOL, MESH_RDR_RTOL = 1e-9, 1e-18, 1e-10
+
+
+def mesh_close(got, want, n: int, label: str) -> dict:
+    """A sharded step's outputs (resids padded) against the unsharded
+    step's at the MESH_* limits, fatal: the worst excess of each output
+    over its tolerance (<= 1 passes) and the pad rows' largest |value|
+    (exactly 0)."""
+    def excess(a, b, rtol, atol):
+        return float(np.max(np.abs(a - b) / (atol + rtol * np.abs(b))))
+
+    out = {"dp": excess(got[0], want[0], MESH_DP_RTOL, MESH_DP_ATOL),
+           "cov": excess(got[1], want[1], MESH_COV_RTOL, 0.0),
+           "chi2_rel": float(abs(got[2] / want[2] - 1.0)),
+           "resid": excess(got[3][:n], want[3][:n], MESH_R_RTOL,
+                           MESH_R_ATOL),
+           "pad_rows": int(got[3].shape[0] - n),
+           "pad_max_abs": float(np.max(np.abs(got[3][n:]), initial=0.0))}
+    if out["dp"] > 1 or out["cov"] > 1 or out["resid"] > 1 or \
+            out["chi2_rel"] > MESH_CHI2_REL or out["pad_max_abs"] != 0.0:
+        fail(f"{label}: the sharded step is off the unsharded one: {out}")
+    return out
+
+
+def mesh_phase(ctx: dict, dev) -> dict:
+    """Phase 20: the device mesh, each check fatal. One process drives a
+    mesh of k blocks, all on `dev` (cuda:0; one card): (a) the fit cell's
+    step sharded over k in MESH_SHARDS TOA blocks, k = 1 bitwise phase
+    6's step with its launches, the rest within mesh_close's limits,
+    launches, busy, eager and graph-replayed ms at MESH_TIMED_SHARDS;
+    (b) config 3's wideband step over MESH_WB_SHARDS blocks against its
+    unsharded step in sigma; (c) pta_solve and the GWB blocks of config 5
+    over a MESH_PTA_SHARDS-block pulsar mesh against the one-device
+    results; (d) a mesh ServeEngine on 4 fit requests against the local
+    engine; (e) with more than one card, (a)'s step over every card."""
+    import torch
+
+    from pint_tpu_torch.parallel import build_sharded_fit_step, pta_solve, \
+        stack_problems
+    from pint_tpu_torch.pta import GWBLikelihood
+    from pint_tpu_torch.pta.shard import Mesh
+    from pint_tpu_torch.serve import FitStepRequest, ServeEngine
+
+    t_phase = time.perf_counter()
+    d0 = torch.device(dev)
+    if d0.type == "cuda" and d0.index is None:
+        d0 = torch.device("cuda", torch.cuda.current_device())
+
+    def mesh(k, axis, devs=None):
+        return Mesh(np.array(devs or [d0] * k), (axis,))
+
+    def host(outs):
+        return [x.cpu().numpy() for x in outs]
+
+    secs = {}
+    model, toas, step = ctx["model"], ctx["toas"], ctx["step"]
+    n = toas.ntoas
+    want = host(step["step"](*step["args"]))
+    l6 = device_busy(lambda: step["step"](*step["args"]),
+                     "mesh: phase 6's step")
+    fit, kept = {}, {}
+    for k in MESH_SHARDS:
+        t0 = time.perf_counter()
+        sup, dargs, names = build_sharded_fit_step(model, toas,
+                                                   mesh(k, "toa"))
+        build_s = time.perf_counter() - t0
+        got = host(sup(*dargs))
+        if names != step["names"]:
+            fail(f"mesh-fit k={k}: parameter names differ")
+        busy = {"launches": None, "busy_ms": None, "wall_ms": None}
+        if k in MESH_TIMED_SHARDS:
+            busy = device_busy(lambda: sup.step(*dargs), f"mesh-fit k={k}")
+        if k == 1:
+            same = all(np.array_equal(a.view(np.int64), b.view(np.int64))
+                       for a, b in zip(got, want))
+            if not same or busy["launches"] != l6["launches"]:
+                fail(f"mesh-fit k=1: not phase 6's step bitwise with its "
+                     f"launches (bitwise {same}, launches "
+                     f"{busy['launches']} against {l6['launches']})")
+            check = {"bitwise": same}
+        else:
+            check = mesh_close(got, want, n, f"mesh-fit k={k}")
+        fit[k] = {**check, "launches": busy["launches"],
+                  "busy_ms": busy["busy_ms"], "wall_ms": busy["wall_ms"],
+                  "build_s": build_s}
+        print(f"mesh-fit k={k}: {check}; launches {busy['launches']} "
+              f"(unsharded {l6['launches']}); build {build_s:.3f} s")
+        if k in MESH_TIMED_SHARDS:
+            kept[k] = (sup, dargs, names)
+    secs["fit"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    graph = {k: graph_step_check(kept[k][0].step, kept[k][1], kept[k][2],
+                                 f"mesh graph-step k={k}",
+                                 reps=MESH_GRAPH_REPS)
+             for k in MESH_TIMED_SHARDS}
+    kept.clear()
+    secs["graph"] = time.perf_counter() - t0
+
+    # (b) config 3's wideband step over MESH_WB_SHARDS blocks
+    t0 = time.perf_counter()
+    w_model, w_toas, w_step = ctx["w_model"], ctx["w_toas"], ctx["w_step"]
+    w_want = host(w_step["step"](*w_step["args"]))
+    sup, dargs, _ = build_sharded_fit_step(
+        w_model, w_toas, mesh(MESH_WB_SHARDS, "toa"), wideband=True)
+    w_got = host(sup(*dargs))
+    sig = np.sqrt(np.diag(w_want[1]))
+    wb = {"dp_sigma": float(np.max(np.abs(w_got[0] - w_want[0]) / sig)),
+          "chi2_rel": float(abs(w_got[2] / w_want[2] - 1.0)),
+          "resid_s": float(np.max(np.abs(w_got[3][:w_toas.ntoas]
+                                         - w_want[3]))),
+          "pad_rows": int(w_got[3].shape[0] - w_toas.ntoas)}
+    print(f"mesh-wideband: config 3 over {MESH_WB_SHARDS} blocks: {wb}")
+    if wb["dp_sigma"] > MESH_WB_SIGMA or wb["chi2_rel"] > MESH_CHI2_REL \
+            or wb["resid_s"] > MESH_R_ATOL:
+        fail(f"mesh-wideband: off the unsharded step: {wb}")
+    secs["wideband"] = time.perf_counter() - t0
+
+    # (c) config 5's batch solve and GWB blocks over a pulsar mesh
+    t0 = time.perf_counter()
+    problems = ctx["array"]["problems"]
+    pmesh = mesh(MESH_PTA_SHARDS, "pulsar")
+    st = stack_problems(problems)
+    plain, sharded = pta_solve(st, device=dev), pta_solve(st, mesh=pmesh)
+
+    def rel(a, b, rtol, atol=0.0):
+        return float(np.max(np.abs(a - b) / (atol + rtol * np.abs(b))))
+
+    solve = [rel(a, b, MESH_SOLVE_RTOL, MESH_SOLVE_ATOL)
+             for a, b in zip(sharded, plain)]
+    kw = dict(problems=problems, positions=ctx["array"]["positions"],
+              nfreq=ctx["nfreq"])
+    b0 = GWBLikelihood(device=dev, **kw).build_blocks()
+    b1 = GWBLikelihood(mesh=pmesh, **kw).build_blocks()
+    blocks = [rel(b1[0], b0[0], MESH_SOLVE_RTOL, MESH_SOLVE_ATOL),
+              rel(b1[1], b0[1], MESH_SOLVE_RTOL, MESH_SOLVE_ATOL),
+              rel(b1[2], b0[2], MESH_RDR_RTOL),
+              rel(b1[3], b0[3], MESH_RDR_RTOL)]
+    pta = {"npulsars": len(problems), "solve_excess": solve,
+           "gwb_excess": blocks}
+    print(f"mesh-pta: {len(problems)} pulsars over {MESH_PTA_SHARDS} "
+          f"blocks, worst excess over the limits: solve {max(solve):.3g}, "
+          f"GWB blocks {max(blocks):.3g}")
+    if max(solve) > 1 or max(blocks) > 1:
+        fail(f"mesh-pta: off the one-device results: {pta}")
+    secs["pta"] = time.perf_counter() - t0
+
+    # (d) a mesh engine against the local engine on 4 fit requests
+    t0 = time.perf_counter()
+    res = {}
+    for label, kw in (("local", {"device": dev}), ("mesh", {"mesh": pmesh})):
+        eng = ServeEngine(**kw)
+        futs = [eng.submit(FitStepRequest(problem=pr))
+                for pr in problems[:4]]
+        eng.flush()
+        res[label] = ([f.result(timeout=0) for f in futs],
+                      list(eng.metrics.buckets))
+    serve = {"dparams_excess": max(
+        rel(b.dparams, a.dparams, MESH_SOLVE_RTOL, MESH_SOLVE_ATOL)
+        for a, b in zip(res["local"][0], res["mesh"][0])),
+        "chi2_rel": max(abs(b.chi2 / a.chi2 - 1.0) for a, b in
+                        zip(res["local"][0], res["mesh"][0])),
+        "mesh_batches": [k[-1] for k in res["mesh"][1]]}
+    print(f"mesh-serve: {serve}")
+    if serve["dparams_excess"] > 1 or serve["chi2_rel"] > MESH_SOLVE_RTOL \
+            or any(b % MESH_PTA_SHARDS for b in serve["mesh_batches"]):
+        fail(f"mesh-serve: the mesh engine is off the local one: {serve}")
+    secs["serve"] = time.perf_counter() - t0
+
+    # (e) the step over every card
+    ncard = torch.cuda.device_count() if d0.type == "cuda" else 0
+    cards = {"cards": ncard}
+    if ncard > 1:
+        sup, dargs, _ = build_sharded_fit_step(
+            model, toas, mesh(ncard, "toa",
+                              [torch.device("cuda", i) for i in range(ncard)]))
+        cards.update(mesh_close(host(sup(*dargs)), want, n,
+                                f"mesh-cards ({ncard} cards)"))
+        print(f"mesh-cards: the fit cell's step over {ncard} cards: {cards}")
+    else:
+        print(f"mesh-cards: {ncard} card(s): cross-GPU placement not "
+              "exercised")
+    secs["total"] = time.perf_counter() - t_phase
+    print("mesh seconds: " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in secs.items()))
+    return {"fit": fit, "unsharded_launches": l6["launches"],
+            "unsharded_busy_ms": l6["busy_ms"], "graph": graph,
+            "wideband": wb, "pta": pta, "serve": serve, "cards": cards,
+            "seconds": secs}
+
+
 def fmt(t: dict) -> str:
     return (f"{t['median']:.4f} ms median of 20 (min {t['min']:.4f}, "
             f"max {t['max']:.4f})")
@@ -7916,6 +8121,17 @@ def main() -> int:
     if precision["k1_launches"]:
         fail(f"precision: K1 launched {precision['k1_launches']} times on "
              "a path that runs no H-test")
+    # phase 20: the device mesh (K1 launches 0 times: the mesh runs the
+    # fit, pulsar-array and serve paths)
+    k1_before = zmod.launches
+    mesh = mesh_phase(
+        {"model": model, "toas": toas, "step": step, "w_model": w_model,
+         "w_toas": w_toas, "w_step": w_step, "array": array,
+         "nfreq": args.pta_nfreq}, dev)
+    mesh["k1_launches"] = zmod.launches - k1_before
+    if mesh["k1_launches"]:
+        fail(f"mesh: K1 launched {mesh['k1_launches']} times on a path "
+             "that runs no H-test")
     print(f"profile check: K1's entry {k1_entry:.4f} ms a launch in the "
           f"path's profile, K1 between events at its shape "
           f"{k_path['median']:.4f} ms")
@@ -8033,7 +8249,13 @@ def main() -> int:
     print(json.dumps({"serve": serve}, default=str))
     print(json.dumps({"cli_gui": cli_gui}, default=str))
     print(json.dumps({"precision": precision}, default=str))
+    print(json.dumps({"mesh": mesh}, default=str))
     print(f"smoke wall: {time.perf_counter() - t_start:.1f} s")
+    # a serve dispatch's deferred cost probe may still be writing the
+    # compile ledger: let it finish before its directory goes
+    from pint_tpu_torch.obs import perf as obs_perf
+
+    obs_perf.join_cost_probes()
     ledger_dir.cleanup()
     print(card())
     print(json.dumps({"kernels": [{

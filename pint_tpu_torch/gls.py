@@ -75,12 +75,34 @@ def equilibrate(M, w):
     """(Mn, colmax, norm): the reference's two-stage column scaling —
     by the column max (keeps sum(M^2 w) in range for the ~1e13 s/unit
     spin columns), then to unit weighted norm."""
-    colmax = torch.amax(torch.abs(M), dim=0)
+    Mn, colmax, norm = equilibrate_blocks([M], [w])
+    return Mn[0], colmax, norm
+
+
+def reduce_blocks(parts, op=torch.add):
+    """Per-block partials combined in block order on the first block's
+    device (the one partial itself when there is one)."""
+    home = parts[0].device
+    out = parts[0]
+    for x in parts[1:]:
+        out = op(out, x.to(home))
+    return out
+
+
+def equilibrate_blocks(Ms, ws):
+    """``equilibrate`` of the row blocks ``Ms`` (weights ``ws``) of one
+    matrix, each block on its own device: the column max and the
+    weighted norm are reductions over every row, so both are reduced
+    across the blocks (on the first block's device) before any block is
+    scaled. Returns ([Mn of each block], colmax, norm)."""
+    colmax = reduce_blocks([torch.amax(torch.abs(M), dim=0) for M in Ms],
+                           torch.maximum)
     colmax = torch.where(colmax == 0, torch.ones_like(colmax), colmax)
-    Ms = M / colmax[None, :]
-    norm = torch.sqrt(torch.sum(Ms * Ms * w[:, None], dim=0))
+    Ss = [M / colmax.to(M.device)[None, :] for M in Ms]
+    norm = torch.sqrt(reduce_blocks([torch.sum(S * S * w[:, None], dim=0)
+                                     for S, w in zip(Ss, ws)]))
     norm = torch.where(norm == 0, torch.ones_like(norm), norm)
-    return Ms / norm[None, :], colmax, norm
+    return [S / norm.to(S.device)[None, :] for S in Ss], colmax, norm
 
 
 def jacobi(S):

@@ -52,6 +52,11 @@ runs exactly the ops it runs when no health is asked for.
 ``build_fit_loop`` runs up to K downhill iterations of the step, the
 step-halving line search included, and returns the ledger of applied
 updates the host replays in exact dd (reference: build_fit_loop).
+
+``build_sharded_fit_step`` runs the same step with its TOA axis split
+over a device mesh (``pta.shard.Mesh``): each block's rows through
+``parts_fn`` on its device, every reduction over the TOA axis across the
+blocks, one solve (reference: build_sharded_fit_step).
 """
 
 from __future__ import annotations
@@ -65,11 +70,12 @@ from torch.profiler import record_function
 from pint_tpu_torch import gls as _gls
 from pint_tpu_torch import resolve_device
 from pint_tpu_torch.gls import cho_factor, cho_solve, downhill_dd, \
-    equilibrate, jacobi
+    equilibrate_blocks, jacobi, reduce_blocks
 from pint_tpu_torch.models.timing_model import make_pv
 from pint_tpu_torch.ops.dd import DD, dd, dd_add, dd_frac, dd_to_dd32
 
 __all__ = ["build_fit_step", "build_fit_parts", "build_fit_loop",
+           "build_sharded_fit_step", "toa_sharding", "ToaSharding",
            "SegmentSum"]
 
 
@@ -601,24 +607,35 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
                 torch.cat([nvec, cache["wb_dme"] ** 2]),
                 torch.cat([Fv, cache["wb_Fdm"] * valid[:, None]]))
 
-    def step_fn(th, tl, fh, fl, batch, cache, F, phi, nvec, valid,  # graftlint: allow G14 -- the producer: the step computes the health vector on the device (output 5); its callers observe it
-                eid, jvar):
-        M, Fv, r0, nvec2, valid2, _, tmask = parts_fn(
-            th, tl, fh, fl, batch, cache, F, phi, nvec, valid, eid, jvar)
+    def finish(parts, phi, jvar, segs):  # graftlint: allow G14 -- the producer: the step computes the health vector on the device (output 5); its callers observe it
+        """The step's outputs from ``parts_fn``'s outputs over one or
+        more row blocks of the TOA axis (``parts``, in block order, each
+        on its own device; ``segs`` their segment plans, None without
+        ECORR): the weighted mean, the GLS solve and the health vector
+        reduce across the blocks on the first block's device, where the
+        outputs land; ``resids`` is the blocks' time rows in block
+        order. One block is the step itself."""
         if incoffset:
             # weighted-mean subtraction over the valid time rows
-            wt = tmask / nvec2
-            r = r0 - (torch.sum(r0 * wt) / torch.sum(wt)) * tmask
+            wts = [tm / nv for _, _, _, nv, _, _, tm in parts]
+            mean = reduce_blocks([torch.sum(pt[2] * wt)
+                                  for pt, wt in zip(parts, wts)]) \
+                / reduce_blocks([torch.sum(wt) for wt in wts])
+            rs = [pt[2] - mean.to(pt[2].device) * pt[6] for pt in parts]
         else:
-            r = r0
-        dp, cov, chi2 = _gls_core(M, Fv, phi, r, nvec2, valid2, jvar,
-                                  segment_plan(eid), f32mm=f32mm)
+            rs = [pt[2] for pt in parts]
+        dp, cov, chi2 = _gls_core_blocks(
+            [(pt[0], pt[1], r, pt[3], pt[4]) for pt, r in zip(parts, rs)],
+            phi, jvar, segs, f32mm=f32mm)
         if jac32:
             # back from the scaled parameters u = theta / s
             dp = dp * sfull
             cov = cov * torch.outer(sfull, sfull)
-        # the time residuals only (the first N rows of a wideband stack)
-        rt = r[:valid.shape[0]]
+        # the time residuals only (the first rows of a wideband stack)
+        rts = [r[:pt[6].shape[0] // (2 if wideband else 1)]
+               for pt, r in zip(parts, rs)]
+        rt = rts[0] if len(rts) == 1 else \
+            torch.cat([x.to(dp.device) for x in rts])
         if not health_on:
             return dp, cov, chi2, rt
         # the health vector: three reductions on the step's own tensors
@@ -628,11 +645,20 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
             return torch.sum(~torch.isfinite(x)).to(torch.float64)
 
         hv = torch.stack([
-            nf(r) + nf(dp) + nf(chi2),
-            torch.max(torch.abs(r) * tmask / torch.sqrt(nvec2)),
+            reduce_blocks([nf(r) for r in rs]) + nf(dp) + nf(chi2),
+            reduce_blocks([torch.max(torch.abs(r) * pt[6]
+                                     / torch.sqrt(pt[3]))
+                           for pt, r in zip(parts, rs)], torch.maximum),
             chi2.to(torch.float64),
         ])
         return dp, cov, chi2, rt, hv
+
+    def step_fn(th, tl, fh, fl, batch, cache, F, phi, nvec, valid,
+                eid, jvar):
+        parts = parts_fn(th, tl, fh, fl, batch, cache, F, phi, nvec,
+                         valid, eid, jvar)
+        seg = segment_plan(eid)
+        return finish([parts], phi, jvar, None if seg is None else [seg])
 
     if anchored_on:
         # the (th, tl) slots carry delta theta against the anchor: zero
@@ -644,7 +670,8 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
     meta = {"incoffset": incoffset, "nseg": nseg, "wideband": wideband,
             "has_ecorr": seg is not None, "health": health_on,
             "f32mm": f32mm, "jac32": jac32, "sfull": sfull_np,
-            "anchored": anchored_on}
+            "anchored": anchored_on, "stack_eid": stack_eid,
+            "finish": finish}
     return (step_fn, parts_fn, args,
             (["Offset"] if incoffset else []) + free, meta)
 
@@ -772,6 +799,198 @@ def build_fit_loop(model, toas, max_iter: int = 8,
     return loop_fn, args + (K,), names
 
 
+# ---------------------------------------------------------------- mesh
+
+# cache entries whose every leaf carries the TOA axis on dim 0: the
+# components' per-TOA columns, the PHASE offsets and the wideband DM
+# channel; the TZR entries are one row, replicated
+_TOA_CACHE = ("main", "padd", "wb_dm", "wb_dme", "wb_Fdm")
+_TZR_CACHE = ("tzr", "tzr_batch")
+
+
+class ToaSharding:
+    """The placement of a fit step's arguments over a mesh axis: the TOA
+    axis in contiguous equal blocks, block i on the axis's i-th device
+    (``pta.shard.mesh_devices``), everything else replicated.
+
+    Which leaves carry the TOA axis is named by structure, never read
+    off a shape (a leaf whose dim 0 happens to equal N is not split for
+    that): F, nvec, valid and eid; every ToaBatch leaf (the (P, N, 3)
+    planet stack on dim 1, the rest on dim 0); every leaf of the cache
+    entries in ``_TOA_CACHE``; the anchor's per-TOA references (its
+    ``*_tzr`` leaves are the TZR row). Replicated: the parameter pairs,
+    phi, jvar, the TZR batch and cache. A cache entry with no rule
+    raises, and so does a split leaf whose TOA axis is not N long."""
+
+    def __init__(self, mesh, axis: str = "toa"):
+        from pint_tpu_torch.pta.shard import mesh_devices
+
+        self.devices = mesh_devices(mesh, axis)
+        self.nshard = len(self.devices)
+
+    def bounds(self, n: int):
+        """[(start, stop)] of each block of ``n`` rows."""
+        if n % self.nshard:
+            raise ValueError(f"{n} TOA rows do not split into "
+                             f"{self.nshard} equal blocks")
+        k = n // self.nshard
+        return [(i * k, (i + 1) * k) for i in range(self.nshard)]
+
+    def split(self, a, n: int, dim: int = 0) -> list:
+        """``a``'s blocks along ``dim`` (N = ``n`` long), each on its
+        device."""
+        if not isinstance(a, torch.Tensor):
+            return [a] * self.nshard
+        if a.ndim <= dim or a.shape[dim] != n:
+            raise ValueError(f"a TOA-axis leaf of shape {tuple(a.shape)} "
+                             f"is not {n} long on dim {dim}")
+        return [a.narrow(dim, lo, hi - lo).contiguous().to(d)
+                for (lo, hi), d in zip(self.bounds(n), self.devices)]
+
+    def replicate(self, a) -> list:
+        """``a`` on every block's device (a no-op where it lies)."""
+        return [_tree_map(lambda x: x.to(d) if isinstance(x, torch.Tensor)
+                          else x, a) for d in self.devices]
+
+    def _split_tree(self, tree, n: int, dim: int = 0) -> list:
+        per = _tree_map(lambda a: self.split(a, n, dim), tree)
+        return [_tree_map(lambda x: x[i], per) for i in range(self.nshard)]
+
+    def split_batch(self, batch, n: int) -> list:
+        fields = {f: self._split_tree(getattr(batch, f), n,
+                                      1 if f == "obs_planet_pos" else 0)
+                  for f in batch._fields}
+        return [type(batch)(**{f: v[i] for f, v in fields.items()})
+                for i in range(self.nshard)]
+
+    def split_cache(self, cache: dict, n: int) -> list:
+        out = [dict() for _ in range(self.nshard)]
+        for key, val in cache.items():
+            if key in _TOA_CACHE:
+                per = self._split_tree(val, n)
+            elif key in _TZR_CACHE:
+                per = self.replicate(val)
+            elif key == "anchor":
+                sub = {k: (self.replicate(v) if k.endswith("_tzr")
+                           else self.split(v, n)) for k, v in val.items()}
+                per = [{k: v[i] for k, v in sub.items()}
+                       for i in range(self.nshard)]
+            else:
+                raise ValueError(f"no TOA-axis rule for the cache entry "
+                                 f"{key!r}")
+            for i in range(self.nshard):
+                out[i][key] = per[i]
+        return out
+
+    def place(self, args, n: int) -> tuple:
+        """A step's 12 arguments placed: the replicated ones as they are
+        (each block's device gets its copy in the step), each TOA-axis
+        one as a ``pta.shard.Blocks`` of its per-block values."""
+        from pint_tpu_torch.pta.shard import Blocks
+
+        th, tl, fh, fl, batch, cache, F, phi, nvec, valid, eid, jvar = args
+        return (th, tl, fh, fl, Blocks(self.split_batch(batch, n)),
+                Blocks(self.split_cache(cache, n)),
+                Blocks(self.split(F, n)), phi, Blocks(self.split(nvec, n)),
+                Blocks(self.split(valid, n)), Blocks(self.split(eid, n)),
+                jvar)
+
+
+def toa_sharding(mesh, axis: str = "toa") -> ToaSharding:
+    """The TOA-axis placement of a fit step over ``mesh``'s ``axis``
+    (``ToaSharding``)."""
+    return ToaSharding(mesh, axis)
+
+
+def build_sharded_fit_step(model, toas, mesh, axis: str = "toa", **flags):
+    """The fit step with its TOA axis split over ``mesh``'s ``axis``
+    (``pta.shard.Mesh``; reference: build_sharded_fit_step). N is padded
+    to a multiple of the axis size with masked rows (``pad_to``);
+    ``flags`` (``anchored``, ``jac_f32``, ``matmul_f32``, ``wideband``,
+    ``health``, ``hybrid_jac``) go to the step's builder.
+
+    Returns ``(supervised, dev_args, names)``; ``supervised(*dev_args)``
+    gives ``(dparams, cov, chi2, resids[, hv])`` on the mesh's first
+    device, ``resids`` padded (its pad rows exactly 0). Each block runs
+    ``parts_fn`` on its rows on its device (the delay and phase chain,
+    the residuals, the design matrix: all per row); then every sum or
+    max over the TOA axis is reduced across the blocks on the first
+    device (``finish``): the weighted mean before any residual is final,
+    the column scales, the Grams, rCr, the ECORR segment sums (an epoch
+    may straddle two blocks; each block sums into the global epochs)
+    and the health vector, and the solve runs once there. A one-block
+    mesh runs exactly the ops of the unsharded step.
+
+    One process drives every device, as the reference's single
+    controller does: the blocks are issued in order and run
+    asynchronously on their devices. Each distinct device gets its own
+    build (a copy of the model homed there where the model lives
+    elsewhere). The call is a supervised dispatch under key and span
+    ``fit_step.sharded``, on the breaker of the mesh's first device,
+    where the reductions and the solve run and the outputs land.
+    ``supervised.step`` is the undispatched step (CUDA-graph capture)."""
+    from pint_tpu_torch.models.timing_model import copy_model
+
+    plan = toa_sharding(mesh, axis)
+    pad_to = _pad_to(toas.ntoas, plan.nshard)
+    mdev = torch.device(model.device)
+    if mdev.type == "cuda" and mdev.index is None:
+        mdev = torch.device("cuda", torch.cuda.current_device())
+    cores = {}
+    for d in plan.devices:
+        if d not in cores:
+            # the model's own device as it names it (its cache is keyed
+            # on the name: "cuda" and "cuda:0" would rebuild it)
+            m, md = model, model.device
+            if mdev != d:
+                m, md = copy_model(model), d
+                m.device = d
+            cores[d] = _build_fit_core(m, toas, device=md, pad_to=pad_to,
+                                       **flags)
+    home = plan.devices[0]
+    _, _, args, names, meta = cores[home]
+    dev_args = plan.place(args, pad_to)
+    finish, stack_eid, nseg = meta["finish"], meta["stack_eid"], \
+        meta["nseg"]
+    segs: dict = {}
+
+    def segment_plans(eid):
+        """Each block's segment plan over the global epoch ids (made on
+        the first call with these eid blocks)."""
+        if nseg <= 1:
+            return None
+        key = tuple(id(e) for e in eid)
+        if segs.get("key") != key:
+            segs.update(key=key, plans=[SegmentSum(stack_eid(e), nseg)
+                                        for e in eid])
+        return segs["plans"]
+
+    segment_plans(dev_args[10])
+
+    def step(th, tl, fh, fl, batch, cache, F, phi, nvec, valid, eid,
+             jvar):
+        parts = []
+        for i, d in enumerate(plan.devices):
+            parts.append(cores[d][1](
+                th.to(d), tl.to(d), fh.to(d), fl.to(d), batch[i],
+                cache[i], F[i], phi.to(d), nvec[i], valid[i], eid[i],
+                jvar.to(d)))
+        return finish(parts, phi, jvar, segment_plans(eid))
+
+    def supervised(*step_args):
+        """The sharded step as a supervised dispatch (key and span
+        ``fit_step.sharded``)."""
+        from pint_tpu_torch import obs
+        from pint_tpu_torch.runtime import get_supervisor
+
+        with obs.span("fit_step.sharded", nshard=plan.nshard):
+            return get_supervisor().dispatch(
+                step, *step_args, key="fit_step.sharded", device=home)
+
+    supervised.step = step
+    return supervised, dev_args, names
+
+
 def _gls_core(M, F, phi, r, nvec, valid, jvar, seg=None, f32mm=False):
     """The basis-Woodbury solve of ``pint_tpu.gls`` with ECORR as the
     effective white covariance N_eff = diag(nvec) + sum_k jvar_k u_k u_k^T
@@ -791,33 +1010,59 @@ def _gls_core(M, F, phi, r, nvec, valid, jvar, seg=None, f32mm=False):
     solve is taken instead. Both are computed and one is selected on the
     device, so the step never reads a value back to decide (the
     reference branches with ``lax.cond``)."""
-    p = M.shape[1]
-    q = F.shape[1]
-    mdt = M.dtype
+    return _gls_core_blocks([(M, F, r, nvec, valid)], phi, jvar,
+                            None if seg is None else [seg], f32mm)
+
+
+def _gls_core_blocks(blocks, phi, jvar, segs=None, f32mm=False):
+    """``_gls_core`` over row blocks of the TOA axis: ``blocks`` the
+    (M, F, r, nvec, valid) of each block in order, each on its own
+    device, ``segs`` their segment plans over the global epoch ids (an
+    epoch may straddle two blocks). Every sum over rows is a per-block
+    partial reduced in block order on the first block's device, where
+    phi, jvar and the outputs live: the column scales before any block
+    is scaled (``gls.equilibrate_blocks``), the Grams, rCr and the
+    segment sums before g = jvar / (1 + jvar s) is formed. With
+    ``f32mm`` each block's Gram is a float32 product and the partials are
+    summed in float64 (``_symm_mm`` returns float64). One block runs
+    exactly the ops of the one-device solve."""
+    M0 = blocks[0][0]
+    p = M0.shape[1]
+    q = blocks[0][1].shape[1]
+    mdt = M0.dtype
     with record_function("fit_step.gram"):
-        w = valid / nvec
-        Mn, colmax, norm = equilibrate(M, w.to(mdt))
-        big = torch.cat([Mn, F.to(mdt)], dim=1)
-        # symmetric sqrt(w) split: Sigma is exactly symmetric
-        sw = torch.sqrt(w)
-        bigs = big * sw.to(mdt)[:, None]
-        rs = r * sw
-        rCr = torch.sum(rs * rs)
-    if seg is not None:
+        ws = [valid / nvec for _, _, _, nvec, valid in blocks]
+        Mns, colmax, norm = equilibrate_blocks(
+            [b[0] for b in blocks], [w.to(mdt) for w in ws])
+        bigs, bigss, rss = [], [], []
+        for (_, F, r, _, _), Mn, w in zip(blocks, Mns, ws):
+            big = torch.cat([Mn, F.to(mdt)], dim=1)
+            # symmetric sqrt(w) split: Sigma is exactly symmetric
+            sw = torch.sqrt(w)
+            bigs.append(big)
+            bigss.append(big * sw.to(mdt)[:, None])
+            rss.append(r * sw)
+        rCr = reduce_blocks([torch.sum(rs * rs) for rs in rss])
+    if segs is not None:
         with record_function("fit_step.ecorr_segments"):
-            s_seg = seg(w)
+            s_seg = reduce_blocks([sg_(w) for sg_, w in zip(segs, ws)])
             g = jvar / (1.0 + jvar * s_seg)
-            E = seg(big * w.to(mdt)[:, None])
-            wr_seg = seg(w * r)
+            E = reduce_blocks([sg_(big * w.to(mdt)[:, None])
+                               for sg_, big, w in zip(segs, bigs, ws)])
+            wr_seg = reduce_blocks([sg_(w * b[2])
+                                    for sg_, w, b in zip(segs, ws,
+                                                         blocks)])
             sg = torch.sqrt(g)
             Eg = E * sg.to(mdt)[:, None]
 
     def assemble(use32):
         with record_function("fit_step.gram"):
-            Sigma = _gls._symm_mm(bigs, bigs, use32)
-            b = _gls._symm_mm(bigs, rs.to(mdt), use32)
+            Sigma = reduce_blocks([_gls._symm_mm(x, x, use32)
+                                   for x in bigss])
+            b = reduce_blocks([_gls._symm_mm(x, rs.to(mdt), use32)
+                               for x, rs in zip(bigss, rss)])
         rcr = rCr
-        if seg is not None:
+        if segs is not None:
             with record_function("fit_step.ecorr_segments"):
                 Sigma = Sigma - _gls._symm_mm(Eg, Eg, use32)
                 b = b - Eg.to(torch.float64).T @ (sg * wr_seg)
@@ -826,7 +1071,7 @@ def _gls_core(M, F, phi, r, nvec, valid, jvar, seg=None, f32mm=False):
 
     def solve(Sigma, b, rcr):
         with record_function("fit_step.cholesky_solves"):
-            zeros = torch.zeros(p, dtype=torch.float64, device=M.device)
+            zeros = torch.zeros(p, dtype=torch.float64, device=M0.device)
             Sigma = Sigma + torch.diag(torch.cat([zeros, 1.0 / phi]) if q
                                        else zeros)
             # Jacobi-precondition to unit diagonal: Sigma mixes O(1)
@@ -835,7 +1080,7 @@ def _gls_core(M, F, phi, r, nvec, valid, jvar, seg=None, f32mm=False):
             dd = torch.outer(d, d)
             L = cho_factor(Sigma / dd)
             xhat = cho_solve(L, b / d) / d
-            eye = torch.eye(p + q, dtype=torch.float64, device=M.device)
+            eye = torch.eye(p + q, dtype=torch.float64, device=M0.device)
             inv = cho_solve(L, eye) / dd
             # chi2 at the point: marginalize the noise (F-basis + ECORR)
             # only, not the parameter block

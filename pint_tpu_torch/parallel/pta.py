@@ -7,6 +7,10 @@ batch is solved at once: every function below works on (P, ...) tensors,
 the pulsar axis leading, and torch.linalg factors the P normal matrices
 as one batch (BASELINE.md config #5).
 
+With a device mesh (``pta.shard.Mesh``) ``pta_solve`` and ``fit_pta``
+split the pulsar axis into contiguous per-device blocks, each solved on
+its device, and gather them in block order.
+
 Ragged shapes are handled with validity masks: padded TOA rows carry
 zero weight, padded parameter columns are identity-pinned in the normal
 matrix, padded basis columns get unit prior and zero data weight.
@@ -31,9 +35,8 @@ __all__ = ["PulsarProblem", "build_problem", "stack_problems",
            "pta_solve", "pta_solve_np", "fit_pta", "PTAFitResult"]
 
 STACK_KEYS = ("M", "F", "phi", "r", "nvec", "valid", "pvalid")
-
-MESH_REFUSAL = ("a device mesh is not ported: sharding the pulsar axis "
-                "over several GPUs is ROADMAP.md item 11")
+# ranks of the batch solve's outputs (checked by its block plan)
+_PTA_NDIMS_OUT = (2, 3, 1, 1)
 
 
 class PTAFitResult(list):
@@ -130,14 +133,33 @@ def upload(arrs: dict, keys: Sequence[str], device) -> dict:
     return out
 
 
-def read_back(outs: Sequence[torch.Tensor]) -> tuple:
-    """The tensors as numpy arrays, moved in ONE device-to-host copy."""
-    flat = torch.cat([o.reshape(-1) for o in outs]).cpu().numpy()
-    res, o = [], 0
-    for t in outs:
-        n = t.numel()
-        res.append(flat[o:o + n].reshape(tuple(t.shape)))
-        o += n
+def read_back(outs: Sequence) -> tuple:
+    """The tensors as numpy arrays, moved in ONE device-to-host copy per
+    device. An output of a planned call over a mesh (``pta.shard.
+    Blocks``) comes back as its blocks concatenated in block order."""
+    from pint_tpu_torch.pta.shard import Blocks
+
+    parts = [t for o in outs for t in (o if isinstance(o, Blocks)
+                                       else (o,))]
+    by_dev: dict = {}
+    for i, t in enumerate(parts):
+        by_dev.setdefault(t.device, []).append(i)
+    host = [None] * len(parts)
+    for idx in by_dev.values():
+        flat = torch.cat([parts[i].reshape(-1) for i in idx]).cpu().numpy()
+        o = 0
+        for i in idx:
+            n = parts[i].numel()
+            host[i] = flat[o:o + n].reshape(tuple(parts[i].shape))
+            o += n
+    res, k = [], 0
+    for o in outs:
+        if isinstance(o, Blocks):
+            res.append(np.concatenate(host[k:k + len(o)], axis=0))
+            k += len(o)
+        else:
+            res.append(host[k])
+            k += 1
     return tuple(res)
 
 
@@ -270,33 +292,44 @@ def pta_solve_np(stacked: dict):
             np.asarray([o[3] for o in outs]))
 
 
-def pta_solve(stacked: dict, device=None, mesh=None):
+def pta_solve(stacked: dict, device=None, mesh=None,
+              axis: str = "pulsar"):
     """Solve the whole stacked batch on ``device`` (the GPU by default):
     one upload, one batched solve, one read back, as one supervised
     dispatch (key ``pta.batch``) whose host failover is
     ``pta_solve_np``. Returns host (dparams (P, p), cov (P, p, p), chi2
     (P,), chi2r (P,)). A slot whose normal matrix is not positive
     definite comes back NaN, as the reference's compiled solve gives
-    it."""
+    it.
+
+    With ``mesh`` (``pta.shard.Mesh``) the batch, padded to a multiple
+    of the mesh's ``axis`` (``pad_batch``), is split into contiguous
+    per-device blocks of pulsars (``compile_with_plan``): one upload per
+    block, the solve issued on every block on its device, then the read
+    back; ``device`` is not used, and the dispatch rides the breaker of
+    the mesh's first device. The first P rows come back."""
     from pint_tpu_torch import obs
+    from pint_tpu_torch.pta.shard import mesh_devices, run_batch
     from pint_tpu_torch.runtime import get_supervisor
 
-    if mesh is not None:
-        raise NotImplementedError(MESH_REFUSAL)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else \
+        mesh_devices(mesh, axis)[0]
 
     def run():
-        st = upload(stacked, STACK_KEYS, dev)
-        return read_back(_solve_one(*(st[k] for k in STACK_KEYS)))
+        return run_batch(_solve_one, stacked, STACK_KEYS,
+                         name="pta.batch_solve", ndims_out=_PTA_NDIMS_OUT,
+                         mesh=mesh, axis=axis, device=dev)
 
-    with obs.span("pta.solve", npulsars=len(stacked["M"])):
+    with obs.span("pta.solve", npulsars=len(stacked["M"]),
+                  sharded=mesh is not None):
         return get_supervisor().dispatch(
             run, key="pta.batch", device=dev,
             fallback=lambda: pta_solve_np(stacked))
 
 
 def fit_pta(pairs: Sequence[Tuple], maxiter: int = 2, mesh=None,
-            track_mode=None, device=None) -> List[dict]:
+            track_mode=None, device=None,
+            axis: str = "pulsar") -> List[dict]:
     """Batch-fit [(toas, model), ...]: each iteration assembles every
     pulsar's linearized problem (``build_problem``, on each model's
     device), then solves ALL of them in one batched call on ``device``
@@ -304,9 +337,12 @@ def fit_pta(pairs: Sequence[Tuple], maxiter: int = 2, mesh=None,
     {chi2, errors}; models updated in place) whose ``.stats`` attribute
     is the scoreboard: total TOAs, wall time, TOAs/sec, device solve
     time and the seconds spent building problems. ``fit_pta.last_stats``
-    mirrors it (last call wins)."""
+    mirrors it (last call wins). With ``mesh`` each solve is split
+    over the mesh's ``axis`` (``pta_solve``)."""
     if mesh is not None:
-        raise NotImplementedError(MESH_REFUSAL)
+        from pint_tpu_torch.pta.shard import mesh_devices
+
+        mesh_devices(mesh, axis)
     t_start = time.perf_counter()
     solve_s = build_s = 0.0
 
@@ -318,7 +354,7 @@ def fit_pta(pairs: Sequence[Tuple], maxiter: int = 2, mesh=None,
         build_s += time.perf_counter() - t0
         stacked = stack_problems(problems)
         t0 = time.perf_counter()
-        out = pta_solve(stacked, device=device)
+        out = pta_solve(stacked, device=device, mesh=mesh, axis=axis)
         solve_s += time.perf_counter() - t0
         return problems, out
 

@@ -11,8 +11,10 @@ the unit of work:
   the CPU oracle);
 - ``metrics``: the plane's registry-backed counters
   (``block_assemblies`` / ``hd_outer_solves`` / ``gwb_solves``);
-- ``shard``: ``pad_batch``. Mesh compilation (``batch_sharding``,
-  ``compile_with_plan``) stays refused on one GPU (ROADMAP.md).
+- ``shard``: the device mesh (``Mesh``) and the block plan of a batch
+  kernel over it (``batch_sharding``, ``compile_with_plan``,
+  ``pad_batch``): one process issues each contiguous block of pulsars
+  on its device.
 """
 
 from pint_tpu_torch.pta.gwb import (  # noqa: F401
@@ -24,9 +26,9 @@ from pint_tpu_torch.pta.gwb import (  # noqa: F401
     pulsar_positions,
 )
 from pint_tpu_torch.pta.metrics import PTAMetrics  # noqa: F401
-from pint_tpu_torch.pta.shard import pad_batch  # noqa: F401
+from pint_tpu_torch.pta.shard import Mesh, pad_batch  # noqa: F401
 
 __all__ = [
-    "GWBLikelihood", "PTAMetrics", "gwb_basis", "gwb_loglik_np",
+    "GWBLikelihood", "Mesh", "PTAMetrics", "gwb_basis", "gwb_loglik_np",
     "gwb_phi", "hd_matrix", "pad_batch", "pulsar_positions",
 ]

@@ -16,7 +16,8 @@ builds), ``U = blockdiag(U_a)`` stacks a COMMON-span Fourier basis,
 ``phi_g`` is the common-process power-law PSD (``models.noise.powerlaw``)
 and ``Gamma`` the (Npsr, Npsr) HD overlap-reduction matrix.
 
-Blocked Woodbury, two stages, both float64 torch on one device:
+Blocked Woodbury, two stages, both float64 torch on one device (with a
+device mesh, the inner stage per block of pulsars on each device):
 
 - inner (every pulsar of the batch at once): from the same preconditioned
   joint-normal Cholesky the batch solve runs, ``A_a = U_a^T D_a^{-1}
@@ -53,17 +54,16 @@ from pint_tpu_torch.models.noise import (
     powerlaw,
 )
 from pint_tpu_torch.parallel.pta import (
-    MESH_REFUSAL,
     STACK_KEYS,
     PulsarProblem,
     _assemble_normal,
     _outer,
     build_problem,
-    read_back,
     stack_problems,
     upload,
 )
 from pint_tpu_torch.pta.metrics import PTAMetrics
+from pint_tpu_torch.pta.shard import mesh_devices, run_batch
 
 __all__ = ["GWBLikelihood", "gwb_basis", "gwb_blocks_np",
            "gwb_loglik_np", "gwb_phi", "gwb_sweep_driver",
@@ -160,6 +160,10 @@ def gwb_phi(fcols: np.ndarray, tspan: float, log10_A: float,
 
 
 # -- inner stage: per-pulsar blocks (torch batch + numpy mirror) -------
+
+# ranks of the block assembly's outputs (checked by its block plan)
+_BLOCK_NDIMS_OUT = (3, 2, 1, 1)
+
 
 def _gwb_block_batch(M, F, phi, r, nvec, valid, pvalid, U):
     """Every pulsar's GWB coupling blocks from the shared joint-normal
@@ -358,7 +362,11 @@ class GWBLikelihood:
     linearized problems.
 
     Blocks are assembled ONCE on ``device`` (the GPU by default; the
-    hyperparameters never touch the inner stage), then ``loglik_grid``
+    hyperparameters never touch the inner stage), or, with ``mesh``
+    (``pta.shard.Mesh``), per contiguous block of pulsars on each
+    device of the mesh's ``axis`` with zero cross-block traffic (the
+    mesh's first device is then the default ``device``, where the
+    outer stage runs), then ``loglik_grid``
     sweeps (log10_A, gamma) points through chunks of the outer Schur
     system. Every device call rides the dispatch supervisor
     (``supervisor``, the process-global one by default) with the numpy
@@ -370,11 +378,13 @@ class GWBLikelihood:
                  positions: Optional[np.ndarray] = None,
                  gamma_matrix: Optional[np.ndarray] = None,
                  nfreq: int = 10, device=None, mesh=None,
+                 axis: str = "pulsar",
                  metrics: Optional[PTAMetrics] = None,
                  supervisor=None, track_mode=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_REFUSAL)
-        self.device = resolve_device(device)
+        self.mesh, self.axis = mesh, axis
+        home = None if mesh is None else mesh_devices(mesh, axis)[0]
+        self.device = resolve_device(device) \
+            if home is None or device is not None else home
         if problems is None:
             if pairs is None:
                 raise ValueError("need pairs or problems")
@@ -432,7 +442,9 @@ class GWBLikelihood:
     def build_blocks(self, pool: str = "device", force: bool = False):
         """Assemble (A, x, rdr_sum, ld_sum) as host arrays in ONE
         supervised dispatch (key ``pta.gwb_blocks``): on the device, one
-        upload, one batched assembly and one read back, with the numpy
+        upload, one batched assembly and one read back (over a mesh, one
+        upload and one assembly per block of pulsars, every block issued
+        before the read back, the first P rows kept), with the numpy
         mirror as host failover; with ``pool="host"``, the mirror,
         pinned. Cached: the GWB hyperparameters never reach this stage.
         ``blocks_info['used_pool']`` labels who served ("device",
@@ -443,11 +455,13 @@ class GWBLikelihood:
             return self._blocks
         fell_over = []
 
+        mesh, axis = self.mesh, self.axis
+
         def run():
-            arrs = dict(self.stacked, U=self.U)
-            keys = STACK_KEYS + ("U",)
-            st = upload(arrs, keys, self.device)
-            return read_back(_gwb_block_batch(*(st[k] for k in keys)))
+            return run_batch(_gwb_block_batch, dict(self.stacked, U=self.U),
+                             STACK_KEYS + ("U",), name="pta.gwb_blocks",
+                             ndims_out=_BLOCK_NDIMS_OUT, mesh=mesh,
+                             axis=axis, device=self.device)
 
         def host():
             return gwb_blocks_np(self.stacked, self.U)
@@ -456,7 +470,8 @@ class GWBLikelihood:
             fell_over.append(True)
             return host()
 
-        with obs.span("pta.gwb_blocks", npulsars=self.npulsars, m=self.m):
+        with obs.span("pta.gwb_blocks", npulsars=self.npulsars, m=self.m,
+                      sharded=mesh is not None):
             if pool == "host":
                 A, x, rdr, ld = self._sup().dispatch(
                     host, key="pta.gwb_blocks", pinned=True)

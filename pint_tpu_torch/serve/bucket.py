@@ -9,7 +9,8 @@ Every request is padded to a shape CLASS:
   columns are identity-pinned / unit-prior, exactly the
   ``parallel.pta`` masking contract);
 - the batch (request) axis pads to a power of two up to
-  ``config.serve_max_batch``.
+  ``config.serve_max_batch`` (to a mesh multiple when the engine splits
+  the batch axis over a device mesh).
 
 The reference bounds XLA compiles by the class count. Eager torch
 compiles nothing, so the classes bound something else here: the shapes
@@ -34,8 +35,9 @@ import numpy as np
 import torch
 
 from pint_tpu_torch import resolve_device
-from pint_tpu_torch.parallel.pta import MESH_REFUSAL, STACK_KEYS, \
-    _solve_one, pta_solve_np, read_back, stack_problems, upload
+from pint_tpu_torch.parallel.pta import STACK_KEYS, _PTA_NDIMS_OUT, \
+    _solve_one, pta_solve_np, read_back, stack_problems
+from pint_tpu_torch.pta.shard import mesh_devices, run_batch
 
 __all__ = ["bucket_for", "pad_dim", "pow2_ceil", "ExecutableCache",
            "gls_shape_class", "phase_shape_class",
@@ -45,6 +47,8 @@ __all__ = ["bucket_for", "pad_dim", "pow2_ceil", "ExecutableCache",
 PHASE_KEYS = ("coeffs", "tmid", "rpi", "rpf", "f0", "mjds", "valid")
 APPEND_KEYS = ("cm", "Sig", "b", "u", "scal", "M", "F", "phi", "r0",
                "nvec", "valid", "pvalid", "submean", "cold")
+# ranks of the append program's outputs (its block plan under a mesh)
+_APPEND_NDIMS_OUT = (2, 3, 2, 2, 2, 2, 3, 1, 1, 1, 1)
 # inputs of a masking-safe zero batch that must be ONE, not zero (the
 # padded-slot convention of stack_problems: unit nvec and phi)
 _UNIT_INPUTS = {"gls": ("phi", "nvec"), "phase": ()}
@@ -176,19 +180,24 @@ class ExecutableCache:
     ``device`` (the GPU by default): watchdog deadline + host failover
     (the numpy mirror for GLS and append, ``PolycoEntry.abs_phase`` for
     phase), so a wedged card can never hang a serve batch — only slow
-    it down, labeled. ``mesh=`` raises: sharding the batch axis over
-    several GPUs is not ported (``parallel.pta.MESH_REFUSAL``)."""
+    it down, labeled. With ``mesh`` (``pta.shard.Mesh``) the GLS,
+    phase and append programs split the batch axis into contiguous
+    per-device blocks over the mesh's ``axis`` (``_run``); ``device``
+    then defaults to the mesh's first device, whose breaker the
+    dispatches consult. Each engine owns its cache, so a mesh engine and
+    a local engine never share an entry, and the warm-restart store is
+    off under a mesh, as in the reference."""
 
     def __init__(self, mesh=None, axis: str = "pulsar",
                  supervisor=None, aot_dir=None, device=None):
         from pint_tpu_torch.config import donation_enabled
         from pint_tpu_torch.runtime import get_supervisor
 
-        if mesh is not None:
-            raise NotImplementedError(MESH_REFUSAL)
-        self.mesh = None
+        self.mesh = mesh
         self.axis = axis
-        self.device = resolve_device(device)
+        home = None if mesh is None else mesh_devices(mesh, axis)[0]
+        self.device = resolve_device(device) \
+            if home is None or device is not None else home
         # $PINT_TPU_DONATE is parsed, but eager torch has no buffer
         # donation: every class program allocates its outputs, and the
         # snapshot records donation off whatever the knob says
@@ -208,7 +217,7 @@ class ExecutableCache:
         # recorded right after its first real device dispatch, and a
         # fresh engine primes the recorded classes at construction
         self.aot = None
-        if aot_dir:
+        if aot_dir and mesh is None:
             from pint_tpu_torch.serve.journal import AotStore
 
             self.aot = AotStore(aot_dir, donation=self.donation,
@@ -248,6 +257,12 @@ class ExecutableCache:
         """None: eager torch keeps no compiled-executable cache (the
         reference returns None too when jax exposes no cache size)."""
         return None
+
+    def _run(self, fn, arrs: dict, keys, name: str, ndims_out):
+        """One batch of the class program ``fn`` on the engine's device
+        or, under a mesh, its block plan (``pta.shard.run_batch``)."""
+        return run_batch(fn, arrs, keys, name=name, ndims_out=ndims_out,
+                         mesh=self.mesh, axis=self.axis, device=self.device)
 
     def _primers(self) -> dict:
         """``AotStore.restore_all``'s primers: run the class program
@@ -400,9 +415,9 @@ class ExecutableCache:
         def run():
             # upload + solve + read back on the guarded worker so the
             # deadline covers completion, not just enqueue
-            st = upload(stacked, STACK_KEYS, self.device)
             fn = restored if restored is not None else self._gls
-            return read_back(fn(*(st[k] for k in STACK_KEYS)))
+            return self._run(fn, stacked, STACK_KEYS, "serve.gls",
+                             _PTA_NDIMS_OUT)
 
         dispatch_key = f"serve.gls/{'/'.join(str(x) for x in key)}"
         export_cb, ledger_cb = self._class_callbacks(
@@ -454,9 +469,8 @@ class ExecutableCache:
             restored = self.aot.get("phase", key)
 
         def run():
-            st = upload(arrs, PHASE_KEYS, self.device)
             fn = restored if restored is not None else self._phase
-            return read_back(fn(*(st[k] for k in PHASE_KEYS)))
+            return self._run(fn, arrs, PHASE_KEYS, "serve.phase", (2, 2))
 
         def host():
             pi = np.zeros((Pb, nb))
@@ -551,12 +565,15 @@ class ExecutableCache:
             self._append = append_kernel()
         fn = self._append
 
-        def run():
-            st = upload(arrs, APPEND_KEYS, self.device)
-            out = fn(*(st[n_] for n_ in APPEND_KEYS), budget, 1e-13)
+        def program(*a):
             # ok and iters ride the one read back as float64
-            return _append_host(read_back(
-                [o.to(torch.float64) for o in out]))
+            return tuple(o.to(torch.float64)
+                         for o in fn(*a, budget, 1e-13))
+
+        def run():
+            return _append_host(self._run(
+                program, arrs, APPEND_KEYS, f"serve.append/{budget}",
+                _APPEND_NDIMS_OUT))
 
         def host():
             outs = [append_slot_np(

@@ -495,12 +495,9 @@ class GWBRequest(Request):
     def ensure_likelihood(self, mesh=None, axis: str = "pulsar",
                           supervisor=None, device=None):
         """Build (or return the cached) array likelihood on ``device``
-        (the engine's; the GPU by default). ``mesh=`` raises: sharding
-        the pulsar axis over several GPUs is not ported."""
-        if mesh is not None:
-            from pint_tpu_torch.parallel.pta import MESH_REFUSAL
-
-            raise NotImplementedError(MESH_REFUSAL)
+        (the engine's; the GPU by default). The engine's ``mesh``
+        threads through, so the inner block assembly is split over its
+        pulsar ``axis``."""
         if self.likelihood is None:
             from pint_tpu_torch.pta.gwb import GWBLikelihood
 
@@ -509,7 +506,8 @@ class GWBRequest(Request):
                     pairs=self.pairs, problems=self.problems,
                     positions=self.positions,
                     gamma_matrix=self.gamma_matrix, nfreq=self.nfreq,
-                    device=device, supervisor=supervisor,
+                    device=device, mesh=mesh, axis=axis,
+                    supervisor=supervisor,
                     track_mode=self.track_mode)
         return self.likelihood
 

@@ -123,9 +123,12 @@ class ServeEngine:
     (``metrics.compile_count``) is self-contained.
 
     ``device`` is where every device-pool dispatch runs (None means
-    "cuda"; a CPU engine passes "cpu"). ``mesh=`` raises: sharding the
-    batch axis over several GPUs is not ported
-    (``parallel.pta.MESH_REFUSAL``). ``aot_dir``/``journal`` arm the
+    "cuda"; a CPU engine passes "cpu"). ``mesh`` (``pta.shard.Mesh``)
+    splits every GLS, phase and append dispatch's batch axis into
+    contiguous per-device blocks over the mesh's ``axis``, and GWB
+    requests assemble their blocks the same way; batch slots then pad
+    to a mesh multiple, and ``device`` defaults to the mesh's first
+    device. ``aot_dir``/``journal`` arm the
     crash-safe restart path (defaults from ``$PINT_TPU_AOT_DIR`` /
     ``$PINT_TPU_JOURNAL``).
     """
@@ -145,12 +148,12 @@ class ServeEngine:
                  pools: Optional[Tuple[str, ...]] = None,
                  device=None):
         from pint_tpu_torch import config
-        from pint_tpu_torch.parallel.pta import MESH_REFUSAL
+        from pint_tpu_torch.pta.shard import mesh_devices
         from pint_tpu_torch.runtime import DispatchSupervisor
 
-        if mesh is not None:
-            raise NotImplementedError(MESH_REFUSAL)
-        self.device = resolve_device(device)
+        home = None if mesh is None else mesh_devices(mesh, axis)[0]
+        self.device = resolve_device(device) \
+            if home is None or device is not None else home
 
         self.window_s = config.serve_window_s() \
             if window_s is None else float(window_s)
@@ -161,7 +164,7 @@ class ServeEngine:
         self.bucket_edges = tuple(sorted(
             config.serve_bucket_edges() if bucket_edges is None
             else bucket_edges))
-        self.mesh = None
+        self.mesh = mesh
         self.axis = axis
         # pipelined drain: keep up to this many sealed
         # units IN FLIGHT while draining — unit k+1 is issued on the
@@ -187,7 +190,7 @@ class ServeEngine:
                                      pools=pools, device=self.device)
         if aot_dir is None:
             aot_dir = config.aot_dir()
-        self.cache = ExecutableCache(axis=axis,
+        self.cache = ExecutableCache(mesh=mesh, axis=axis,
                                      supervisor=self.supervisor,
                                      aot_dir=aot_dir,
                                      device=self.device)
@@ -747,7 +750,8 @@ class ServeEngine:
             # device; its supervisor threads through so block assembly
             # counts against this deployment's dispatch counters
             with annotate("serve.assemble"):
-                lk = r.ensure_likelihood(axis=self.axis,
+                lk = r.ensure_likelihood(mesh=self.mesh,
+                                         axis=self.axis,
                                          supervisor=self.supervisor,
                                          device=self.device)
             return gwb_shape_class(lk.npulsars, lk.m,
@@ -772,8 +776,12 @@ class ServeEngine:
         return key, False
 
     def _batch_pad(self, P: int) -> int:
-        """Pad the batch axis to a power of two so batch sizes, like
-        TOA counts, land on a bounded set of class shapes."""
+        """Pad the batch axis to a power of two (under a mesh of m
+        devices, m times a power of two) so batch sizes, like TOA
+        counts, land on a bounded set of class shapes."""
+        if self.mesh is not None:
+            m = self.mesh.shape[self.axis]
+            return m * pow2_ceil(-(-P // m))
         return pow2_ceil(P)
 
     def _dispatch_begin(self, key, grp: List, sync: bool = False):

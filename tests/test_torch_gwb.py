@@ -285,9 +285,20 @@ def test_likelihood_counts_its_work(array3):
 
 
 def test_refusals_name_item_11(like3):
+    """What the likelihood refuses. ``mesh=`` (once refused as item 11)
+    takes a ``pta.shard.Mesh``: a CPU mesh gives the plain blocks
+    (tests/test_torch_mesh_batch.py holds them at the reference's
+    limits), anything else raises."""
+    from pint_tpu_torch.pta.shard import Mesh
+
     kw = dict(problems=like3.problems, nfreq=2, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         GWBLikelihood(mesh=object(), **kw)
+    mesh = Mesh(np.array(["cpu"] * 4), ("pulsar",))
+    got = GWBLikelihood(mesh=mesh, **kw).build_blocks()
+    want = GWBLikelihood(**kw).build_blocks()
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=1e-12)
     # supervisor= is no longer refused: the likelihood's dispatches
     # ride the given supervisor
     from pint_tpu_torch.runtime import DispatchSupervisor

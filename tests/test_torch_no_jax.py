@@ -20,7 +20,8 @@ and the analysis plane (every script, pintk and analysis module imports,
 none of them importing Tk or matplotlib; a Pulsar's plot arrays under a
 Sanitizer, compare_parfiles, a T2 conversion, a G17 and a G9 finding),
 and so do the precision routes (an anchored step and the anchored,
-float32-Jacobian, float32-Gram step)."""
+float32-Jacobian, float32-Gram step), and so does the device mesh (a
+TOA-sharded step and a batch solve over a CPU pulsar mesh)."""
 
 import os
 import subprocess
@@ -95,7 +96,8 @@ for name in ("pint_tpu_torch.pta.gwb", "pint_tpu_torch.parallel.pta",
              "pint_tpu_torch.analysis.sanitizer",
              "pint_tpu_torch.analysis.cfg",
              "pint_tpu_torch.analysis.graftflow",
-             "pint_tpu_torch.analysis.precision_registry"):
+             "pint_tpu_torch.analysis.precision_registry",
+             "pint_tpu_torch.pta.shard"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "pint_tpu")
@@ -322,6 +324,15 @@ for flags in (dict(anchored=True),
               dict(anchored=True, jac_f32=True, matmul_f32=True)):
     rstep, rargs, _ = build_fit_step(model, toas, **flags)
     assert np.isfinite(float(rstep(*rargs)[2]))
+from pint_tpu_torch.parallel import build_sharded_fit_step
+from pint_tpu_torch.pta.shard import Mesh
+
+mesh = Mesh(np.array(["cpu"] * 4), ("toa",))
+sstep, sargs, _ = build_sharded_fit_step(model, toas, mesh)
+assert np.isfinite(float(sstep(*sargs)[2]))
+pmesh = Mesh(np.array(["cpu"] * 2), ("pulsar",))
+assert np.array_equal(pta_solve(stack_problems(probs), mesh=pmesh)[2],
+                      pta_solve(stack_problems(probs), device="cpu")[2])
 gui = sorted(m for m in sys.modules
              if m.split(".")[0] in ("tkinter", "_tkinter", "matplotlib"))
 assert not gui, gui

@@ -15,9 +15,8 @@ route agree with the reference's to the step limits of test_torch_fit.py
 (the two libraries' trigonometric functions round some delays one ulp
 apart, ~3e-14 s); a float32 route agrees within 1e-4 sigma.
 
-Not ported: test_anchored.py::test_anchored_sharded_equals_unsharded. The
-port refuses ``mesh=`` on one GPU (ROADMAP.md §1), so there is no
-sharded step to hold against the unsharded one.
+test_anchored.py::test_anchored_sharded_equals_unsharded is ported with
+the sharded step, in tests/test_torch_mesh.py.
 """
 
 import copy

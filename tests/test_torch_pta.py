@@ -201,9 +201,18 @@ def test_gls_helpers_batch_safe():
 
 
 def test_refusals_name_item_11(ref_stacked, trio):
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """``mesh=`` (once refused as item 11) takes a ``pta.shard.Mesh``: the
+    trio over a 4-block CPU mesh (one padded slot) is the plain solve
+    bitwise; anything else raises."""
+    from pint_tpu_torch.pta.shard import Mesh
+
+    mesh = Mesh(np.array(["cpu"] * 4), ("pulsar",))
+    for a, b in zip(pta_solve(ref_stacked, mesh=mesh),
+                    pta_solve(ref_stacked, device=CPU)):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(TypeError, match="Mesh"):
         pta_solve(ref_stacked, device=CPU, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         fit_pta([], mesh=object())
 
 

@@ -26,8 +26,9 @@ Numerics:
   differently from the unbatched ``cholesky_solve``) and to the numpy
   mirror ``append_slot_np`` within 1e-9.
 
-``test_mesh_refused`` replaces the reference's mesh-engine case: the port
-has no device mesh and refuses ``mesh=`` (parallel.pta.MESH_REFUSAL).
+The reference's mesh-engine case is tests/test_torch_mesh_batch.py's
+``test_mesh_engine_matches_local``; ``test_mesh_refused`` holds what
+``mesh=`` refuses: anything but a ``pta.shard.Mesh``.
 """
 
 import contextlib
@@ -703,20 +704,30 @@ def test_threaded_engine_coalesces(port_zoo, problems, ref_served):
 
 
 def test_mesh_refused(port_zoo):
-    """The port has no device mesh: ServeEngine, ExecutableCache and
-    GWBRequest.ensure_likelihood refuse ``mesh=`` (the reference's
-    mesh-engine case)."""
+    """ServeEngine, ExecutableCache and GWBRequest.ensure_likelihood take
+    a ``pta.shard.Mesh`` (a CPU mesh's engine serves a fit step as the
+    local engine does) and refuse anything else."""
     import pint_tpu_torch.serve as S
+    from pint_tpu_torch.pta.shard import Mesh
     from pint_tpu_torch.serve.bucket import ExecutableCache
 
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         S.ServeEngine(mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         ExecutableCache(mesh=object(), device=CPU)
     req = S.GWBRequest(pairs=[p[::-1] for p in port_zoo[:2]],
                        log10A=[-14.0], gamma=[13 / 3])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         req.ensure_likelihood(mesh=object(), device=CPU)
+    m, t = port_zoo[0]
+    mesh = Mesh(np.array(["cpu"] * 2), ("pulsar",))
+    got = []
+    for kw in ({"mesh": mesh}, {"device": CPU}):
+        eng = S.ServeEngine(**kw)
+        got.append(eng.submit(S.FitStepRequest(t, m)))
+        eng.flush()
+    a, b = (f.result(timeout=0) for f in got)
+    np.testing.assert_allclose(a.dparams, b.dparams, rtol=1e-9, atol=1e-18)
 
 
 def test_fitter_auto_serve_route():
