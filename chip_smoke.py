@@ -1501,9 +1501,24 @@ def profile_window(fn, n: int) -> tuple:
     return prof, wall_ms, spans, work, launches
 
 
+def busy_us(work) -> float:
+    """Microseconds of the union of the (start, end, name) device
+    intervals: overlapping streams count once."""
+    total, end = 0.0, None
+    for a, b, _ in sorted(work):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
 def device_busy(fn, label: str) -> dict:
     """One call of `fn` under the profiler: its wall, device busy time
-    (kernels, copies and sets), idle share and kernel launches."""
+    (the union of the intervals of kernels, copies and sets), idle share
+    and kernel launches."""
     _, wall_ms, _, work, launches = profile_window(fn, 1)
     out = {"wall_ms": wall_ms, "busy_ms": None, "idle_share": None,
            "launches": launches}
@@ -1511,7 +1526,7 @@ def device_busy(fn, label: str) -> dict:
         print(f"{label}: {launches} kernel launches; device busy not "
               "measured (the profiler recorded no device time)")
         return out
-    busy = sum(b - a for a, b, _ in work) / 1e3
+    busy = busy_us(work) / 1e3
     out.update(busy_ms=busy, idle_share=1 - busy / wall_ms)
     print(f"{label}: profiled call {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms (idle share {out['idle_share']:.4f}), "
@@ -1552,8 +1567,8 @@ def fit_time(step, args, label: str, reps: int = 10) -> dict:
     nsteps = 1
     prof, wall_ms, spans, work, launches = profile_window(
         lambda: step(*args), nsteps)
-    busy_us = sum(b - a for a, b, _ in work)
-    out["busy_share"] = busy_us / 1e3 / wall_ms if work else None
+    busy = busy_us(work)
+    out["busy_share"] = busy / 1e3 / wall_ms if work else None
     out["launches_per_step"] = launches / nsteps
     out["window_ms"] = wall_ms / nsteps
     stages = {}
@@ -1578,7 +1593,7 @@ def fit_time(step, args, label: str, reps: int = 10) -> dict:
     if work:
         print(f"fit-time, {label}: a {nsteps}-step profiler window, "
               f"{out['window_ms']:.3f} ms a step: device busy "
-              f"{busy_us / 1e3 / nsteps:.3f} ms a step (kernels, copies "
+              f"{busy / 1e3 / nsteps:.3f} ms a step (kernels, copies "
               f"and sets), busy share {out['busy_share']:.4f} (idle share "
               f"{1 - out['busy_share']:.4f}); "
               f"{out['launches_per_step']:.0f} kernel launches a step")
@@ -4643,7 +4658,7 @@ def supervision_cost(fn, key: str, dev, label: str, reps: int = 6) -> dict:
                       if not n.startswith(("Memcpy", "Memset")))
         o = out[tag]
         if kernels >= o["kernels"]:
-            busy = sum(b - a for a, b, _ in work) / 1e3
+            busy = busy_us(work) / 1e3
             o.update(kernels=kernels, busy_ms=busy, profiled_ms=wall_ms,
                      idle_share=1 - busy / wall_ms if work else None)
         o["launches"] = max(o["launches"], launches)

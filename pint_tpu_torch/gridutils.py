@@ -12,6 +12,12 @@ at 10,000 TOAs and 39 columns on an H100, PERF.md) fits a stated memory
 budget. Every node is computed alone inside the vmapped batch, so the
 chunking changes no bit of the result.
 
+Spans (``obs.span``; recorded with tracing on or a profiler session
+open): ``grid.chisq`` a call (``nodes``, ``chunk``), holding
+``grid.build`` (the model's copy, the freezing and ``build_fit_step``),
+``grid.chunk`` for each chunk's issue and ``grid.read`` (the host read
+of every chunk's values).
+
 The refit step takes the precision routes from their environment
 variables ($PINT_TPU_ANCHORED, $PINT_TPU_JAC, $PINT_TPU_GLS_MATMUL). The
 gridded parameters vary through the step's frozen slots, which the
@@ -76,15 +82,23 @@ def _eval_nodes(model, toas, parnames, nodes: np.ndarray,
                 maxiter: int) -> np.ndarray:
     """The refit chi2 at every row of ``nodes`` (S, G), vmapped over
     chunks of ``config.grid_chunk`` nodes."""
-    from pint_tpu_torch import config
+    from pint_tpu_torch import config, obs
 
-    eval_node, nparams = _build_grid_eval(model, toas, parnames, maxiter)
-    k = config.grid_chunk(toas.ntoas, nparams)
-    nodes_t = torch.as_tensor(nodes, dtype=torch.float64,
-                              device=model.device)
-    batch = torch.func.vmap(eval_node)
-    out = [batch(nodes_t[i:i + k]) for i in range(0, len(nodes_t), k)]
-    return torch.cat(out).cpu().numpy()
+    with obs.span("grid.chisq", nodes=len(nodes)) as sp:
+        with obs.span("grid.build"):
+            eval_node, nparams = _build_grid_eval(model, toas, parnames,
+                                                  maxiter)
+        k = config.grid_chunk(toas.ntoas, nparams)
+        sp.set(chunk=k)
+        nodes_t = torch.as_tensor(nodes, dtype=torch.float64,
+                                  device=model.device)
+        batch = torch.func.vmap(eval_node)
+        out = []
+        for i in range(0, len(nodes_t), k):
+            with obs.span("grid.chunk", first=i):
+                out.append(batch(nodes_t[i:i + k]))
+        with obs.span("grid.read"):
+            return torch.cat(out).cpu().numpy()
 
 
 def grid_chisq(model, toas, parnames: Sequence[str],

@@ -20,10 +20,15 @@ wall decomposition, profiler windows) and ``obs.slo`` (the burn-rate
 watchdog).
 
 The module-level helpers below are THE instrumentation surface the
-rest of the port uses — ``span()``/``event()`` check one bool before
-allocating anything, so with tracing off ($PINT_TPU_TRACE unset, no
-stream, no flight dir) every instrumentation point costs an
-attribute read and a branch.
+rest of the port uses — ``span()``/``event()`` ask ``Tracer.active``
+(the tracer's bool, then torch's profiler flag) before allocating
+anything, so with tracing off ($PINT_TPU_TRACE unset, no stream, no
+flight dir) and no profiler session open every instrumentation point
+costs one method call and a branch. An open ``torch.profiler``
+session turns recording on for its life: the spans land in the ring
+and, on a thread the profiler records, in its trace as
+``record_function`` ranges of the same name, on the profiler's
+real-time axis (``obs.tracer``).
 
 Configuration is lazy: the first use reads ``config.trace_enabled``
 / ``trace_stream_path`` / ``flight_dir`` / ``trace_ring_size``;
@@ -175,25 +180,26 @@ def reset():
 
 def span(name: str, parent=None, trace=None, **attrs):
     """Context-managed span under the current context (see
-    ``Tracer.span``); the shared no-op when tracing is off."""
+    ``Tracer.span``); the shared no-op when tracing is off and no
+    profiler session is open."""
     t = _TRACER
     if t is None:
         _ensure()
         t = _TRACER
-    if not t.recording:
+    if not t.active():
         return NOOP_SPAN
     return t.span(name, parent=parent, trace=trace, **attrs)
 
 
-def open_span(name: str, parent=None, trace=None, **attrs):
+def open_span(name: str, parent=None, trace=None, at=None, **attrs):
     """Open a held span (ends explicitly; see ``Tracer.open_span``)."""
     t = _TRACER
     if t is None:
         _ensure()
         t = _TRACER
-    if not t.recording:
+    if not t.active():
         return NOOP_SPAN
-    return t.open_span(name, parent=parent, trace=trace, **attrs)
+    return t.open_span(name, parent=parent, trace=trace, at=at, **attrs)
 
 
 def open_root(name: str, label: str = "t", **attrs):
@@ -204,7 +210,7 @@ def open_root(name: str, label: str = "t", **attrs):
     if t is None:
         _ensure()
         t = _TRACER
-    if not t.recording:
+    if not t.active():
         return NOOP_SPAN
     return t.open_span(name, trace=t.new_trace(label), **attrs)
 
@@ -214,27 +220,31 @@ def event(name: str, **attrs):
     if t is None:
         _ensure()
         t = _TRACER
-    if t.recording:
+    if t.active():
         t.record_event(name, **attrs)
 
 
 def record_span(name: str, t0_us: float, t1_us: float, parent=None,
                 trace=None, **attrs):
+    """A retroactive span from two stamps on the ring's axis
+    (``Tracer.perf_us``/``monotonic_us``)."""
     t = _TRACER
     if t is None:
         _ensure()
         t = _TRACER
-    if t.recording:
+    if t.active():
         t.record_span(name, t0_us, t1_us, parent=parent, trace=trace,
                       **attrs)
 
 
 def recording() -> bool:
+    """True while spans are recorded: the tracer is on, or a profiler
+    session is open."""
     t = _TRACER
     if t is None:
         _ensure()
         t = _TRACER
-    return t.recording
+    return t.active()
 
 
 def flight_dump(reason: str, **extra) -> Optional[str]:
@@ -246,9 +256,10 @@ def flight_dump(reason: str, **extra) -> Optional[str]:
     return f.dump(reason, **extra)
 
 
-def export(path: str) -> int:
-    """Export the global tracer's ring as Chrome trace-event JSON."""
-    return get_tracer().export(path)
+def export(path: str, base_us: float = 0.0) -> int:
+    """Export the global tracer's ring as Chrome trace-event JSON (see
+    ``Tracer.export`` for ``base_us``)."""
+    return get_tracer().export(path, base_us)
 
 
 def status() -> dict:

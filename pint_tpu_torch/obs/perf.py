@@ -26,10 +26,11 @@ bounds and rate limits are the reference's).
   achieved FLOP/s, bytes/s, arithmetic intensity and the achieved
   fraction against ``PEAKS`` from ledger cost / a measured wall, and
   publish them as per-key gauges. ``PEAKS`` holds one entry, "cuda":
-  NVIDIA's H100 SXM data-sheet peaks (67 TFLOP/s, 3.35 TB/s; a card
-  below its 700 W limit runs slower). A device without an entry gets no
-  achieved fraction: a fabricated host peak would turn a latency-bound
-  number into a utilization claim.
+  NVIDIA's H100 SXM data-sheet peaks (67 TFLOP/s, float64 on the
+  tensor cores, the ceiling of any float64 work; 34 TFLOP/s outside
+  them; 3.35 TB/s; a card below its 700 W limit runs slower). A device
+  without an entry gets no achieved fraction: a fabricated host peak
+  would turn a latency-bound number into a utilization claim.
 
 - **dispatch-wall decomposition arming**: ``enabled()`` is the one
   branch the supervisor consults before splitting a guarded dispatch's
@@ -44,15 +45,18 @@ bounds and rate limits are the reference's).
   per episode by the per-reason rate limit, never raising into the
   incident path). Every window writes ``window.json`` (the triggering
   reason, the flight-dump path, the causal span ids), the device trace
-  (``trace.json``, ``export_chrome_trace``) and, with tracing on, the
-  span ring (``spans.json``). torch's profiler is thread-local: one
-  daemon thread per window starts it, waits for the stop and stops it,
-  and the caller waits for each under a join timeout, so a wedged
-  device degrades the window to a labelled ``start_timeout`` or
-  ``abandoned`` status, never a hung caller. Where the installed torch
-  offers it, the window records the CPU ops of every thread
-  (``profile_all_threads``); device kernels are traced process-wide.
-  Windows add no dispatch: no dispatch path consults the profiler.
+  (``trace.json``, ``export_chrome_trace``) and the span ring
+  (``spans.json``; the open window makes the ring record, and its
+  ``ts`` are moved onto ``trace.json``'s ``baseTimeNanoseconds`` axis,
+  which its ``otherData`` states, so the two files' events merge).
+  torch's profiler is thread-local: one daemon thread per window starts
+  it, waits for the stop and stops it, and the caller waits for each
+  under a join timeout, so a wedged device degrades the window to a
+  labelled ``start_timeout`` or ``abandoned`` status, never a hung
+  caller. Where the installed torch offers it, the window records the
+  CPU ops of every thread (``profile_all_threads``); device kernels are
+  traced process-wide. Windows add no dispatch: no dispatch path
+  consults the profiler.
 
 Everything host-side here is stdlib + the obs registry; torch is
 imported only inside the probe and the window thread. ``obs.reset()``
@@ -71,13 +75,13 @@ from typing import Optional
 
 __all__ = ["CompileLedger", "ProfilerWindows", "PEAKS", "cost_probe",
            "get_ledger", "get_profiler", "ledger_summary", "note_compile",
-           "roofline", "roofline_block", "roofline_from_latency",
-           "request_window", "auto_window",
+           "roofline", "roofline_block", "request_window", "auto_window",
            "enabled", "configure", "reset", "status"]
 
 # per-device-type peak table for the achieved-fraction roofline: NVIDIA's
-# H100 SXM data sheet (67 TFLOP/s outside the tensor cores, 3.35 TB/s of
-# HBM3, at the full 700 W limit). A device type absent from the table
+# H100 SXM data sheet at the full 700 W limit: 67 TFLOP/s of float64 on
+# the tensor cores (34 TFLOP/s outside them; the table keeps the
+# ceiling) and 3.35 TB/s of HBM3. A device type absent from the table
 # gets no achieved fraction.
 PEAKS = {
     "cuda": {"flops": 67e12, "bytes_per_s": 3.35e12},
@@ -447,40 +451,6 @@ def roofline_block(key: str, wall_s: float,
     return block
 
 
-def roofline_from_latency(latency_snapshot: Optional[dict],
-                          backend: Optional[str] = None
-                          ) -> Optional[dict]:
-    """Per-key rooflines joined from a supervisor ``latency``
-    snapshot ({"pool/key": {"dispatch_wall": {...}}}) and the
-    ledger's cost entries.
-    Output keys KEEP the pool prefix (a degraded run's device and
-    host rows for one class must not collide), and host-pool rows
-    are skipped entirely: the ledger cost describes the DEVICE
-    executable, so scoring a pinned host wall against it (and the
-    device backend's peak) would be exactly the laundered
-    utilization claim the PEAKS table refuses. Walls use the exact
-    ``mean_ms`` (sum/count), not the bucket-upper-edge p50. Keys
-    with no ledgered cost (or no wall yet) are skipped."""
-    led = get_ledger()
-    out: dict = {}
-    for row_key, metrics_ in (latency_snapshot or {}).items():
-        pool, _, key = str(row_key).partition("/")
-        if not key or pool.startswith("host"):
-            continue
-        dw = (metrics_ or {}).get("dispatch_wall") or {}
-        wall_ms = dw.get("mean_ms") or dw.get("p50_ms")
-        if not wall_ms:
-            continue
-        entry = led.get(key)
-        if entry is None:
-            continue
-        block = roofline(entry, wall_ms / 1e3,
-                         backend or entry.get("backend"))
-        if block is not None:
-            out[row_key] = block
-    return out or None
-
-
 def ledger_summary(max_keys: int = 64) -> dict:
     """The compact ``compiles`` block of a benchmark artifact: counts
     and, for at most ``max_keys`` keys, each one's compile wall and
@@ -502,6 +472,23 @@ def ledger_summary(max_keys: int = 64) -> dict:
 # ------------------------------------------------------------------
 # on-demand profiler windows
 # ------------------------------------------------------------------
+
+
+def _trace_base_us(path: Optional[str]) -> float:
+    """``baseTimeNanoseconds / 1000`` of a ``trace.json`` that
+    ``export_chrome_trace`` wrote (a key of its first lines), 0.0
+    where the file or the key is missing."""
+    if not path:
+        return 0.0
+    import re
+
+    try:
+        with open(path, encoding="utf-8") as fh:
+            head = fh.read(4096)
+    except OSError:
+        return 0.0
+    m = re.search(r'"baseTimeNanoseconds"\s*:\s*(\d+)', head)
+    return int(m.group(1)) / 1e3 if m else 0.0
 
 
 def _slug(reason: str) -> str:
@@ -758,14 +745,16 @@ class ProfilerWindows:
             meta["status"] = "abandoned"
             self._c_errors.inc()
         # Perfetto-loadable cross-link: the span ring covering the
-        # window, causal ids intact (obs.export writes the Chrome
+        # window (the open window made it record), causal ids intact,
+        # on trace.json's axis (obs.export writes the Chrome
         # trace-event wrapper)
         try:
             from pint_tpu_torch import obs
 
-            if obs.recording():
+            if len(obs.get_tracer()):
                 meta["spans"] = obs.export(
-                    os.path.join(meta["dir"], "spans.json"))
+                    os.path.join(meta["dir"], "spans.json"),
+                    _trace_base_us(meta.get("device_trace")))
         except Exception:
             pass
         self._write_meta(meta)

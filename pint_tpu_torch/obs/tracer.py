@@ -30,14 +30,27 @@ DEGRADED artifact a replayable causal story:
 - **off by default**: ``recording`` is False unless $PINT_TPU_TRACE
   / a stream / an armed flight recorder turns it on, and the
   module-level ``span()``/``event()`` helpers return a shared no-op
-  before allocating anything — the fault-free hot path pays one
-  attribute read and a branch per instrumentation point (measured
-  <1% on the north-star fit, bench.py ``obs`` block).
+  before allocating anything — the fault-free hot path pays one call
+  of ``Tracer.active`` (two attribute reads) and a branch per
+  instrumentation point;
+- **profiler sessions**: while a ``torch.profiler`` session is open
+  anywhere in the process (torch's process-wide flag; the one test is
+  ``Tracer.active``) the tracer records as if it were on, so a
+  profiled window brings the program's spans with it. On a thread the
+  profiler records (its thread-local flag), a context-managed span
+  also enters ``torch.profiler.record_function`` under its own name
+  for its whole life: it is a host range, and a device-side
+  annotation, of the profiler's trace. Held spans (``open_span``,
+  ended explicitly, perhaps on another thread) stay in the ring only.
 
-Timestamps are ``time.monotonic()`` microseconds against the
-tracer's epoch — the same clock the serve layer stamps
-``admitted_at`` with, so retroactive spans (queue-wait, recorded at
-dispatch time from the admission stamp) land on the same axis.
+Timestamps (``ts``) are microseconds of the real-time clock since the
+Unix epoch: the axis ``torch.profiler`` (Kineto) stamps its host
+events on, so a ring span lies on a profiled window's trace.
+Durations come from ``time.perf_counter()``, and ``ts`` is the span's
+perf-counter start mapped onto the real-time axis when it is recorded.
+``perf_us`` and ``monotonic_us`` map stamps of the two monotonic
+clocks onto the axis for retroactive spans (the supervisor's worker
+phases, the serve layer's queue-wait from ``admitted_at``).
 """
 
 from __future__ import annotations
@@ -45,13 +58,24 @@ from __future__ import annotations
 import contextvars
 import json
 import os
+import sys
 import threading
 
 from pint_tpu_torch.runtime import locks
 import time
 from typing import Optional
 
-__all__ = ["Tracer", "SpanHandle", "current", "attach"]
+__all__ = ["Tracer", "SpanHandle", "current", "attach", "CLOCK"]
+
+# what ``ts`` counts, stated in every export
+CLOCK = "realtime_us"
+
+
+def _thread_profiled() -> bool:
+    """True where the open profiler session records this thread's ops
+    (torch's thread-local flag: a thread started inside a session is
+    not recorded unless the session profiles every thread)."""
+    return sys.modules["torch"]._C._autograd._profiler_enabled()
 
 # the active span context: (trace_id, span_id) of the innermost open
 # span on this thread/task, or None outside any span
@@ -93,7 +117,7 @@ class SpanHandle:
     (the serve request root span ends at terminal resolution)."""
 
     __slots__ = ("tracer", "name", "trace_id", "span_id",
-                 "parent_id", "t0", "attrs", "_ended", "_token")
+                 "parent_id", "t0", "attrs", "_ended", "_token", "_rf")
 
     def __init__(self, tracer, name, trace_id, span_id, parent_id,
                  t0, attrs):
@@ -102,10 +126,11 @@ class SpanHandle:
         self.trace_id = trace_id
         self.span_id = span_id
         self.parent_id = parent_id
-        self.t0 = t0
+        self.t0 = t0              # time.perf_counter() at the start
         self.attrs = attrs
         self._ended = False
         self._token = None
+        self._rf = None           # the profiler range, while entered
 
     @property
     def ctx(self):
@@ -121,25 +146,37 @@ class SpanHandle:
                                  parent_id=self.span_id, **attrs)
         return self
 
-    def end(self, status: Optional[str] = None, **attrs):
+    def end(self, status: Optional[str] = None, at: Optional[float] = None,
+            **attrs):
+        """Record the span; ``at`` is its end as a ``time.perf_counter()``
+        stamp already taken (now when None)."""
         if self._ended:
             return
         self._ended = True
+        t1 = time.perf_counter() if at is None else at
         if status is not None:
             self.attrs["status"] = status
         self.attrs.update(attrs)
-        self.tracer._record(self.name, "X", self.t0,
-                            self.tracer._now() - self.t0,
-                            self.trace_id, self.span_id,
-                            self.parent_id, self.attrs)
+        self.tracer._record(self.name, "X", self.tracer.perf_us(self.t0),
+                            (t1 - self.t0) * 1e6, self.trace_id,
+                            self.span_id, self.parent_id, self.attrs)
 
     # -- context-manager form ------------------------------------------
 
     def __enter__(self):
         self._token = _CURRENT.set(self.ctx)
+        prof = self.tracer.torch_profiler
+        if prof._is_profiler_enabled and _thread_profiled():
+            self._rf = prof.record_function(self.name)
+            self._rf.__enter__()
+            # the ring's start at the range's, on the profiler's axis
+            self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, etype, exc, tb):
+        if self._rf is not None:
+            rf, self._rf = self._rf, None
+            rf.__exit__(None, None, None)
         _CURRENT.reset(self._token)
         if etype is not None and "status" not in self.attrs:
             self.attrs["status"] = "error"
@@ -179,11 +216,12 @@ NOOP_SPAN = _NoopSpan()
 class Tracer:
     """Ring-buffered span recorder (module docstring).
 
-    ``recording`` gates everything: False means every entry point
-    returns the shared no-op immediately. The ring holds completed
-    records as plain dicts already shaped like Chrome trace events
-    (``ph`` "X" complete / "i" instant, ``ts``/``dur`` in
-    microseconds against the tracer epoch, causal ids in ``args``).
+    ``recording`` gates everything, with an open profiler session:
+    neither means every entry point returns the shared no-op
+    immediately. The ring holds completed records as plain dicts
+    already shaped like Chrome trace events (``ph`` "X" complete / "i"
+    instant, ``ts`` in real-time microseconds, ``dur`` in
+    microseconds, causal ids in ``args``).
     """
 
     def __init__(self, ring_size: int = 16384, recording: bool = False,
@@ -196,8 +234,11 @@ class Tracer:
         self._ids = 0
         self._traces = 0
         self.dropped = 0          # records overwritten by the ring
-        self.epoch = time.monotonic()
         self._pid = os.getpid()
+        # its ``_is_profiler_enabled``: one attribute read per span
+        from torch.autograd import profiler as torch_profiler
+
+        self.torch_profiler = torch_profiler
         # stream: a writable text file object, or a path to open in
         # append mode; each completed record is one flushed JSON
         # line. Its OWN lock: a slow stream (NFS, full pipe) must
@@ -221,13 +262,19 @@ class Tracer:
     # -- clock / ids ---------------------------------------------------
 
     def _now(self) -> float:
-        """Microseconds since the tracer epoch."""
-        return (time.monotonic() - self.epoch) * 1e6
+        """Now on the ring's axis: real-time microseconds."""
+        return time.time_ns() / 1e3
+
+    def perf_us(self, t_perf: float) -> float:
+        """Map a raw time.perf_counter() stamp onto the ring's axis."""
+        return t_perf * 1e6 + (time.time_ns() / 1e3
+                               - time.perf_counter() * 1e6)
 
     def monotonic_us(self, t_monotonic: float) -> float:
-        """Map a raw time.monotonic() stamp onto the tracer's axis
+        """Map a raw time.monotonic() stamp onto the ring's axis
         (retroactive spans: serve queue-wait from admitted_at)."""
-        return (t_monotonic - self.epoch) * 1e6
+        return t_monotonic * 1e6 + (time.time_ns() / 1e3
+                                    - time.monotonic() * 1e6)
 
     def _next_id(self) -> int:
         with self._lock:
@@ -243,14 +290,23 @@ class Tracer:
 
     # -- span API ------------------------------------------------------
 
+    def active(self) -> bool:
+        """True while spans are recorded: the tracer is on, or a
+        ``torch.profiler`` session is open anywhere in the process
+        (torch.autograd.profiler's module-level flag, set by every
+        session's start and cleared by its stop, whatever thread runs
+        them). Every entry point, here and in ``obs``, asks this."""
+        return self.recording or self.torch_profiler._is_profiler_enabled
+
     def open_span(self, name: str, parent=None, trace: Optional[str] = None,
-                  **attrs) -> SpanHandle:
+                  at: Optional[float] = None, **attrs) -> SpanHandle:
         """Open a span WITHOUT entering its context (held across
         threads/callbacks; ``end()`` records it). ``parent`` defaults
         to the current context; an explicit ``trace=`` forces a ROOT
         span of that trace (the serve admission root, a fresh fit)
-        regardless of ambient context."""
-        if not self.recording:
+        regardless of ambient context. ``at``: the start as a
+        ``time.perf_counter()`` stamp already taken (now when None)."""
+        if not self.active():
             return NOOP_SPAN
         if parent is None and trace is None:
             parent = _CURRENT.get()
@@ -259,12 +315,13 @@ class Tracer:
         else:
             trace_id, parent_id = trace or self.new_trace(), None
         return SpanHandle(self, name, trace_id, self._next_id(),
-                          parent_id, self._now(), attrs)
+                          parent_id,
+                          time.perf_counter() if at is None else at, attrs)
 
     def span(self, name: str, parent=None, trace=None, **attrs):
         """Context-managed span: enters the context (children parent
         automatically) and records on exit."""
-        if not self.recording:
+        if not self.active():
             return NOOP_SPAN
         return self.open_span(name, parent=parent, trace=trace,
                               **attrs)
@@ -273,7 +330,7 @@ class Tracer:
                      **attrs):
         """Instant event. With no explicit parent it attaches under
         the current context (or a fresh root trace)."""
-        if not self.recording:
+        if not self.active():
             return
         if trace_id is None:
             ctx = _CURRENT.get()
@@ -287,9 +344,10 @@ class Tracer:
     def record_span(self, name: str, t0_us: float, t1_us: float,
                     parent=None, trace=None, **attrs):
         """Retroactive complete span from two timestamps already on
-        the tracer axis (``monotonic_us``) — how queue-wait spans are
-        recorded at dispatch time from the admission stamp."""
-        if not self.recording:
+        the ring's axis (``perf_us``, ``monotonic_us``) — how
+        queue-wait spans are recorded at dispatch time from the
+        admission stamp."""
+        if not self.active():
             return
         if parent is not None:
             trace_id, parent_id = parent
@@ -358,15 +416,24 @@ class Tracer:
 
     # -- export --------------------------------------------------------
 
-    def export(self, path: str) -> int:
+    def export(self, path: str, base_us: float = 0.0) -> int:
         """Write the ring as Chrome trace-event JSON (the
         {"traceEvents": [...]} wrapper Perfetto / chrome://tracing
         parse). Returns the number of events written. Atomic
-        (tmp + rename) so a reader never sees a torn file."""
+        (tmp + rename) so a reader never sees a torn file.
+
+        ``ts`` is real-time microseconds since the Unix epoch less
+        ``base_us``, as ``otherData`` states: given a profiler trace's
+        ``baseTimeNanoseconds / 1000``, the events land on that
+        ``trace.json``'s axis, and the two files' events merge."""
         events = sorted(self.records(), key=lambda r: r["ts"])
+        if base_us:
+            events = [dict(r, ts=round(r["ts"] - base_us, 3))
+                      for r in events]
         doc = {"traceEvents": events, "displayTimeUnit": "ms",
                "otherData": {"tracer": "pint_tpu_torch.obs",
-                             "dropped": self.dropped}}
+                             "dropped": self.dropped, "clock": CLOCK,
+                             "ts_base_us": base_us}}
         d = os.path.dirname(os.path.abspath(path))
         if d:
             os.makedirs(d, exist_ok=True)

@@ -65,7 +65,7 @@ import math
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+from pint_tpu_torch import obs
 
 from pint_tpu_torch import gls as _gls
 from pint_tpu_torch import resolve_device
@@ -466,7 +466,7 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
         Fv = F * valid[:, None]
         tmask = valid
         if wideband:
-            with record_function("fit_step.dm_jacobian"):
+            with obs.span("fit_step.dm_jacobian"):
                 M, r, nvec, Fv = _dm_rows(th, tl, fh, fl, batch, cache, M, r,
                                           nvec, Fv, valid, x32)
             tmask = torch.cat([valid, torch.zeros_like(valid)])
@@ -493,7 +493,7 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
     def _jacobian64(th, tl, fh, fl, batch, cache, f0, valid, phase_f64):
         """(frac, M): the fractional phase and the float64 design
         matrix, the primal riding along jacfwd's tangents."""
-        with record_function("fit_step.phase_jacobian"):
+        with obs.span("fit_step.phase_jacobian"):
             jac_nl = None
             if nl_idx_list:
                 def sub(th_nl):
@@ -508,7 +508,7 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
                 frac = phase_f64(th)
         lin_cols = None
         if lin_set:
-            with record_function("fit_step.linear_columns"):
+            with obs.span("fit_step.linear_columns"):
                 lin_cols = model.linear_design_columns(
                     make_pv_x(th, tl, fh, fl), batch, cache, lin_set)
         return frac, _assemble(jac_nl, lin_cols, f0, valid)
@@ -528,7 +528,7 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
             and the design matrix from the float32/dd32 re-run of the
             same chain on ``x32`` (``_inputs32``)."""
             batch32, cache32, ua, ub, fa, fb = x32
-            with record_function("fit_step.phase_jacobian"):
+            with obs.span("fit_step.phase_jacobian"):
                 frac = phase_f64(th)
                 if anchored_on:
                     def phase32(ua_):
@@ -549,7 +549,7 @@ def _build_fit_core(model, toas, device=None, hybrid_jac=False,  # graftlint: al
                     jac_nl = torch.func.jacfwd(sub32)(ua[nl_idx])
             lin_cols = None
             if lin_set:
-                with record_function("fit_step.linear_columns"):
+                with obs.span("fit_step.linear_columns"):
                     lin_cols = model.linear_design_columns(
                         make_pv_x(ua * s32, ub * s32, fa, fb), batch32,
                         cache32, lin_set)
@@ -1030,7 +1030,7 @@ def _gls_core_blocks(blocks, phi, jvar, segs=None, f32mm=False):
     p = M0.shape[1]
     q = blocks[0][1].shape[1]
     mdt = M0.dtype
-    with record_function("fit_step.gram"):
+    with obs.span("fit_step.gram"):
         ws = [valid / nvec for _, _, _, nvec, valid in blocks]
         Mns, colmax, norm = equilibrate_blocks(
             [b[0] for b in blocks], [w.to(mdt) for w in ws])
@@ -1044,7 +1044,7 @@ def _gls_core_blocks(blocks, phi, jvar, segs=None, f32mm=False):
             rss.append(r * sw)
         rCr = reduce_blocks([torch.sum(rs * rs) for rs in rss])
     if segs is not None:
-        with record_function("fit_step.ecorr_segments"):
+        with obs.span("fit_step.ecorr_segments"):
             s_seg = reduce_blocks([sg_(w) for sg_, w in zip(segs, ws)])
             g = jvar / (1.0 + jvar * s_seg)
             E = reduce_blocks([sg_(big * w.to(mdt)[:, None])
@@ -1056,21 +1056,21 @@ def _gls_core_blocks(blocks, phi, jvar, segs=None, f32mm=False):
             Eg = E * sg.to(mdt)[:, None]
 
     def assemble(use32):
-        with record_function("fit_step.gram"):
+        with obs.span("fit_step.gram"):
             Sigma = reduce_blocks([_gls._symm_mm(x, x, use32)
                                    for x in bigss])
             b = reduce_blocks([_gls._symm_mm(x, rs.to(mdt), use32)
                                for x, rs in zip(bigss, rss)])
         rcr = rCr
         if segs is not None:
-            with record_function("fit_step.ecorr_segments"):
+            with obs.span("fit_step.ecorr_segments"):
                 Sigma = Sigma - _gls._symm_mm(Eg, Eg, use32)
                 b = b - Eg.to(torch.float64).T @ (sg * wr_seg)
                 rcr = rCr - torch.sum(g * wr_seg ** 2)
         return Sigma, b, rcr
 
     def solve(Sigma, b, rcr):
-        with record_function("fit_step.cholesky_solves"):
+        with obs.span("fit_step.cholesky_solves"):
             zeros = torch.zeros(p, dtype=torch.float64, device=M0.device)
             Sigma = Sigma + torch.diag(torch.cat([zeros, 1.0 / phi]) if q
                                        else zeros)
@@ -1101,7 +1101,7 @@ def _gls_core_blocks(blocks, phi, jvar, segs=None, f32mm=False):
         xhat = torch.where(ok, xhat, xhat64)
         inv = torch.where(ok, inv, inv64)
         chi2 = torch.where(ok, chi2, chi264)
-    with record_function("fit_step.cholesky_solves"):
+    with obs.span("fit_step.cholesky_solves"):
         colmax, norm = colmax.to(torch.float64), norm.to(torch.float64)
         dparams = -xhat[:p] / colmax / norm  # r ≈ M(θ−θ_true): −x
         cov = inv[:p, :p] / torch.outer(colmax, colmax) \

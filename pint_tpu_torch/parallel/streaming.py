@@ -58,7 +58,7 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+from pint_tpu_torch import obs
 
 from pint_tpu_torch import resolve_device
 from pint_tpu_torch.config import stream_chunk
@@ -865,7 +865,7 @@ class StreamingGLS:
             tl_d = torch.as_tensor(tl, device=dev)
             batch_c, sc_c, F_c, nvec_c, valid_c, eid_c, plan = \
                 self._chunk(k)
-            with record_function("stream.chunk"):
+            with obs.span("stream.chunk"):
                 M, Fv, r0, nvec2, valid2, _, tmask = self.parts_fn(
                     th_d, tl_d, self._fh, self._fl, batch_c, sc_c, F_c,
                     self._phi, nvec_c, valid_c, eid_c, self._jvar)
@@ -931,7 +931,7 @@ class StreamingGLS:
         dev = self.device
 
         def run():
-            with record_function("stream.solve"):
+            with obs.span("stream.solve"):
                 return _finalize_kernel(
                     tuple(x.to(dev) for x in state), self._phi,
                     int(budget), float(tol), self.incoffset, self._sfull)

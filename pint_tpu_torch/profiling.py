@@ -165,15 +165,13 @@ def trace(logdir: Optional[str] = None):
 
 @contextlib.contextmanager
 def annotate(name: str):
-    """Named region: shows up inside torch.profiler traces
-    (``record_function``), feeds the scoreboard, AND opens a tracer
-    span under the current causal context — ONE instrumentation point
-    serves the profiler, the process scoreboard and the structured
-    trace. With tracing off the span is the shared no-op."""
-    from torch.profiler import record_function
-
+    """Named region: feeds the scoreboard AND opens a tracer span under
+    the current causal context, which an open torch.profiler session
+    records as a ``record_function`` range of the same name (``obs``)
+    — ONE instrumentation point serves the profiler, the process
+    scoreboard and the structured trace. With tracing off and no
+    profiler session the span is the shared no-op."""
     from pint_tpu_torch import obs
 
-    with record_function(name), scoreboard.phase(name), \
-            obs.span(name, kind="annotate"):
+    with scoreboard.phase(name), obs.span(name, kind="annotate"):
         yield

@@ -493,18 +493,21 @@ class GWBLikelihood:
         """log L at each grid point, swept in chunks of
         ``config.gwb_chunk()`` supervised dispatches (a chunk boundary
         is a failover and deadline boundary). ``sync=False`` returns a
-        zero-arg collect, with chunk 0 already issued."""
-        from pint_tpu_torch import config
+        zero-arg collect, with chunk 0 already issued. A synchronous
+        call is one span, ``pta.gwb.loglik_grid``, the root of its
+        chunks."""
+        from pint_tpu_torch import config, obs
 
         K = int(chunk) if chunk else config.gwb_chunk()
-        collect = gwb_sweep_driver(
-            self, np.asarray(log10A, dtype=np.float64).ravel(),
-            np.asarray(gamma, dtype=np.float64).ravel(), K, pool=pool,
-            sync=sync, info=info, progress=progress,
-            supervisor=self._sup(), key_tag=key_tag)
-        if sync:
-            return collect()
-        return collect
+        la = np.asarray(log10A, dtype=np.float64).ravel()
+        ga = np.asarray(gamma, dtype=np.float64).ravel()
+        kw = dict(pool=pool, sync=sync, info=info, progress=progress,
+                  supervisor=self._sup(), key_tag=key_tag)
+        if not sync:
+            return gwb_sweep_driver(self, la, ga, K, **kw)
+        with obs.span("pta.gwb.loglik_grid", points=len(la), chunk=K,
+                      pool=pool):
+            return gwb_sweep_driver(self, la, ga, K, **kw)()
 
     def loglik(self, log10_A: float, gamma: float,
                **kw) -> float:
@@ -556,15 +559,17 @@ def gwb_sweep_driver(like: GWBLikelihood, log10A: np.ndarray,
         sl = slice(c * K, (c + 1) * K)
 
         def run():
-            if not placed:
-                placed.update(upload(
-                    {"A": A, "x": x, "G": like.Gamma, "f": like.fcols},
-                    ("A", "x", "G", "f"), like.device))
-            la_c, ga_c = (torch.from_numpy(a[sl]).to(like.device)
-                          for a in (la, ga))
-            return _gwb_outer_batch(
-                placed["A"], placed["x"], rdr_sum, ld_sum, placed["G"],
-                placed["f"], like.tspan, la_c, ga_c)
+            with obs.span("pta.gwb.upload", chunk=c):
+                if not placed:
+                    placed.update(upload(
+                        {"A": A, "x": x, "G": like.Gamma, "f": like.fcols},
+                        ("A", "x", "G", "f"), like.device))
+                la_c, ga_c = (torch.from_numpy(a[sl]).to(like.device)
+                              for a in (la, ga))
+            with obs.span("pta.gwb.outer", chunk=c, points=K):
+                return _gwb_outer_batch(
+                    placed["A"], placed["x"], rdr_sum, ld_sum,
+                    placed["G"], placed["f"], like.tspan, la_c, ga_c)
 
         def run_pinned():
             return _gwb_outer_np(A, x, rdr_sum, ld_sum, like.Gamma,
@@ -593,7 +598,8 @@ def gwb_sweep_driver(like: GWBLikelihood, log10A: np.ndarray,
     def gather(first):
         vals: List[np.ndarray] = []
         for c in range(nchunks):
-            with obs.span("pta.gwb_sweep", chunk=c, points=K, pool=pool):
+            with obs.span("pta.gwb_sweep", chunk=c, points=K, pool=pool,
+                          padded=max(0, (c + 1) * K - npts)):
                 out = first.result() if c == 0 and first is not None \
                     else issue(c)
             like.metrics.bump("gwb_solves")

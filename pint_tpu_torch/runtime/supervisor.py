@@ -68,9 +68,18 @@ start-up).
 
 The worker thread does not inherit the caller's thread-local torch
 state: grad mode and inference mode are captured at issue and
-re-entered in the worker; the current CUDA stream and
-``record_function`` ranges are not carried (a worker runs on the
-default stream).
+re-entered in the worker, and so is the caller's span context
+(``obs.attach``), so spans opened in the payload parent under the
+``dispatch/<key>`` span; the current CUDA stream is not carried (a
+worker runs on the default stream). A ``torch.profiler`` session
+records the worker's ops only where it profiles every thread, but the
+worker's spans reach the ring in any session (``obs.tracer``). While
+spans record, each dispatch gets the child ``dispatch.run`` (``fn`` up
+to its return: host assembly and enqueue) and, when guarded,
+``dispatch.read`` (the worker's host read), stamped by the same clock
+reads as the wall decomposition below, so the self time of a guarded
+``dispatch/<key>`` is the hand-off: worker start and wake, breaker,
+deadline and bookkeeping.
 
 The shadow oracle (``dispatch(shadow=)``): every Nth successful
 device dispatch of a key that passes a ``shadow`` hook
@@ -443,6 +452,8 @@ class DispatchSupervisor:
     def _dispatch_in_span(self, sp, fn, args, kw, key, steps,
                           fallback, guard, pinned, depth, _plan_hits,
                           backend, _fo: Optional[dict] = None):
+        from pint_tpu_torch import obs
+
         plan = faults.active_plan()
         if guard is None:
             # pinned calls stay inline even under a fault plan: they
@@ -514,7 +525,8 @@ class DispatchSupervisor:
                         out = self._guarded_call(
                             fn, args, kw, deadline_s, pre_sleep, nan)
                 else:
-                    out = fn(*args, **kw)
+                    with obs.span("dispatch.run"):
+                        out = fn(*args, **kw)
                     if nan:
                         out = _nan_like(out)
             except DispatchTimeout as e:
@@ -791,14 +803,18 @@ class DispatchSupervisor:
         three phase boundaries — worker start, ``fn`` return (host
         assembly and enqueue done) and the end of the host read and a
         ``torch.cuda.synchronize()`` (the device work done)."""
+        from pint_tpu_torch import obs
+
         box: dict = {}
         done = threading.Event()
         mode = _torch_mode()
+        ctx = obs.current()
 
         def work():
             try:
+                t_start = time.perf_counter()
                 if ph is not None:
-                    ph.append(time.perf_counter())
+                    ph.append(t_start)
                 if pre_sleep:
                     # injected wedge: a real wedge never completes, so
                     # the payload is never run — the worker sleeps out
@@ -809,17 +825,31 @@ class DispatchSupervisor:
                     time.sleep(pre_sleep)
                     raise faults.TransientFault(
                         "injected hang elapsed (dispatch abandoned)")
-                with _enter_mode(mode):
-                    out = fn(*args, **kw)
+                # the spans take the decomposition's stamps
+                run = obs.open_span("dispatch.run", parent=ctx, at=t_start)
+                with obs.attach(run.ctx or ctx), _enter_mode(mode):
+                    try:
+                        out = fn(*args, **kw)
+                    except BaseException:
+                        run.end(status="error")
+                        raise
+                    t_run = time.perf_counter()
+                    run.end(at=t_run)
                     if ph is not None:
-                        ph.append(time.perf_counter())
+                        ph.append(t_run)
                     # the host read INSIDE the worker: a CUDA call
                     # returns at enqueue, so without this the caller's
                     # first read would block OUTSIDE the watchdog
                     out = _host_read(out)
                     if ph is not None:
                         _sync_cuda()
-                        ph.append(time.perf_counter())
+                    t_read = time.perf_counter()
+                    if ph is not None:
+                        ph.append(t_read)
+                    if run is not obs.NOOP_SPAN:
+                        tr = obs.get_tracer()
+                        obs.record_span("dispatch.read", tr.perf_us(t_run),
+                                        tr.perf_us(t_read), parent=ctx)
                 if nan:
                     out = _nan_like(out)
                 box["out"] = out

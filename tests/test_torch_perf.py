@@ -293,11 +293,7 @@ def s_roofline(ns, mp, tmp):
     blk = ns.perf.roofline(entry, 1e-3)
     led = ns.perf.get_ledger()
     led.record("k", backend="cpu", flops=2e9, bytes_accessed=5e8)
-    lat = {"cpu/k": {"dispatch_wall": {"mean_ms": 2.0}},
-           "host/k": {"dispatch_wall": {"mean_ms": 1.0}},
-           "cpu/none": {"dispatch_wall": {"mean_ms": 1.0}}}
     return [blk, ns.perf.roofline({}, 1e-3), ns.perf.roofline(entry, 0.0),
-            ns.perf.roofline_from_latency(lat),
             ns.perf.roofline_block("k", 1e-3)]
 
 
