@@ -206,8 +206,10 @@ def grid_chunk(ntoa: int, nparams: int) -> int:
 
 # the photon likelihood's working set a walker: float64 (N,) blocks alive
 # at once in the vmapped dd phase chain and Gaussian template pdf
-# (measured 24 on an H100: 3,072 MiB for 16 walkers at 1,048,576
-# photons, PERF.md; 32 leaves room), and the budget of a chunk of walkers
+# (measured ~25 on an H100: the benchmark cell nicer-j0030-chain peaks at
+# 3,397,424,640 B with 16-walker batches at 1,048,576 photons and a
+# three-Gaussian template, PERF.md section 4; 32 leaves room), and the
+# budget of a chunk of walkers
 PHOTON_BLOCKS_PER_WALKER = 32
 PHOTON_BUDGET_BYTES = 8 << 30
 

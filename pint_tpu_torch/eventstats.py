@@ -9,7 +9,8 @@ sig2sigma).
 On a CUDA tensor the trig sums always come from the hand-written kernel
 (``ops/z2_harmonics.py``), whatever N and m; on the CPU from its plain
 float64 version. Significance: P(>H) ~= exp(-0.4 H) (de Jager & Busching
-2010); Z^2_m is chi^2 with 2m dof under the null.
+2010); Z^2_m is chi^2 with 2m dof under the null. ``hmw`` is a
+``photon.htest`` span (``m``, ``photons``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pint_tpu_torch import resolve_device
+from pint_tpu_torch import obs, resolve_device
 from pint_tpu_torch.ops.z2_harmonics import z2_harmonics
 
 __all__ = ["z2m", "hm", "hmw", "h_sig", "sig2sigma", "sf_z2m", "sf_hm",
@@ -57,9 +58,10 @@ def hm(phases, m: int = 20, device=None) -> float:
 def hmw(phases, weights, m: int = 20, device=None) -> float:
     """Weighted H-test (reference: eventstats.hmw)."""
     ph, w = _phases_weights(phases, weights, device)
-    z2 = torch.cumsum(_z2_terms(ph, w, m), dim=0)
-    ks = torch.arange(1, m + 1, dtype=torch.float64, device=ph.device)
-    return float(torch.max(z2 - 4.0 * ks + 4.0))
+    with obs.span("photon.htest", m=m, photons=int(ph.shape[0])):
+        z2 = torch.cumsum(_z2_terms(ph, w, m), dim=0)
+        ks = torch.arange(1, m + 1, dtype=torch.float64, device=ph.device)
+        return float(torch.max(z2 - 4.0 * ks + 4.0))
 
 
 def sf_hm(h: float) -> float:

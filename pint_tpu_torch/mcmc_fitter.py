@@ -16,9 +16,10 @@ vmapped calls per step).
 photon-template likelihood sum_i log(w_i f(phi_i(theta)) + 1 - w_i),
 the template fixed (event_optimize's use), with the same three modes;
 the walker batch is one ``torch.func.vmap`` of the dd phase chain and
-the template pdf, in chunks of ``config.photon_walker_chunk`` walkers.
-``CompositeMCMCFitter`` adds radio TOAs' ``BayesianTiming`` posterior to
-it, on the host sampler.
+the template pdf, in chunks of ``config.photon_walker_chunk`` walkers,
+each chunk a ``photon.lnlike`` span (``walkers``, ``photons``,
+``chunk``) counted in ``PhotonMetrics``. ``CompositeMCMCFitter`` adds
+radio TOAs' ``BayesianTiming`` posterior to it, on the host sampler.
 """
 
 from __future__ import annotations
@@ -29,14 +30,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pint_tpu_torch import config
+from pint_tpu_torch import config, obs
 from pint_tpu_torch.bayesian import BayesianTiming, build_batched_phase_eval
 from pint_tpu_torch.fitter import Fitter
 from pint_tpu_torch.residuals import Residuals
 from pint_tpu_torch.sampler import EnsembleSampler
 from pint_tpu_torch.sampling import DeviceEnsembleSampler, DevicePosterior
 
-__all__ = ["MCMCFitter", "PhotonMCMCFitter", "CompositeMCMCFitter"]
+__all__ = ["MCMCFitter", "PhotonMCMCFitter", "CompositeMCMCFitter",
+           "PhotonMetrics"]
 
 
 def _run_sampler(fitter, p0, nsteps: int, progress: bool):
@@ -163,6 +165,39 @@ class MCMCFitter(Fitter):
         return chi2
 
 
+class PhotonMetrics:
+    """Counters of the photon likelihood: bound children of the
+    process-global ``obs.metrics`` registry, one
+    ``pint_tpu_photon_<name>_total`` each, labelled by a per-instance
+    scope, as ``pta.metrics.PTAMetrics`` holds its own; ``snapshot()`` is
+    a derived view and every mutation goes through ``bump()``:
+
+    - ``walker_evals``: walker log-likelihoods, each over every photon;
+    - ``lnlike_batches``: vmapped walker chunks issued.
+    """
+
+    _COUNTERS = ("walker_evals", "lnlike_batches")
+
+    def __init__(self):
+        from pint_tpu_torch.obs import metrics as om
+
+        self.scope = om.new_scope("photon")
+        self._c = {
+            name: om.counter(
+                f"pint_tpu_photon_{name}_total",
+                f"photon likelihood {name.replace('_', ' ')}"
+            ).child(scope=self.scope)
+            for name in self._COUNTERS}
+
+    def bump(self, name: str, n: int = 1):
+        self._c[name].inc(n)
+
+    def snapshot(self) -> dict:
+        """Derived view of the registry children."""
+        return {name: int(child.value())
+                for name, child in self._c.items()}
+
+
 class PhotonMCMCFitter:
     """Sample timing parameters against an unbinned photon-template
     likelihood (reference: MCMCFitterAnalyticTemplate / event_optimize)
@@ -191,6 +226,7 @@ class PhotonMCMCFitter:
         if self.nwalkers % 2:
             self.nwalkers += 1
         self.rng = rng or np.random.default_rng()
+        self.metrics = metrics = PhotonMetrics()
 
         self.theta0, self._tl0, frac_fn = build_batched_phase_eval(
             model, toas)
@@ -208,13 +244,19 @@ class PhotonMCMCFitter:
             return torch.sum(torch.log(w * dens + wc))
 
         core = torch.func.vmap(lnlike_core)
-        chunk = config.photon_walker_chunk(toas.ntoas)
+        nphot = toas.ntoas
+        chunk = config.photon_walker_chunk(nphot)
 
         def core_batch(tl_eff):
-            if tl_eff.shape[0] <= chunk:
-                return core(tl_eff)
-            return torch.cat([core(tl_eff[a:a + chunk])
-                              for a in range(0, tl_eff.shape[0], chunk)])
+            out = []
+            for i, a in enumerate(range(0, tl_eff.shape[0], chunk)):
+                part = tl_eff[a:a + chunk]
+                with obs.span("photon.lnlike", walkers=part.shape[0],
+                              photons=nphot, chunk=i):
+                    out.append(core(part))
+                metrics.bump("lnlike_batches")
+            metrics.bump("walker_evals", tl_eff.shape[0])
+            return out[0] if len(out) == 1 else torch.cat(out)
 
         self._core_batch = core_batch
         if mode == "host":

@@ -124,11 +124,14 @@ class DeviceEnsembleSampler(ChainStats):
                 fallback=self._fallback(run_pinned)).cpu()
 
     def run_mcmc(self, p0: np.ndarray, nsteps: int, seed: int = 0,
-                 mode: str = "scan",
-                 progress: bool = False) -> np.ndarray:
+                 mode: str = "scan", progress: bool = False,
+                 lp0: Optional[np.ndarray] = None) -> np.ndarray:
         """Run the ensemble; returns the final (W, ndim) positions and
         stores the thinned chain in ``self.chain``. ``seed`` anchors the
-        positional random streams (identical across modes)."""
+        positional random streams (identical across modes). ``lp0``, the
+        (W,) log-posteriors of ``p0`` where the caller has them (a chain
+        continued from its last state, ``self.lnprob[-1]``), spares their
+        evaluation (emcee's ``State.log_prob``)."""
         pos = np.array(p0, dtype=np.float64)
         if pos.shape != (self.nwalkers, self.ndim):
             raise ValueError(f"p0 must be {(self.nwalkers, self.ndim)}")
@@ -150,7 +153,12 @@ class DeviceEnsembleSampler(ChainStats):
         dev = self.device
         # the carried ensemble state, on the host between chunks
         pos_h = torch.as_tensor(pos)
-        lp_h = self._initial_lp(pos)
+        if lp0 is None:
+            lp_h = self._initial_lp(pos)
+        else:
+            lp_h = torch.as_tensor(np.array(lp0, dtype=np.float64))
+            if lp_h.shape != (self.nwalkers,):
+                raise ValueError(f"lp0 must be {(self.nwalkers,)}")
         if not bool(torch.any(torch.isfinite(lp_h))):
             raise ValueError("no walker starts at finite posterior")
         chains, lnps = [], []
