@@ -902,6 +902,9 @@ PH_LCFIT_N, PH_ENERGY_N, PH_BATCH_N = 262_144, 65_536, 65_536
 PH_THETA_SIGMA, PH_ERR_REL = 1e-2, 1e-4   # LCFitter card vs CPU
 PH_LOC_SIGMA, PH_WIDTH_REL = 3.0, 0.2     # the full-width fit vs the truth
 PH_WALKERS = 16
+# the photon kernel against its plain version at the full photon count
+# [nats]: the card test's limit (tests/test_torch_photon_lnlike_card.py)
+PH_KERNEL_GAP = 1e-9
 PH_SCALES = (1e-10, 3e-17)    # F0 [Hz], F1 [Hz/s] spread of the batch points
 PH_EXACT_STEPS = 16
 PH_REC_WALKERS, PH_REC_STEPS, PH_REC_OFFSET = 32, 200, 3.0
@@ -3875,13 +3878,16 @@ def photon_batch_check(pb: dict, template, seed: int, tmp: str,
     """(c) PhotonMCMCFitter._photon_lnlike_batch at PH_WALKERS points
     (PH_SCALES about the par's F0 and F1, default_rng(seed)): the card
     against the CPU on the first PH_BATCH_N photons (PH_REL relative), the
-    vmapped device core (lnpost_batch) against the host _lp_batch at full
-    width (bitwise); one half-ensemble profiled (launches, busy ms, idle
-    share) and its peak device memory. Returns (results, fitter, points)."""
+    device core (lnpost_batch) against the host _lp_batch at full width
+    (bitwise), and on the card the hand kernel's route
+    (photon_kernel_check); one half-ensemble profiled (launches, busy ms,
+    idle share) and its peak device memory. Returns (results, fitter,
+    points)."""
     import torch
 
     from pint_tpu_torch import config
     from pint_tpu_torch.event_toas import load_fits_TOAs
+    from pint_tpu_torch.ops import photon_lnlike as pl
 
     w = pb["weights"]
     fitter = photon_fitter(pb["toas"], pb["par"], template, w, dev,
@@ -3902,7 +3908,9 @@ def photon_batch_check(pb: dict, template, seed: int, tmp: str,
     rel = rel_err(ll["gpu"], ll["cpu"], PH_REL)
     host = fitter._lp_batch(th)
     half = torch.as_tensor(th, device=dev)
+    pl.launches = 0
     dev_core = fitter.lnpost_batch(half).cpu().numpy()
+    kernel = photon_kernel_check(fitter, template, w, th, pl.launches, dev)
     same = np.array_equal(host, dev_core)
     times = []
     for _ in range(5):
@@ -3926,7 +3934,7 @@ def photon_batch_check(pb: dict, template, seed: int, tmp: str,
            [min(times), max(times)], **prof, "peak_mib": peak,
            "peak_float64_per_walker_photon": per_wp, "walker_chunk": chunk,
            "lnlike_range": [float(host.min()), float(host.max())],
-           "supervision": cost}
+           "supervision": cost, "kernel": kernel}
     print(f"photon-batch: {PH_WALKERS} walkers, card vs CPU on {n} photons "
           f"{rel:.3e} relative (limit {PH_REL}); device core == host "
           f"_lp_batch at {len(w)} photons: {same}; a half-ensemble "
@@ -3937,6 +3945,72 @@ def photon_batch_check(pb: dict, template, seed: int, tmp: str,
             and np.ptp(host) > 1.0):
         fail("photon-batch: the card's photon likelihood disagrees")
     return res, fitter, th
+
+
+def photon_kernel_check(fitter, template, w, th, launches: int,
+                        dev) -> dict:
+    """The photon likelihood's hand kernel (ops/photon_lnlike.py) on the
+    half-ensemble `th` over every photon: the fitter takes it on the card
+    and not on the CPU (`fused`); the main path's batch of PH_WALKERS
+    walkers made `launches` kernel calls, one on the card; on the card the
+    kernel against its plain version on the same inputs (PH_KERNEL_GAP
+    nats), its device ms beside the plain version's and the least time
+    of portbench/photon_roofline.py's counts, ptxas's registers and
+    spills (a spill fails)."""
+    import torch
+
+    from pint_tpu_torch.mcmc_fitter import fused_inputs
+    from pint_tpu_torch.ops import photon_lnlike as pl
+    from portbench import photon_roofline
+
+    on_card = dev.type == "cuda"
+    batches = -(-PH_WALKERS // pl.MAX_WALKERS)
+    out = {"fused": fitter.fused, "launches": launches,
+           "launches_per_batch": launches / batches}
+    print(f"photon-kernel: fused {fitter.fused}, {launches} kernel calls "
+          f"for the main path's {batches} batch(es) of {PH_WALKERS} walkers")
+    if fitter.fused != on_card or launches != (batches if on_card else 0):
+        fail("photon-kernel: the fitter's route is not the kernel's on the "
+             "card alone, one call a batch")
+    if not on_card:
+        return out
+    ins = fused_inputs(fitter.model, fitter.toas, template, w)
+    tl = torch.as_tensor(fitter._tl0[None, :] + (th - fitter.theta0[None, :]),
+                         device=dev)
+    got = pl.photon_lnlike(ins, tl)
+    plain = pl.photon_lnlike_plain(ins, tl)
+    gap = float(torch.max(torch.abs(got - plain)))
+    ms = cuda_ms(lambda: pl.photon_lnlike(ins, tl))
+    plain_ms = cuda_ms(lambda: pl.photon_lnlike_plain(ins, tl), reps=5,
+                       warmup=1, per_sleep=1)
+    n, ngauss = ins.n, len(ins.gauss.amp)
+    bound_ms = photon_roofline.lnlike_least_s(n, PH_WALKERS, batches,
+                                              ngauss) * 1e3
+    per_batch = n * photon_roofline.PHOTON_BYTES + PH_WALKERS / batches * 8
+    bytes_ms = batches * per_batch \
+        / photon_roofline.PEAKS["hbm_bytes_per_s"] * 1e3
+    bound_by = "bytes" if bytes_ms >= bound_ms else "operations"
+    variant = f"lnlike_kernelILb{int(ins.photons.weights is not None)}E" \
+        f"Lb{int(ins.photons.other_hi is not None)}E"
+    rep = pl.ptxas_report()
+    regs = [v for k, v in rep.items() if variant in k]
+    spills = sum(v["spill_stores"] + v["spill_loads"] for v in rep.values())
+    out.update(n=n, gaussians=ngauss, gap_nats=gap, gap_limit=PH_KERNEL_GAP,
+               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               roofline_share=bound_ms / ms["median"],
+               regs=regs[0]["regs"] if regs else None, spill_bytes=spills,
+               ptxas=rep)
+    print(f"photon-kernel: {PH_WALKERS} walkers x {n} photons, {ngauss} "
+          f"Gaussian(s): kernel vs plain {gap:.3e} nats (limit "
+          f"{PH_KERNEL_GAP}); {ms['median']:.4f} ms (plain "
+          f"{plain_ms['median']:.3f} ms, least {bound_ms:.4f} ms: "
+          f"{100 * bound_ms / ms['median']:.2f} % of the roofline); "
+          f"{out['regs']} registers ({variant}), {spills} spill bytes")
+    if not (gap <= PH_KERNEL_GAP and torch.isfinite(got).all()
+            and regs and not spills):
+        fail("photon-kernel: the kernel disagrees with its plain version, "
+             "or spills")
+    return out
 
 
 def curvature_sigma(fitter, k: int = 0) -> float:
@@ -8360,6 +8434,7 @@ def main() -> int:
     ledger_dir.cleanup()
     print(card())
     k2 = pta["gwb"]["schur_cholesky"]
+    k3 = photon["batch"]["kernel"]
     print(json.dumps({"kernels": [{
         "name": "z2_harmonics", "route": "cuda",
         "source": "pint_tpu_torch/csrc/z2_harmonics.cu",
@@ -8383,7 +8458,19 @@ def main() -> int:
         "bound_ms": k2["bound_ms"], "bound_by": "operations",
         "library_ms": k2["library_ms"]["median"],
         "ms_min_max": [k2["ms"]["min"], k2["ms"]["max"]],
-        "shape": {"K": k2["K"], "n": k2["n"]}}]}))
+        "shape": {"K": k2["K"], "n": k2["n"]}}, {
+        "name": "photon_lnlike", "route": "cuda",
+        "source": "pint_tpu_torch/csrc/photon_lnlike.cu",
+        "replaces": None,
+        "launches_per_batch": k3["launches_per_batch"],
+        "gap_nats": k3["gap_nats"],
+        "ms": k3["ms"]["median"], "plain_ms": k3["plain_ms"]["median"],
+        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+        "library_ms": None,
+        "ms_min_max": [k3["ms"]["min"], k3["ms"]["max"]],
+        "regs": k3["regs"], "spill_bytes": k3["spill_bytes"],
+        "shape": {"walkers": PH_WALKERS, "photons": k3["n"],
+                  "gaussians": k3["gaussians"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

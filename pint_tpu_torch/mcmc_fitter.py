@@ -15,10 +15,14 @@ vmapped calls per step).
 ``PhotonMCMCFitter`` samples the timing parameters against the unbinned
 photon-template likelihood sum_i log(w_i f(phi_i(theta)) + 1 - w_i),
 the template fixed (event_optimize's use), with the same three modes;
-the walker batch is one ``torch.func.vmap`` of the dd phase chain and
-the template pdf, in chunks of ``config.photon_walker_chunk`` walkers,
-each chunk a ``photon.lnlike`` span (``walkers``, ``photons``,
-``chunk``) counted in ``PhotonMetrics``. ``CompositeMCMCFitter`` adds
+on a CUDA model whose free parameters are all Spindown's spin terms and
+whose template is all ``LCGaussian``s (``fused_inputs``), a walker batch
+is one call of the hand-written kernel (``ops/photon_lnlike.py``), in
+chunks of ``photon_lnlike.MAX_WALKERS`` walkers; otherwise it is one
+``torch.func.vmap`` of the dd phase chain and the template pdf, in
+chunks of ``config.photon_walker_chunk`` walkers. Each chunk is a
+``photon.lnlike`` span (``walkers``, ``photons``, ``chunk``) counted in
+``PhotonMetrics``. ``CompositeMCMCFitter`` adds
 radio TOAs' ``BayesianTiming`` posterior to it, on the host sampler.
 """
 
@@ -33,12 +37,16 @@ import torch
 from pint_tpu_torch import config, obs
 from pint_tpu_torch.bayesian import BayesianTiming, build_batched_phase_eval
 from pint_tpu_torch.fitter import Fitter
+from pint_tpu_torch.models.convert import params_from_packed
+from pint_tpu_torch.ops import photon_lnlike
+from pint_tpu_torch.ops.dd import dd_add
 from pint_tpu_torch.residuals import Residuals
 from pint_tpu_torch.sampler import EnsembleSampler
 from pint_tpu_torch.sampling import DeviceEnsembleSampler, DevicePosterior
+from pint_tpu_torch.templates import LCGaussian
 
 __all__ = ["MCMCFitter", "PhotonMCMCFitter", "CompositeMCMCFitter",
-           "PhotonMetrics"]
+           "PhotonMetrics", "fused_inputs", "kernel_route"]
 
 
 def _run_sampler(fitter, p0, nsteps: int, progress: bool):
@@ -173,10 +181,11 @@ class PhotonMetrics:
     a derived view and every mutation goes through ``bump()``:
 
     - ``walker_evals``: walker log-likelihoods, each over every photon;
-    - ``lnlike_batches``: vmapped walker chunks issued.
+    - ``lnlike_batches``: walker chunks issued, vmapped or fused;
+    - ``fused_batches``: the chunks the hand kernel evaluated.
     """
 
-    _COUNTERS = ("walker_evals", "lnlike_batches")
+    _COUNTERS = ("walker_evals", "lnlike_batches", "fused_batches")
 
     def __init__(self):
         from pint_tpu_torch.obs import metrics as om
@@ -198,17 +207,120 @@ class PhotonMetrics:
                 for name, child in self._c.items()}
 
 
+def _phase_parts(model, pv, rows, cache, sub: str):
+    """(Spindown's dd time since PEPOCH, the dd sum of the model's other
+    phase components or None) of ``rows``, the TOAs of ``cache``'s part
+    ``sub`` ("main" or "tzr"), through the model's delay chain, as
+    ``TimingModel._raw_phase_fn`` takes them."""
+    spin = model.components["Spindown"]
+    _, tb, ctx = model._delay_tb(pv, rows, cache, sub)
+    other = None
+    for comp in model.phase_components:
+        if comp is spin or (sub == "tzr"
+                            and not getattr(comp, "apply_to_tzr", True)):
+            continue
+        p = comp.phase(pv, rows, cache[sub], ctx, tb)
+        other = p if other is None else dd_add(other, p)
+    return spin.dt(pv, tb), other
+
+
+def fused_inputs(model, toas, template, weights=None):
+    """``photon_lnlike.Inputs`` of this model, TOAs, template and weights,
+    on the model's device; or
+    None where the kernel cannot evaluate the likelihood: a free
+    parameter that is not one of Spindown's F terms (so a free PEPOCH
+    too), a template primitive that is not an ``LCGaussian`` or whose
+    location lies outside (-1/2, 3/2), more terms or Gaussians than the
+    kernel holds, or a delay or another phase component that moves with
+    the free terms.
+
+    The photons' time since PEPOCH and the other components' phase are
+    evaluated once, at the model's values, through its own delay chain:
+    no free parameter enters them, which a second evaluation with every
+    free term moved confirms. The walker's terms are Spindown's
+    ``f_terms()``."""
+    spin = model.components.get("Spindown")
+    free, frozen, th, tl, fh, fl = model._pack()
+    if spin is None or any(getattr(spin.params.get(n), "prefix", None)
+                           != "F" for n in free):
+        return None
+    prims = template.primitives
+    m = len(prims)
+    theta = torch.as_tensor(np.asarray(template.theta, dtype=np.float64))
+    locs = theta[m + 1:2 * m + 1].tolist()
+    terms = spin.f_terms()
+    if any(type(p) is not LCGaussian for p in prims) or \
+            not 1 <= m <= photon_lnlike.MAX_PEAKS or \
+            not all(-0.5 < loc < 1.5 for loc in locs) or \
+            not 1 <= len(terms) <= photon_lnlike.MAX_TERMS or \
+            not set(terms) <= set(free) | set(frozen):
+        return None
+    dev = model.device
+    cache = model.get_cache(toas, dev)
+    subs = [("main", cache["batch"])]
+    if "tzr_batch" in cache:
+        subs.append(("tzr", cache["tzr_batch"]))
+    moved = tl + np.where(th != 0, np.abs(th) * 1e-6, 1e-6)
+    with torch.no_grad():
+        parts = []
+        for lo in (tl, moved):
+            pv = params_from_packed(free, frozen, th, lo, fh, fl, device=dev)
+            parts.append([_phase_parts(model, pv, rows, cache, sub)
+                          for sub, rows in subs])
+
+    def same(a, b):
+        return (a is None) == (b is None) and (a is None or (
+            torch.equal(a.hi, b.hi) and torch.equal(a.lo, b.lo)))
+
+    if not all(same(a, b) for p, q in zip(*parts) for a, b in zip(p, q)):
+        return None
+    (dt, other), *tzr_part = parts[0]
+    if other is not None and not (other.hi.any() or other.lo.any()):
+        other = None
+    photons = photon_lnlike.Photons(
+        dt.hi.contiguous(), dt.lo.contiguous(),
+        *((None, None) if other is None else
+          (other.hi.contiguous(), other.lo.contiguous())),
+        None if weights is None else torch.as_tensor(
+            weights, dtype=torch.float64, device=dev).contiguous())
+    tzr = None
+    if tzr_part:
+        tdt, toth = tzr_part[0]
+        tzr = (float(tdt.hi[0]), float(tdt.lo[0]),
+               *((0.0, 0.0) if toth is None else
+                 (float(toth.hi[0]), float(toth.lo[0]))))
+    col = {n: i for i, n in enumerate(free)}
+    val = dict(zip(free, zip(th, [0.0] * len(free))))
+    val.update(zip(frozen, zip(fh, fl)))
+    spin_terms = photon_lnlike.Spin(
+        [float(val[n][0]) for n in terms], [float(val[n][1]) for n in terms],
+        [col.get(n, -1) for n in terms], tzr)
+    return photon_lnlike.Inputs(photons, spin_terms,
+                                photon_lnlike.gaussians(theta.tolist(), m))
+
+
+def kernel_route(model, toas, template, weights=None):
+    """The hand kernel's ``fused_inputs`` where ``PhotonMCMCFitter`` takes
+    it, on a CUDA model; None where the vmapped path runs."""
+    if model.device.type != "cuda":
+        return None
+    return fused_inputs(model, toas, template, weights)
+
+
 class PhotonMCMCFitter:
     """Sample timing parameters against an unbinned photon-template
     likelihood (reference: MCMCFitterAnalyticTemplate / event_optimize)
     on the model's device. The phase model is re-evaluated per sample
-    through the dd low word (``bayesian.build_batched_phase_eval``); a
-    batch of walkers is one vmapped pass of the chain and the template's
-    pdf, in chunks of ``config.photon_walker_chunk(N)`` walkers (the
-    result does not depend on the chunk).
+    through the dd low word (``bayesian.build_batched_phase_eval``).
+    Where ``fused_inputs`` finds the likelihood within the hand kernel's
+    reach on a CUDA model (``fused`` True), a batch of walkers is one
+    kernel call a chunk of ``photon_lnlike.MAX_WALKERS``; otherwise it is
+    one vmapped pass of the chain and the template's pdf, in chunks of
+    ``config.photon_walker_chunk(N)`` walkers (the result does not depend
+    on the chunk).
 
     ``mode``: "scan" (default) or "host_loop" run
-    ``sampling.DeviceEnsembleSampler`` over the vmapped likelihood;
+    ``sampling.DeviceEnsembleSampler`` over the batched likelihood;
     "host" runs the host ``EnsembleSampler`` over ``_lp_batch``."""
 
     def __init__(self, toas, model, template, weights=None,
@@ -230,22 +342,17 @@ class PhotonMCMCFitter:
 
         self.theta0, self._tl0, frac_fn = build_batched_phase_eval(
             model, toas)
-        w = (torch.ones(toas.ntoas, dtype=torch.float64, device=dev)
-             if weights is None else
-             torch.as_tensor(weights, dtype=torch.float64, device=dev))
-        wc = 1.0 - w
-        pdf = template._pdf_fn()
-        ttheta = torch.as_tensor(template.theta, dtype=torch.float64,
-                                 device=dev)
-
-        def lnlike_core(tl_eff):
-            phases = torch.remainder(frac_fn(tl_eff), 1.0)
-            dens = pdf(ttheta, phases)
-            return torch.sum(torch.log(w * dens + wc))
-
-        core = torch.func.vmap(lnlike_core)
         nphot = toas.ntoas
-        chunk = config.photon_walker_chunk(nphot)
+        fused = kernel_route(model, toas, template, weights)
+        self.fused = on_kernel = fused is not None
+        if on_kernel:
+            def core(tl_eff):
+                return photon_lnlike.photon_lnlike(fused, tl_eff)
+
+            chunk = photon_lnlike.MAX_WALKERS
+        else:
+            core = torch.func.vmap(self._vmapped_core(frac_fn, weights))
+            chunk = config.photon_walker_chunk(nphot)
 
         def core_batch(tl_eff):
             out = []
@@ -255,6 +362,8 @@ class PhotonMCMCFitter:
                               photons=nphot, chunk=i):
                     out.append(core(part))
                 metrics.bump("lnlike_batches")
+                if on_kernel:
+                    metrics.bump("fused_batches")
             metrics.bump("walker_evals", tl_eff.shape[0])
             return out[0] if len(out) == 1 else torch.cat(out)
 
@@ -272,6 +381,26 @@ class PhotonMCMCFitter:
             self.lnpost_batch = lnpost_batch
             self.sampler = DeviceEnsembleSampler(
                 self.nwalkers, self.nparams, lnpost_batch, device=dev)
+
+    def _vmapped_core(self, frac_fn, weights):
+        """A walker's log-likelihood from its tl_eff row, through the dd
+        phase chain and the template's pdf: the general path, mapped
+        under ``torch.func.vmap``."""
+        dev = self.device
+        w = (torch.ones(self.toas.ntoas, dtype=torch.float64, device=dev)
+             if weights is None else
+             torch.as_tensor(weights, dtype=torch.float64, device=dev))
+        wc = 1.0 - w
+        pdf = self.template._pdf_fn()
+        ttheta = torch.as_tensor(self.template.theta, dtype=torch.float64,
+                                 device=dev)
+
+        def lnlike_core(tl_eff):
+            phases = torch.remainder(frac_fn(tl_eff), 1.0)
+            dens = pdf(ttheta, phases)
+            return torch.sum(torch.log(w * dens + wc))
+
+        return lnlike_core
 
     def _photon_lnlike_batch(self, thetas: np.ndarray) -> np.ndarray:
         """(S,) photon log-likelihoods of an (S, nparams) batch, tl_eff

@@ -8,13 +8,15 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 from pint_tpu_torch import config
 
-__all__ = ["BUILD_DIR", "FLAGS", "nvcc", "paths", "library"]
+__all__ = ["BUILD_DIR", "FLAGS", "nvcc", "paths", "library", "parse_ptxas",
+           "ptxas_report"]
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,3 +60,35 @@ def library(src: Path, stem: str) -> Path:
     os.replace(log_tmp, log)
     os.replace(tmp, so)  # atomic against a concurrent build
     return so
+
+
+def parse_ptxas(text: str) -> dict:
+    """{mangled kernel name: {"regs", "spill_stores", "spill_loads"}} from
+    ptxas -v output."""
+    out: dict = {}
+    cur = None
+    for line in text.splitlines():
+        mk = re.search(r"(?:Compiling entry function|Function properties "
+                       r"for) '?(_Z\w+)", line)
+        if mk:
+            cur = mk.group(1)
+            out.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        ms = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       line)
+        if ms:
+            out[cur]["spill_stores"] = int(ms.group(1))
+            out[cur]["spill_loads"] = int(ms.group(2))
+        mr = re.search(r"Used (\d+) registers", line)
+        if mr:
+            out[cur]["regs"] = int(mr.group(1))
+    return out
+
+
+def ptxas_report(src: Path, stem: str) -> dict:
+    """ptxas's registers and spills for every kernel of ``src``'s build
+    (``parse_ptxas``); builds first if needed."""
+    library(src, stem)
+    return parse_ptxas(paths(src, stem)[1].read_text())

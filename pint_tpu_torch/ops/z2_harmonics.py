@@ -95,46 +95,32 @@ def cost(n: int, m: int, in_bytes: int) -> dict:
             "bytes_accessed": float(in_bytes * n + 16 * m)}
 
 
-def _paths() -> tuple:
-    return cuda_build.paths(_SRC, "z2_harmonics")
-
-
 def build() -> Path:
     """Compile the kernel into build/ unless a library built from this
     exact source and these flags is already there. Returns its path."""
     return cuda_build.library(_SRC, "z2_harmonics")
 
 
+def _by_instantiation(rep: dict) -> dict:
+    out = {}
+    for name, regs in rep.items():
+        mk = re.search(r"z2_kernelI([fd])([fd])Li(\d+)E", name)
+        if mk:
+            out[(mk.group(1), mk.group(2), int(mk.group(3)))] = regs
+    return out
+
+
 def parse_ptxas(text: str) -> dict:
     """{(phi type, weight type, harmonics per block): {"regs", "spill_stores",
-    "spill_loads"}} from ptxas -v output, types as "f" or "d"."""
-    out: dict = {}
-    cur = None
-    for line in text.splitlines():
-        mk = re.search(r"z2_kernelI([fd])([fd])Li(\d+)E", line)
-        if mk and ("Compiling entry function" in line
-                   or "Function properties for" in line):
-            cur = (mk.group(1), mk.group(2), int(mk.group(3)))
-            out.setdefault(cur, {})
-            continue
-        if cur is None:
-            continue
-        ms = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                       line)
-        if ms:
-            out[cur]["spill_stores"] = int(ms.group(1))
-            out[cur]["spill_loads"] = int(ms.group(2))
-        mr = re.search(r"Used (\d+) registers", line)
-        if mr:
-            out[cur]["regs"] = int(mr.group(1))
-    return out
+    "spill_loads"}} from ptxas -v output, types as "f" or "d"
+    (``cuda_build.parse_ptxas``, keyed by instantiation)."""
+    return _by_instantiation(cuda_build.parse_ptxas(text))
 
 
 def ptxas_report() -> dict:
     """ptxas's registers and spills for every kernel instantiation of the
     current build (see parse_ptxas); builds first if needed."""
-    build()
-    return parse_ptxas(_paths()[1].read_text())
+    return _by_instantiation(cuda_build.ptxas_report(_SRC, "z2_harmonics"))
 
 
 def _load() -> ctypes.CDLL:
